@@ -1,0 +1,26 @@
+"""gunrock_tpu_torch — the gunrock_tpu graph library on PyTorch and CUDA.
+
+The port of :mod:`gunrock_tpu` from JAX on a TPU to PyTorch on an NVIDIA
+H100. Module paths mirror the JAX package's, so each module's
+counterpart is found under the same name. Plain tensor code is PyTorch;
+the kernels the JAX package wrote in Pallas are hand-written CUDA for
+``sm_90a`` (``csrc/``), built at first use. This package imports no jax.
+
+Every public call takes ``device`` (default ``"cuda"``) and raises when
+CUDA is absent; pass ``device="cpu"`` for the plain PyTorch path.
+
+Quick start::
+
+    import gunrock_tpu_torch as gtt
+    g = gtt.io.rmat(scale=20, edge_factor=32, seed=1, undirected=True)
+    r = gtt.bfs(g, src="largestdegree", mark_preds=True,
+                direction_optimized=True, device="cuda")
+    r.labels, r.info["m_teps"]
+"""
+
+from . import io  # noqa: F401
+from .graph.csr import CsrGraph, from_coo  # noqa: F401
+from .graph.device import DeviceGraph, to_device  # noqa: F401
+from .models.bfs import bfs  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,180 @@
+"""Command-line entry point for BFS, the counterpart of
+:mod:`gunrock_tpu.cli`.
+
+Usage mirrors the JAX package's CLI (and the reference's
+``tests/bfs/test_bfs.cu``)::
+
+    python -m gunrock_tpu_torch bfs rmat --rmat_scale=20 \
+        --rmat_edgefactor=32 --rmat_seed=1 --undirected \
+        --direction-optimized --src=largestdegree --mark-pred
+
+Each run: load/generate the graph -> run BFS ``--iteration-num`` times on
+``--device`` (default ``cuda``) -> validate against the in-package CPU
+oracle (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the
+Info JSON run record to ``--jsonfile/--jsondir``. Only the ``bfs``
+primitive is ported so far.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from .graph.csr import CsrGraph
+from .io import generators, market
+from .utils import reference as oracle
+from .utils.info import write_info
+
+__all__ = ["main", "build_parser", "load_graph_from_args"]
+
+PRIMITIVES = ("bfs",)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gunrock_tpu_torch",
+        description="Graph analytics on PyTorch and CUDA (Gunrock-parity CLI)")
+    p.add_argument("primitive", choices=PRIMITIVES)
+    p.add_argument("graph_type", nargs="?", default="rmat",
+                   choices=("market", "rmat", "rgg", "smallworld", "binary"),
+                   help="graph source (reference graph_type argv)")
+    p.add_argument("graph_file", nargs="?", default=None,
+                   help="path for market/binary graph types")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, or cpu for the plain "
+                        "PyTorch path)")
+
+    g = p.add_argument_group("graph")
+    g.add_argument("--undirected", action="store_true",
+                   help="symmetrize edges (reference --undirected)")
+    g.add_argument("--rmat_scale", type=int, default=10)
+    g.add_argument("--rmat_edgefactor", type=float, default=16.0)
+    g.add_argument("--rmat_a", type=float, default=0.57)
+    g.add_argument("--rmat_b", type=float, default=0.19)
+    g.add_argument("--rmat_c", type=float, default=0.19)
+    g.add_argument("--rmat_seed", type=int, default=0)
+    g.add_argument("--rgg_nodes", type=int, default=1 << 10)
+    g.add_argument("--rgg_threshold", type=float, default=None)
+    g.add_argument("--sw_nodes", type=int, default=1 << 10)
+    g.add_argument("--sw_k", type=int, default=6)
+    g.add_argument("--sw_p", type=float, default=0.1)
+    g.add_argument("--no-cache", action="store_true",
+                   help="skip the binary .csr cache when loading market")
+
+    r = p.add_argument_group("run")
+    r.add_argument("--src", default="0",
+                   help="source vertex: int | largestdegree | randomize "
+                        "(reference --src)")
+    r.add_argument("--iteration-num", type=int, default=1,
+                   help="number of timed runs (reference --iteration-num)")
+    r.add_argument("--quick", action="store_true",
+                   help="skip CPU reference validation (reference --quick)")
+    r.add_argument("--instrumented", action="store_true",
+                   help="collect per-iteration records (reference "
+                        "--instrumented)")
+    r.add_argument("--quiet", action="store_true")
+    r.add_argument("--queue-sizing", type=float, default=1.0,
+                   help="accepted for parity; queues are exact-size")
+    r.add_argument("--jsonfile", default=None)
+    r.add_argument("--jsondir", default=None)
+    r.add_argument("--seed", type=int, default=0)
+
+    a = p.add_argument_group("primitive options")
+    a.add_argument("--mark-pred", action="store_true",
+                   help="BFS MARK_PREDECESSORS")
+    a.add_argument("--idempotence", action="store_true",
+                   help="accepted for parity (the claim filter is exact)")
+    a.add_argument("--direction-optimized", action="store_true")
+    a.add_argument("--do_a", type=float, default=15.0,
+                   help="DO-BFS push->pull factor (reference do_a=0.001)")
+    a.add_argument("--do_b", type=float, default=18.0,
+                   help="DO-BFS pull->push factor (reference do_b=0.200)")
+    return p
+
+
+def load_graph_from_args(args) -> CsrGraph:
+    if args.graph_type == "market":
+        if not args.graph_file:
+            raise SystemExit("market graph type needs a .mtx path")
+        return market.load_market(args.graph_file,
+                                  undirected=args.undirected or None,
+                                  use_cache=not args.no_cache)
+    if args.graph_type == "binary":
+        if not args.graph_file:
+            raise SystemExit("binary graph type needs a .csr.npz path")
+        return CsrGraph.read_binary(args.graph_file)
+    if args.graph_type == "rmat":
+        # R-MAT graphs are always symmetrized, as in the JAX package's CLI.
+        return generators.rmat(
+            scale=args.rmat_scale, edge_factor=args.rmat_edgefactor,
+            a=args.rmat_a, b=args.rmat_b, c=args.rmat_c,
+            seed=args.rmat_seed, undirected=True)
+    if args.graph_type == "rgg":
+        return generators.rgg(args.rgg_nodes, args.rgg_threshold,
+                              seed=args.seed)
+    if args.graph_type == "smallworld":
+        return generators.small_world(args.sw_nodes, args.sw_k, args.sw_p,
+                                      seed=args.seed)
+    raise SystemExit(f"unknown graph type {args.graph_type}")
+
+
+def _resolve_src(args, g: CsrGraph, rng) -> int:
+    if args.src == "largestdegree":
+        return g.largest_degree_vertex()
+    if args.src == "randomize":
+        return int(rng.integers(0, g.num_nodes))
+    return int(args.src)
+
+
+def _run_bfs(args, g, src):
+    from .models.bfs import bfs
+    res = bfs(g, src, mark_preds=args.mark_pred,
+              direction_optimized=args.direction_optimized,
+              alpha=args.do_a, beta=args.do_b,
+              queue_sizing=args.queue_sizing, idempotence=args.idempotence,
+              instrumented=args.instrumented, device=args.device)
+    ok = True
+    if not args.quick:
+        ok = bool(np.array_equal(res.labels, oracle.cpu_bfs(g, src)))
+        if not args.quiet:
+            print(f"bfs validation: {'CORRECT' if ok else 'INCORRECT'}")
+    return res.info, ok
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    rng = np.random.default_rng(args.seed)
+    g = load_graph_from_args(args)
+    if not args.quiet:
+        print(f"graph: |V|={g.num_nodes} |E|={g.num_edges} "
+              f"({args.graph_type})")
+
+    all_ok, info = True, {}
+    for it in range(max(1, args.iteration_num)):
+        src = _resolve_src(args, g, rng)
+        info, ok = _run_bfs(args, g, src)
+        all_ok &= ok
+        if not args.quiet:
+            mteps = info.get("m_teps")
+            print(f"run {it}: process {info.get('process_ms', 0.0):.3f} ms"
+                  + (f", {mteps:.1f} MTEPS" if mteps else "")
+                  + f", depth {info['search_depth']}"
+                  + f" on {info['gpuinfo']['name']}")
+            if args.instrumented and info.get("phase_ms"):
+                split = ", ".join(
+                    f"{k} {v:.1f} ms/{info['phase_iterations'][k]} it"
+                    for k, v in sorted(info["phase_ms"].items()))
+                duty = info.get("avg_duty")
+                print(f"  phases: {split}"
+                      + (f"; avg_duty {duty:.2f}" if duty else ""))
+
+    path = write_info(info, args.jsonfile, args.jsondir)
+    if path and not args.quiet:
+        print(f"json: {path}")
+    return 0 if all_ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

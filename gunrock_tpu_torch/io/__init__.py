@@ -1,0 +1,2 @@
+from .market import load_market, parse_market_bytes  # noqa: F401
+from .generators import rmat, rgg, small_world, rmat_coo  # noqa: F401

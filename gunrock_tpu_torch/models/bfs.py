@@ -1,0 +1,316 @@
+"""Breadth-first search and direction-optimized BFS (DO-BFS).
+
+Counterpart of :mod:`gunrock_tpu.models.bfs` (reference
+``gunrock/app/bfs/``): label-setting BFS with optional predecessors and
+Beamer-style push/pull switching (``bfs_enactor.cuh:852-939``).
+
+The JAX package compiles the traversal into one ``lax.while_loop``. Here
+the loop runs on the host and reads the frontier count ``n`` and its
+degree sum ``m_f`` once per level; every other step stays on the device.
+The push/pull decisions are the JAX package's, level for level:
+
+  * The direction vote (``models/bfs.py:473-480``) in float32, with the
+    pull-entry threshold chosen by ``fvalid``.
+  * ``fvalid`` (is the frontier queue materialized) depends on the push
+    rung the JAX package would have dispatched to: the smallest entry of
+    ``capacity_ladder(e_pad)`` at least ``max(m_f, n)``. Tensors here are
+    exact-size, so the rung is computed on the host only for that rule.
+    A rung of at least ``v_pad // 4`` leaves the queue unmaterialized.
+
+Push levels filter through the bitmask-gather kernel and pull levels run
+the pull kernel (:mod:`gunrock_tpu_torch.ops.kernels`). Predecessors
+found in push levels keep the JAX package's winner, the highest lane
+(the largest source in the sorted frontier); those found in pull levels
+are filled after the loop by :func:`_fill_preds`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..enactor import (LoopStats, Timer, capacity_ladder, ladder_rung,
+                       record_iteration)
+from ..graph.csr import CsrGraph
+from ..graph.device import DeviceGraph, resolve_device, to_device
+from ..ops.advance import expand
+from ..ops.kernels import (bitmask_gather, pack_bitmask, pull_reached_words,
+                           unpack_bitmask)
+from ..ops.segment import (compact, dedup_winners, frontier_from_mask,
+                           scatter_max, scatter_set)
+from ..utils.info import make_info
+
+__all__ = ["bfs", "BfsResult", "bfs_device"]
+
+INVALID = -1
+
+
+@dataclasses.dataclass
+class BfsResult:
+    labels: np.ndarray            # (V,) int32 depth, -1 unreachable
+    preds: Optional[np.ndarray]   # (V,) int32 predecessor, -1 for src/unreached
+    info: dict                    # reference Info JSON-style run record
+
+
+@dataclasses.dataclass
+class _State:
+    # labels and preds are V-scale and updated IN PLACE by every level,
+    # instead of being copied as the JAX package's functional updates are.
+    labels: torch.Tensor              # (v_pad,) int32
+    preds: Optional[torch.Tensor]     # (v_pad,) int32, None without preds
+    frontier: Optional[torch.Tensor]  # int32 queue; None unless fvalid
+    n: int                            # frontier length
+    m_f: int                          # degree sum of the frontier
+    fvalid: bool                      # frontier queue materialized
+    use_pull: bool
+    stats: LoopStats
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _count(mask: torch.Tensor, deg: torch.Tensor) -> tuple[int, int]:
+    """(number of set lanes, degree sum over them), in one host read."""
+    n, m_f = torch.stack([mask.sum(),
+                          torch.where(mask, deg, 0).sum()]).tolist()
+    return n, m_f
+
+
+def _next_stats(graph: DeviceGraph, labels: torch.Tensor, depth: int,
+                cap: int, is_new: torch.Tensor,
+                dst: torch.Tensor) -> tuple[int, int]:
+    """Next-frontier count and degree sum, counted as the JAX package
+    counts them (``_dense_next_stats``): densely from the labels on rungs
+    of at least ``v_pad // 8``, else over the new lanes (which counts a
+    multi-edge's duplicate lanes twice)."""
+    if cap >= graph.v_pad // 8:
+        return _count(labels == depth, graph.out_degrees())
+    d = dst.long()
+    return _count(is_new, graph.row_offsets[d + 1] - graph.row_offsets[d])
+
+
+def _unvisited(labels: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """The push filter: which ``dst`` lanes are still unvisited.
+
+    Routing rule: the JAX package sends only push rungs of at least 2^21
+    lanes on a TPU through ``bitmask_gather`` and gathers labels
+    directly elsewhere; here every push filter, the single-source fast
+    path included, goes through the bitmask-gather kernel, whatever the
+    size."""
+    return bitmask_gather(pack_bitmask(labels == INVALID), dst) > 0
+
+
+def _single_source_step(graph: DeviceGraph, cap: int, state: _State,
+                        v: int, depth: int) -> int:
+    """Fast path for a 1-vertex frontier: its CSR run is one contiguous
+    slice, with no expansion or dedup. Leaves the queue unmaterialized.
+    Returns the edge count."""
+    start, end = graph.row_offsets[v:v + 2].tolist()
+    nbr = graph.col_indices[start:end]
+    is_new = _unvisited(state.labels, nbr)
+    scatter_set(state.labels, nbr, depth, mask=is_new)
+    if state.preds is not None:
+        scatter_set(state.preds, nbr, v, mask=is_new)
+    state.n, state.m_f = _next_stats(graph, state.labels, depth, cap,
+                                     is_new, nbr)
+    state.frontier, state.fvalid = None, False
+    return end - start
+
+
+def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
+               may_rebuild: bool) -> int:
+    """One push level (``models/bfs.py:141-222``). Returns the edge
+    count."""
+    if may_rebuild and not state.fvalid:
+        # Lazy queue rebuild after levels that left it unmaterialized.
+        frontier0, n0 = frontier_from_mask(state.labels == depth - 1)
+    else:
+        frontier0, n0 = state.frontier, state.n
+    cap = ladder_rung(caps, max(state.m_f, state.n))
+    if may_rebuild and n0 == 1:
+        return _single_source_step(graph, cap, state, int(frontier0[0]),
+                                   depth)
+    ex = expand(graph, torch.sort(frontier0).values)
+    is_new = _unvisited(state.labels, ex.dst)
+    if may_rebuild and cap >= graph.v_pad // 4:
+        # Big rung: duplicate dst lanes write the same depth, so no claim
+        # dedup and no queue. The JAX package's preds are last-wins here;
+        # amax over the sources picks the same (highest) lane, because
+        # the sorted frontier orders the lanes by source.
+        scatter_set(state.labels, ex.dst, depth, mask=is_new)
+        if state.preds is not None:
+            scatter_max(state.preds, ex.dst, ex.src, mask=is_new)
+        state.n, state.m_f = _next_stats(graph, state.labels, depth, cap,
+                                         is_new, ex.dst)
+        state.frontier, state.fvalid = None, False
+        return ex.total
+    keep = dedup_winners(ex.dst, is_new, graph.v_pad)
+    scatter_set(state.labels, ex.dst, depth, mask=keep)
+    if state.preds is not None:
+        scatter_set(state.preds, ex.dst, ex.src, mask=keep)
+    state.frontier, state.n = compact(ex.dst, keep)
+    d = state.frontier.long()
+    state.m_f = int((graph.row_offsets[d + 1] - graph.row_offsets[d]).sum())
+    state.fvalid = True
+    return ex.total
+
+
+def _pull_step(graph: DeviceGraph, state: _State, depth: int) -> int:
+    """Full-edge pull over the CSC (``models/bfs.py:321-370``): v joins
+    the frontier iff it is unvisited and some in-neighbor is in the
+    current frontier. The frontier stays the label mask (no queue)."""
+    words = pack_bitmask(state.labels == depth - 1)
+    reached = unpack_bitmask(pull_reached_words(words, graph), graph.v_pad)
+    new_mask = (state.labels == INVALID) & reached
+    state.labels.masked_fill_(new_mask, depth)
+    state.n, state.m_f = _count(new_mask, graph.out_degrees())
+    state.frontier, state.fvalid = None, False
+    return min(graph.num_edges, 2**31 - 1)
+
+
+def _fill_preds(graph: DeviceGraph, labels: torch.Tensor,
+                preds: torch.Tensor) -> torch.Tensor:
+    """Post-hoc predecessors for vertices discovered in pull levels:
+    pred(v) = the last in-neighbor (CSC order) with label(v) - 1
+    (``models/bfs.py:373-386``). Updates ``preds`` in place."""
+    lab_dst = labels[graph.csc_edge_dst.clamp(0, graph.v_pad - 1).long()]
+    hit = labels[graph.csc_indices.long()] + 1 == lab_dst
+    pos = torch.where(hit, torch.arange(graph.e_pad, dtype=torch.int32,
+                                        device=labels.device), -1)
+    best = torch.cummax(pos, 0).values
+    bpos0 = torch.cat([best.new_full((1,), -1), best])
+    last = bpos0[graph.csc_offsets[1:].long()]
+    start = graph.csc_offsets[:-1]
+    ok = (labels > 0) & (preds == INVALID) & (last >= start)
+    fill = graph.csc_indices[last.clamp(min=0).long()]
+    preds[ok] = fill[ok]
+    return preds
+
+
+def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
+               direction_optimized: bool = False, alpha: float = 15.0,
+               beta: float = 18.0, max_iters: Optional[int] = None,
+               instrument: Optional[list] = None):
+    """BFS on an uploaded graph; returns ``(labels, preds, stats)`` with
+    labels and preds as (v_pad,) tensors on the graph's device (preds is
+    None without ``mark_preds``).
+
+    ``instrument``: pass a list to collect one record per iteration,
+    ``{iteration, ms, frontier, phase, pull}``, as the JAX package's
+    instrumented mode does; ``phase`` is ``"pull"`` or ``"push"``."""
+    if direction_optimized and not graph.has_csc:
+        raise ValueError("direction_optimized BFS needs to_device(with_csc=True)")
+    if not 0 <= src < graph.num_nodes:
+        raise ValueError(f"src {src} out of range [0, {graph.num_nodes})")
+    dev = graph.device
+    caps = capacity_ladder(graph.e_pad)
+    if max_iters is None:
+        max_iters = graph.num_nodes + 1
+    labels = torch.full((graph.v_pad,), INVALID, dtype=torch.int32,
+                        device=dev)
+    labels[src] = 0
+    preds = torch.full_like(labels, INVALID) if mark_preds else None
+    start, end = graph.row_offsets[src:src + 2].tolist()
+    state = _State(labels=labels, preds=preds,
+                   frontier=torch.tensor([src], dtype=torch.int32,
+                                         device=dev),
+                   n=1, m_f=end - start, fvalid=True, use_pull=False,
+                   stats=LoopStats())
+    # The vote's constants, in float32 as the JAX package computes them.
+    f32 = np.float32
+    thresh_valid = f32(graph.num_edges / 32.0)
+    thresh_lazy = f32(graph.num_edges / 4096.0)
+    t0 = time.perf_counter()
+    while state.n > 0 and state.stats.iteration < max_iters:
+        depth = state.stats.iteration + 1
+        use_pull = False
+        if direction_optimized:
+            thresh = thresh_valid if state.fvalid else thresh_lazy
+            vote = f32(state.m_f) * f32(alpha) > thresh
+            sticky = state.use_pull and (
+                f32(state.n) * f32(beta) > f32(graph.num_nodes))
+            use_pull = bool(vote or sticky)
+        if use_pull:
+            edges = _pull_step(graph, state, depth)
+        else:
+            edges = _push_step(graph, caps, state, depth,
+                               may_rebuild=direction_optimized)
+        state.use_pull = use_pull
+        record_iteration(state.stats, frontier_len=state.n, edges=edges)
+        if instrument is not None:
+            _sync(dev)
+            t1 = time.perf_counter()
+            instrument.append({
+                "iteration": state.stats.iteration, "ms": (t1 - t0) * 1e3,
+                "frontier": state.n, "phase": "pull" if use_pull else "push",
+                "pull": use_pull})
+            t0 = t1
+    if mark_preds and direction_optimized:
+        _fill_preds(graph, state.labels, state.preds)
+    return state.labels, state.preds, state.stats
+
+
+def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
+        mark_preds: bool = False, direction_optimized: bool = False,
+        alpha: float = 15.0, beta: float = 18.0,
+        queue_sizing: float = 1.0, max_iters: Optional[int] = None,
+        idempotence: bool = False, instrumented: bool = False,
+        device="cuda") -> BfsResult:
+    """Run BFS from ``src`` and return host results + run record.
+
+    API of :func:`gunrock_tpu.bfs` (reference ``gunrock_bfs``,
+    ``gunrock/gunrock.h:173``) plus ``device``. A :class:`CsrGraph` is
+    uploaded to ``device``; a :class:`DeviceGraph` must already be there.
+    ``queue_sizing`` and ``idempotence`` are accepted for parity and have
+    no effect: queues are exact-size, and the claim filter is exact.
+    ``instrumented`` collects per-iteration records into
+    ``info["per_iteration"]``.
+    """
+    del idempotence, queue_sizing
+    dev = resolve_device(device)
+    timer = Timer()
+    per_iter: Optional[list] = [] if instrumented else None
+    if isinstance(graph, CsrGraph):
+        if src == "largestdegree":
+            src = graph.largest_degree_vertex()
+        with timer.time("preprocess_ms"):
+            dgraph = to_device(graph, with_csc=direction_optimized,
+                               device=dev)
+            _sync(dev)
+    else:
+        if graph.device != dev:
+            raise ValueError(f"graph is on {graph.device}, not {dev}")
+        dgraph = graph
+    src = int(src)
+    num_nodes = dgraph.num_nodes
+
+    with timer.time("process_ms"):
+        labels, preds, stats = bfs_device(
+            dgraph, src, mark_preds=mark_preds,
+            direction_optimized=direction_optimized, alpha=alpha, beta=beta,
+            max_iters=max_iters, instrument=per_iter)
+        _sync(dev)
+
+    labels_np = labels[:num_nodes].cpu().numpy()
+    preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None
+    # Edges visited = out-degree sum over reached vertices (the
+    # reference's DOBFS accounting for m_teps, util/info.cuh:1431).
+    degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
+                   .astype(np.int64))
+    edges_visited = int(degs[labels_np >= 0].sum())
+    info = make_info(
+        primitive="bfs", graph=dgraph, stats=stats, timer=timer,
+        edges_visited=edges_visited,
+        extra={"src": src, "mark_predecessors": mark_preds,
+               "direction_optimized": direction_optimized,
+               "instrumented": instrumented,
+               "search_depth": int(labels_np.max(initial=0)),
+               **({"per_iteration": per_iter} if instrumented else {})},
+    )
+    return BfsResult(labels=labels_np, preds=preds_np, info=info)

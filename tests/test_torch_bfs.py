@@ -1,0 +1,201 @@
+"""The DO-BFS slice of the PyTorch port against the JAX package: labels,
+iteration counts, edge accounting and the per-level push/pull sequence
+are equal; predecessors are valid and equal the JAX package's. Also the
+port's CLI, and that importing the port loads no jax."""
+
+import dataclasses
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import gunrock_tpu as gt
+import gunrock_tpu_torch as gtt
+from gunrock_tpu_torch import cli
+from gunrock_tpu_torch.models.bfs import bfs_device
+from gunrock_tpu_torch.ops import kernels as K
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _grid(mod, n):
+    idx = np.arange(n * n).reshape(n, n)
+    src = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    return mod.from_coo(n * n, src, dst, undirected=True)
+
+
+GRAPHS = {
+    "rmat": lambda m: m.io.rmat(scale=10, edge_factor=8, seed=42,
+                                undirected=True),
+    "grid32": lambda m: _grid(m, 32),
+    # big enough (v_pad // 4 > 4096) that DO pushes take the small rung:
+    # claim dedup and a materialized queue
+    "grid192": lambda m: _grid(m, 192),
+}
+
+# (graph, src, direction_optimized, alpha): default knobs, and a low
+# alpha that makes the direction vote push on some levels.
+CASES = [
+    ("rmat", "largestdegree", True, 15.0),
+    ("rmat", 0, True, 15.0),
+    ("rmat", "largestdegree", True, 0.05),
+    ("rmat", 5, False, 15.0),
+    ("grid32", 0, True, 15.0),
+    # big-rung pushes that leave the queue unmaterialized, so the next
+    # levels vote with the lazy threshold and switch to pull
+    ("grid32", 0, True, 0.05),
+    ("grid32", 33, False, 15.0),
+    ("grid192", 0, True, 0.01),
+]
+
+
+def _check_preds(g, labels, preds, src):
+    assert preds[src] == -1 and (preds[labels < 0] == -1).all()
+    v = np.nonzero(labels > 0)[0]
+    p = preds[v]
+    assert (p >= 0).all() and (labels[p] == labels[v] - 1).all()
+    rows = g.row_offsets
+    for u, w in zip(p, v):
+        assert w in g.col_indices[rows[u]:rows[u + 1]]
+
+
+@pytest.mark.parametrize("name,src,do,alpha", CASES)
+def test_bfs_matches_jax(name, src, do, alpha, monkeypatch):
+    # The JAX package turns its deep micro-loop on off the TPU; the port
+    # follows the TPU default (off), so the JAX side is run that way.
+    monkeypatch.setenv("GUNROCK_BFS_DEEP", "0")
+    jax.clear_caches()
+    gj, gp = GRAPHS[name](gt), GRAPHS[name](gtt)
+    rj = gt.bfs(gj, src, mark_preds=True, direction_optimized=do,
+                alpha=alpha, instrumented=True)
+    rp = gtt.bfs(gp, src, mark_preds=True, direction_optimized=do,
+                 alpha=alpha, instrumented=True, device="cpu")
+    np.testing.assert_array_equal(rp.labels, rj.labels)
+    for k in ("num_iterations", "search_depth", "edges_visited",
+              "per_iteration_frontier", "edges_queued", "src"):
+        assert rp.info[k] == rj.info[k], k
+    phases = [r["phase"] for r in rp.info["per_iteration"]]
+    # With the micro-loop off, the JAX package still labels a push level
+    # "deep" when its queue capacity could hold a micro-loop rung
+    # (models/bfs.py:707,721); such a level ran the push ladder.
+    assert phases == [{"deep": "push"}.get(r["phase"], r["phase"])
+                      for r in rj.info["per_iteration"]]
+    assert [r["pull"] for r in rp.info["per_iteration"]] == \
+        [r["pull"] for r in rj.info["per_iteration"]]
+    if not do:
+        assert set(phases) == {"push"}
+    _check_preds(gp, rp.labels, rp.preds, rp.info["src"])
+    # push levels keep the JAX package's winner lane and pull levels
+    # its last in-neighbour, so the predecessors are the same
+    np.testing.assert_array_equal(rp.preds, rj.preds)
+    assert rp.info["gpuinfo"]["platform"] == "cpu"
+    assert rp.info["engine"] == "gunrock_tpu_torch"
+
+
+def test_bfs_sequence_has_push_and_pull():
+    g = GRAPHS["rmat"](gtt)
+    r = gtt.bfs(g, "largestdegree", direction_optimized=True, alpha=0.05,
+                instrumented=True, device="cpu")
+    phases = [x["phase"] for x in r.info["per_iteration"]]
+    assert "push" in phases and "pull" in phases
+    assert set(r.info["phase_iterations"]) == {"push", "pull"}
+    assert r.preds is None and r.info["m_teps"] > 0
+
+
+def test_bfs_device_graph_and_errors():
+    g = GRAPHS["grid32"](gtt)
+    dg = gtt.to_device(g, with_csc=True, device="cpu")
+    labels, preds, stats = bfs_device(dg, 0, direction_optimized=True)
+    assert labels.shape == (dg.v_pad,) and preds is None
+    assert stats.iteration == 63 and labels[:g.num_nodes].max() == 62
+    r = gtt.bfs(dg, 0, direction_optimized=True, device="cpu")
+    np.testing.assert_array_equal(r.labels, labels[:g.num_nodes].numpy())
+    capped = gtt.bfs(dg, 0, max_iters=3, device="cpu")
+    assert capped.info["num_iterations"] == 3 and capped.labels.max() == 3
+    with pytest.raises(ValueError, match="out of range"):
+        gtt.bfs(dg, g.num_nodes, device="cpu")
+    with pytest.raises(ValueError, match="with_csc"):
+        bfs_device(gtt.to_device(g, device="cpu"), 0,
+                   direction_optimized=True)
+
+
+def test_bfs_unreachable():
+    g = gtt.from_coo(8, [0, 1, 4], [1, 2, 5], undirected=True)
+    r = gtt.bfs(g, 0, mark_preds=True, direction_optimized=True,
+                device="cpu")
+    np.testing.assert_array_equal(r.labels, [0, 1, 2, -1, -1, -1, -1, -1])
+    np.testing.assert_array_equal(r.preds, [-1, 0, 1, -1, -1, -1, -1, -1])
+
+
+def test_cli_bfs_correct(capsys, tmp_path):
+    K.reset_launch_counts()
+    out = tmp_path / "info.json"
+    rc = cli.main(["bfs", "rmat", "--rmat_scale=9", "--rmat_edgefactor=8",
+                   "--undirected", "--direction-optimized",
+                   "--src=largestdegree", "--mark-pred", "--device=cpu",
+                   "--instrumented", f"--jsonfile={out}"])
+    text = capsys.readouterr().out
+    assert rc == 0 and "bfs validation: CORRECT" in text
+    assert "phases:" in text
+    info = json.loads(out.read_text())
+    assert info["primitive"] == "bfs" and info["mark_predecessors"]
+    assert K.LAUNCHES == {"pull_reached_words": 0, "bitmask_gather": 0}
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, gunrock_tpu_torch, gunrock_tpu_torch.cli; "
+            "bad = sorted(m for m in sys.modules "
+            "if m in ('jax', 'gunrock_tpu') "
+            "or m.startswith(('jax.', 'gunrock_tpu.'))); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_pull_step_matches_jax_mid_traversal(level):
+    """One pull level from the same mid-traversal labels, on the same
+    graph arrays (the JAX DeviceGraph's, carried over by from_numpy)."""
+    import jax.numpy as jnp
+    from gunrock_tpu.enactor import init_stats
+    from gunrock_tpu_torch.enactor import LoopStats
+    from gunrock_tpu_torch.graph.device import from_numpy
+    # the packages' models/__init__ rebinds "bfs" to the function
+    jbfs = importlib.import_module("gunrock_tpu.models.bfs")
+    tbfs = importlib.import_module("gunrock_tpu_torch.models.bfs")
+
+    gj = GRAPHS["rmat"](gt)
+    dj = gt.to_device(gj, with_csc=True)
+    src = gj.largest_degree_vertex()
+    full = gt.bfs(gj, src).labels
+    labels = np.full(dj.v_pad, -1, np.int32)
+    labels[:gj.num_nodes] = np.where(full <= level, full, -1)
+    st = jbfs._State(
+        labels=jnp.asarray(labels), preds=jnp.zeros((1,), jnp.int32),
+        frontier=jnp.zeros((dj.v_pad,), jnp.int32), n=jnp.int32(1),
+        m_f=jnp.int32(0), fvalid=jnp.bool_(False), use_pull=jnp.bool_(True),
+        unexplored=jnp.float32(0),
+        stats=dataclasses.replace(init_stats(), iteration=jnp.int32(level)))
+    want = jbfs._pull_step(dj, dj.v_pad, False, st, use_pallas=False)
+
+    dp = from_numpy({f: np.asarray(getattr(dj, f)) for f in
+                     ("row_offsets", "col_indices", "csc_offsets",
+                      "csc_indices", "csc_edge_dst")},
+                    num_nodes=dj.num_nodes, num_edges=dj.num_edges,
+                    v_pad=dj.v_pad, e_pad=dj.e_pad, device="cpu")
+    state = tbfs._State(labels=torch.from_numpy(labels.copy()), preds=None,
+                        frontier=None, n=1, m_f=0, fvalid=False,
+                        use_pull=True, stats=LoopStats(iteration=level))
+    edges = tbfs._pull_step(dp, state, level + 1)
+    np.testing.assert_array_equal(state.labels.numpy(), np.asarray(want[0]))
+    assert (state.n, state.m_f, edges) == \
+        (int(want[3]), int(want[4]), int(want[6]))
+    assert state.n > 0 and not state.fvalid
