@@ -22,6 +22,28 @@ script exits non-zero:
    events.
 5. Timing: best of 5 traversals after a warm-up, MTEPS in ``bench.py``'s
    accounting (out-degree sum over reached vertices / elapsed).
+6. PageRank, power route: ``gunrock_tpu_torch.pagerank`` on the same
+   graph uploaded ``with_blocked_values``, 20 iterations at threshold 0
+   through kernel K4, held against the float64 numpy oracle; rank mass,
+   order, and the iteration count of an early-stopping run.
+7. PageRank, loop route (``instrumented``): kernel K3 an iteration,
+   held against phase 6's ranks; per-iteration records. Then the host
+   graph through ``gunrock_tpu_torch.pagerank(g, device="cuda")``, which
+   uploads ``with_csc`` only and takes the loop route (K3).
+8. HITS and SALSA through ``gunrock_tpu_torch.hits``/``salsa`` on CUDA
+   (kernel K3 over the graph and its reverse view), held against their
+   float64 numpy oracles.
+9. K3 in four modes and K4 at 1 and 20 rounds against their plain
+   PyTorch versions at the flagship's shapes: ``min`` exactly, sums
+   within a relative tolerance; K3 bitwise equal over two launches; K4's
+   change counts equal. Median times from CUDA events.
+10. Timing: best of 5 PageRank (both routes) and HITS runs after a
+    warm-up: ms per iteration and MTEPS (num_edges x iterations, twice
+    that for HITS, per ms).
+
+Each phase's kernel launch counts are reset just before it and read just
+after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
+(K4) and 7-8 (K3).
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +58,8 @@ import time
 SCALE, EDGE_FACTOR, SEED = 20, 32, 1
 RUNS = 5
 TIMED_LAUNCHES = 20
+BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
+PR_ITERS, LINK_ITERS = 20, 10
 
 
 def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
@@ -113,6 +137,248 @@ def check_structure(g, src, lab):
         raise AssertionError("reached vertex with unreached neighbour")
 
 
+def check_close(what, got, want, *, rtol, atol):
+    """Raise unless |got - want| <= atol + rtol * |want| everywhere; print
+    the largest errors."""
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    bad = int((err > atol + rtol * np.abs(want)).sum())
+    rel = float((err / np.maximum(np.abs(want), 1e-30)).max())
+    print(f"[check] {what}: max abs err {float(err.max()):.3e}, max rel err "
+          f"{rel:.3e} (rtol {rtol}, atol {atol}), {bad} outside")
+    if bad:
+        raise AssertionError(f"{what}: {bad} values outside the tolerance")
+
+
+def _errs(got, want) -> tuple[float, float]:
+    """(max abs, max rel) error of a float tensor against its reference;
+    equal entries (0 or inf on both sides) count 0."""
+    import torch
+    err = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    rel = err / want.double().abs().clamp(min=1e-30)
+    return float(err.max()), float(rel.max())
+
+
+def phase_pagerank(gtt, g, dev):
+    """Phases 6 and 7: PageRank's power route (K4) and loop route (K3)
+    through ``gtt.pagerank`` on the flagship, held against the float64
+    oracle. Returns the graph and the main-path launch counts."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.utils import reference as oracle
+
+    # 6. Power route.
+    t0 = time.perf_counter()
+    dg = gtt.to_device(g, with_csc=True, with_edge_src=True,
+                       with_blocked_values=True, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[pr] to_device(with_csc, with_edge_src, with_blocked_values) "
+          f"{time.perf_counter() - t0:.3f} s; has_pull2 {dg.has_pull2}")
+    if not dg.has_pull2:
+        raise AssertionError("the flagship should take the power route")
+    K.reset_launch_counts()
+    power = gtt.pagerank(dg, max_iters=PR_ITERS, threshold=0.0)
+    torch.cuda.synchronize()
+    power_launches = dict(K.LAUNCHES)
+    print(f"[pr] power route: iterations {power.info['num_iterations']}, "
+          f"process {power.info['process_ms']:.3f} ms, kernel launches "
+          f"{power_launches}")
+    if power_launches["pull_power_iters"] <= 0:
+        raise AssertionError("K4 was not launched on the power route")
+    if power.info["num_iterations"] != PR_ITERS:
+        raise AssertionError(f"{power.info['num_iterations']} iterations, "
+                             f"expected {PR_ITERS} at threshold 0")
+    t0 = time.perf_counter()
+    ref = oracle.cpu_pagerank(g, 0.85, PR_ITERS, tol=0.0)
+    print(f"[pr] float64 oracle {time.perf_counter() - t0:.3f} s")
+    check_close("pagerank power route vs float64 oracle", power.ranks, ref,
+                rtol=1e-3, atol=1e-9)
+    # Isolated vertices (no edges) keep only the reset mass, so the total
+    # is below 1 by the same amount in the oracle.
+    mass = float(power.ranks.astype(np.float64).sum())
+    isolated = int((np.diff(g.row_offsets) == 0).sum())
+    print(f"[pr] rank mass {mass:.7f}, oracle {float(ref.sum()):.7f} "
+          f"({isolated} isolated vertices)")
+    if abs(mass - float(ref.sum())) > 1e-4:
+        raise AssertionError("rank mass differs from the oracle's")
+    ids = power.node_ids
+    if not np.array_equal(np.sort(ids), np.arange(g.num_nodes)) or \
+            (np.diff(power.ranks[ids]) > 0).any():
+        raise AssertionError("node_ids is not a descending rank order")
+    early = gtt.pagerank(dg, max_iters=50, threshold=1e-6)
+    print(f"[pr] early stop (threshold 1e-6, max 50): iterations "
+          f"{early.info['num_iterations']}, changed per iteration "
+          f"{early.info['per_iteration_frontier']}")
+
+    # 7. Loop route.
+    K.reset_launch_counts()
+    loop = gtt.pagerank(dg, max_iters=PR_ITERS, threshold=0.0,
+                        instrumented=True)
+    torch.cuda.synchronize()
+    loop_launches = dict(K.LAUNCHES)
+    print(f"[pr] loop route: kernel launches {loop_launches}")
+    if loop_launches["pull_reduce2"] <= 0:
+        raise AssertionError("K3 was not launched on the loop route")
+    check_close("pagerank loop route vs power route", loop.ranks,
+                power.ranks, rtol=1e-4, atol=0.0)
+    print("[pr] loop route per iteration: " + ", ".join(
+        f"{r['iteration']}:{r['ms']:.3f} ms/{r['updated']}"
+        for r in loop.info["per_iteration"]))
+    host = gtt.pagerank(g, max_iters=PR_ITERS, threshold=0.0, device="cuda")
+    torch.cuda.synchronize()
+    host_k3 = K.LAUNCHES["pull_reduce2"] - loop_launches["pull_reduce2"]
+    print(f"[pr] host graph, pagerank(g, device='cuda'): preprocess "
+          f"{host.info['preprocess_ms']:.3f} ms, process "
+          f"{host.info['process_ms']:.3f} ms, K3 launches {host_k3}")
+    if host_k3 != PR_ITERS:
+        raise AssertionError(f"the host graph's run launched K3 {host_k3} "
+                             f"times, expected {PR_ITERS}")
+    check_close("pagerank of the host graph vs power route", host.ranks,
+                power.ranks, rtol=1e-4, atol=0.0)
+    loop_launches["pull_reduce2"] += host_k3
+    return dg, power_launches, loop_launches
+
+
+def phase_link_analysis(gtt, g):
+    """Phase 8: HITS and SALSA through their entry points on CUDA, held
+    against the float64 oracles with the JAX CLI's tolerances. Returns
+    K3's launches over both runs."""
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.utils import reference as oracle
+    launches = 0
+    for prim, atol in (("hits", 1e-4), ("salsa", 1e-5)):
+        K.reset_launch_counts()
+        res = getattr(gtt, prim)(g, max_iters=LINK_ITERS, device="cuda")
+        torch.cuda.synchronize()
+        n = K.LAUNCHES["pull_reduce2"]
+        print(f"[{prim}] preprocess {res.info['preprocess_ms']:.3f} ms, "
+              f"process {res.info['process_ms']:.3f} ms, kernel launches "
+              f"{dict(K.LAUNCHES)}")
+        if n <= 0:
+            raise AssertionError(f"K3 was not launched by {prim}")
+        launches += n
+        hub, auth = getattr(oracle, f"cpu_{prim}")(g, LINK_ITERS)
+        check_close(f"{prim} hubs vs float64 oracle", res.hubs, hub,
+                    rtol=1e-3, atol=atol)
+        check_close(f"{prim} auths vs float64 oracle", res.auths, auth,
+                    rtol=1e-3, atol=atol)
+    return launches
+
+
+def phase_value_kernels(dg, dev):
+    """Phase 9: K3 in four modes and K4 at 1 and PR_ITERS rounds against
+    their plain versions at the flagship's shapes. Returns the JSON
+    fields of both."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import pull2 as P
+    rng = np.random.default_rng(SEED)
+    vals = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
+    init = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
+    # Random CSC edge values in CsrGraph.random_edge_values' range.
+    ev = np.zeros(dg.e_pad, np.float32)
+    ev[:dg.num_edges] = rng.uniform(0.0, 64.0, dg.num_edges)
+    dgv = dataclasses.replace(dg, csc_edge_values=torch.from_numpy(ev).to(dev))
+    k3 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for name, kw in (("sum/none", dict(op="sum", wmode="none")),
+                     ("sum/mul/wpr", dict(op="sum", wmode="mul",
+                                          weights="wpr")),
+                     ("min/add/val", dict(op="min", wmode="add",
+                                          weights="val")),
+                     ("min/none/init", dict(op="min", wmode="none",
+                                            init=init))):
+        got = P.pull_reduce2(vals, dgv, **kw)
+        again = P.pull_reduce2(vals, dgv, **kw)
+        want = P.pull_reduce2_plain(vals, dgv, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        abs_err, rel_err = _errs(got, want)
+        if kw["op"] == "min" and not torch.equal(got, want):
+            raise AssertionError(f"K3 {name} differs from its plain version")
+        if rel_err > 1e-5:
+            raise AssertionError(f"K3 {name}: max rel err {rel_err:.3e}")
+        ms = _median_ms(lambda: P.pull_reduce2(vals, dgv, **kw))
+        plain = _median_ms(lambda: P.pull_reduce2_plain(vals, dgv, **kw),
+                           reps=5)
+        print(f"[kernels] K3 pull_reduce2 {name}: bitwise equal over two "
+              f"launches; max abs err {abs_err:.3e}, max rel err "
+              f"{rel_err:.3e}; {ms:.4f} ms vs plain {plain:.4f} ms")
+        k3["max_abs_err"] = max(k3["max_abs_err"], abs_err)
+        k3["max_rel_err"] = max(k3["max_rel_err"], rel_err)
+        if name == "sum/none":   # the mode HITS, SALSA and the loop run
+            k3["ms"], k3["plain_ms"] = ms, plain
+    n = dg.num_nodes
+    start = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
+                        0.0).float()
+    kw = dict(damping=0.85, reset=0.15 / n, threshold=1e-6)
+    k4 = {}
+    for iters, rtol in ((1, 1e-5), (PR_ITERS, 1e-3)):
+        rank, chg = P.pull_power_iters(dg, start, iters=iters, **kw)
+        want, want_chg = P.pull_power_iters_plain(dg, start, iters=iters,
+                                                  **kw)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _errs(rank, want)
+        if rel_err > rtol:
+            raise AssertionError(f"K4 {iters} rounds: max rel err "
+                                 f"{rel_err:.3e}")
+        if not torch.equal(chg, want_chg):
+            raise AssertionError(f"K4 {iters} rounds: change counts "
+                                 f"{chg.tolist()} vs {want_chg.tolist()}")
+        ms = _median_ms(lambda: P.pull_power_iters(dg, start, iters=iters,
+                                                   **kw))
+        plain = _median_ms(lambda: P.pull_power_iters_plain(
+            dg, start, iters=iters, **kw), reps=3)
+        print(f"[kernels] K4 pull_power_iters {iters} rounds: max abs err "
+              f"{abs_err:.3e}, max rel err {rel_err:.3e} (rtol {rtol}); "
+              f"change counts equal {chg.tolist()}; {ms:.4f} ms vs plain "
+              f"{plain:.4f} ms")
+        k4 = {"max_abs_err": max(k4.get("max_abs_err", 0.0), abs_err),
+              "max_rel_err": max(k4.get("max_rel_err", 0.0), rel_err),
+              "ms": ms, "plain_ms": plain}
+    return k3, k4
+
+
+def phase_value_timing(dg, card):
+    """Phase 10: best of RUNS PageRank (both routes) and HITS runs after a
+    warm-up, graph on the card, fenced with torch.cuda.synchronize()."""
+    import torch
+    from gunrock_tpu_torch.models.hits import hits_device
+    from gunrock_tpu_torch.models.pr import pagerank_device
+
+    def best_of(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(RUNS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), times
+
+    for name, fn, iters, edges in (
+            ("pagerank power route",
+             lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0),
+             PR_ITERS, dg.num_edges),
+            ("pagerank loop route",
+             lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0,
+                                     instrument=[]),
+             PR_ITERS, dg.num_edges),
+            ("hits", lambda: hits_device(dg, LINK_ITERS),
+             LINK_ITERS, 2 * dg.num_edges)):
+        best, times = best_of(fn)
+        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); {iters} "
+              f"iterations, {best / iters:.4f} ms/iteration, "
+              f"{edges * iters / (best * 1000.0):.1f} MTEPS; on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -174,8 +440,8 @@ def main() -> int:
         f"{r['iteration']}:{r['phase']}(n={r['frontier']}, "
         f"{r['ms']:.3f} ms)" for r in info["per_iteration"]))
     print(f"[main] kernel launches: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in BFS_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
     if "pull" not in phases:
@@ -265,7 +531,15 @@ def main() -> int:
         for r in per_level))
     print(f"[timing] card: {card}")
 
+    # 6-7. PageRank; 8. HITS and SALSA; 9. K3/K4 against their plain
+    # versions; 10. timing of the value primitives.
+    dg, power_launches, loop_launches = phase_pagerank(gtt, g, dev)
+    link_launches = phase_link_analysis(gtt, g)
+    k3, k4 = phase_value_kernels(dg, dev)
+    phase_value_timing(dg, card)
+
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
+    pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
     print(json.dumps({"kernels": [
         {"name": "pull_reached_words", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
@@ -275,6 +549,12 @@ def main() -> int:
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
          "launches": launches["bitmask_gather"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
+         "replaces": "gunrock_tpu/ops/pull2.py:57",
+         "launches": loop_launches["pull_reduce2"] + link_launches, **k3},
+        {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
+         "replaces": "gunrock_tpu/ops/pull2.py:605",
+         "launches": power_launches["pull_power_iters"], **k4},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

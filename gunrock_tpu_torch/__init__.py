@@ -16,11 +16,16 @@ Quick start::
     r = gtt.bfs(g, src="largestdegree", mark_preds=True,
                 direction_optimized=True, device="cuda")
     r.labels, r.info["m_teps"]
+    dg = gtt.to_device(g, with_csc=True, with_blocked_values=True)
+    gtt.pagerank(dg, max_iters=20).node_ids[:10]
 """
 
 from . import io  # noqa: F401
 from .graph.csr import CsrGraph, from_coo  # noqa: F401
 from .graph.device import DeviceGraph, to_device  # noqa: F401
 from .models.bfs import bfs  # noqa: F401
+from .models.hits import hits  # noqa: F401
+from .models.pr import pagerank  # noqa: F401
+from .models.salsa import salsa  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,18 +1,23 @@
-"""Command-line entry point for BFS, the counterpart of
-:mod:`gunrock_tpu.cli`.
+"""Command-line entry point, the counterpart of :mod:`gunrock_tpu.cli`.
 
 Usage mirrors the JAX package's CLI (and the reference's
-``tests/bfs/test_bfs.cu``)::
+``tests/<primitive>/test_<primitive>.cu``)::
 
     python -m gunrock_tpu_torch bfs rmat --rmat_scale=20 \
         --rmat_edgefactor=32 --rmat_seed=1 --undirected \
         --direction-optimized --src=largestdegree --mark-pred
+    python -m gunrock_tpu_torch pr rmat --rmat_scale=20 --max-iter=20
+    python -m gunrock_tpu_torch hits rmat --rmat_scale=16 --max-iter=10
 
-Each run: load/generate the graph -> run BFS ``--iteration-num`` times on
-``--device`` (default ``cuda``) -> validate against the in-package CPU
-oracle (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the
-Info JSON run record to ``--jsonfile/--jsondir``. Only the ``bfs``
-primitive is ported so far.
+Each run: load/generate the graph -> run the primitive
+``--iteration-num`` times on ``--device`` (default ``cuda``) -> validate
+against the in-package numpy oracle with the JAX CLI's tolerances
+(skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
+JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
+``pr``/``pagerank``, ``hits`` and ``salsa``. On CUDA, ``pr`` uploads the
+graph ``with_blocked_values``, so that it takes the power route (kernel
+K4) where the JAX package's rule allows; the host graph, which the JAX
+CLI passes, would take the loop route (kernel K3).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .utils.info import write_info
 
 __all__ = ["main", "build_parser", "load_graph_from_args"]
 
-PRIMITIVES = ("bfs",)
+PRIMITIVES = ("bfs", "pr", "pagerank", "hits", "salsa")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,6 +96,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DO-BFS push->pull factor (reference do_a=0.001)")
     a.add_argument("--do_b", type=float, default=18.0,
                    help="DO-BFS pull->push factor (reference do_b=0.200)")
+    a.add_argument("--max-iter", type=int, default=50,
+                   help="PR/HITS/SALSA iterations (reference --max-iter)")
+    a.add_argument("--error", type=float, default=1e-6,
+                   help="PR convergence threshold (reference --error)")
+    a.add_argument("--normalized", action="store_true", default=True)
     return p
 
 
@@ -128,6 +138,12 @@ def _resolve_src(args, g: CsrGraph, rng) -> int:
     return int(args.src)
 
 
+def _report(ok: bool, label: str, quiet: bool) -> bool:
+    if not quiet:
+        print(f"{label} validation: {'CORRECT' if ok else 'INCORRECT'}")
+    return ok
+
+
 def _run_bfs(args, g, src):
     from .models.bfs import bfs
     res = bfs(g, src, mark_preds=args.mark_pred,
@@ -137,10 +153,56 @@ def _run_bfs(args, g, src):
               instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
-        ok = bool(np.array_equal(res.labels, oracle.cpu_bfs(g, src)))
-        if not args.quiet:
-            print(f"bfs validation: {'CORRECT' if ok else 'INCORRECT'}")
+        ok = _report(bool(np.array_equal(res.labels, oracle.cpu_bfs(g, src))),
+                     "bfs", args.quiet)
     return res.info, ok
+
+
+def _run_pr(args, g, src):
+    from .graph.device import resolve_device, to_device
+    from .models.pr import pagerank
+    graph = g
+    if resolve_device(args.device).type == "cuda":
+        graph = to_device(g, with_csc=True, with_blocked_values=True,
+                          device=args.device)
+    res = pagerank(graph, damping=0.85, threshold=args.error,
+                   max_iters=args.max_iter, normalized=args.normalized,
+                   instrumented=args.instrumented, device=args.device)
+    ok = True
+    if not args.quick:
+        ref = oracle.cpu_pagerank(g, 0.85, args.max_iter, args.error,
+                                  normalized=args.normalized)
+        ok = _report(bool(np.allclose(res.ranks, ref, rtol=2e-2, atol=1e-5)),
+                     "pr", args.quiet)
+    return res.info, ok
+
+
+def _run_hits(args, g, src):
+    from .models.hits import hits
+    res = hits(g, max_iters=args.max_iter, device=args.device)
+    ok = True
+    if not args.quick:
+        hub, auth = oracle.cpu_hits(g, args.max_iter)
+        ok = _report(bool(np.allclose(res.hubs, hub, rtol=1e-3, atol=1e-4)
+                          and np.allclose(res.auths, auth, rtol=1e-3,
+                                          atol=1e-4)), "hits", args.quiet)
+    return res.info, ok
+
+
+def _run_salsa(args, g, src):
+    from .models.salsa import salsa
+    res = salsa(g, max_iters=args.max_iter, device=args.device)
+    ok = True
+    if not args.quick:
+        hub, auth = oracle.cpu_salsa(g, args.max_iter)
+        ok = _report(bool(np.allclose(res.hubs, hub, rtol=1e-3, atol=1e-5)
+                          and np.allclose(res.auths, auth, rtol=1e-3,
+                                          atol=1e-5)), "salsa", args.quiet)
+    return res.info, ok
+
+
+_RUNNERS = {"bfs": _run_bfs, "pr": _run_pr, "pagerank": _run_pr,
+            "hits": _run_hits, "salsa": _run_salsa}
 
 
 def main(argv=None) -> int:
@@ -154,13 +216,14 @@ def main(argv=None) -> int:
     all_ok, info = True, {}
     for it in range(max(1, args.iteration_num)):
         src = _resolve_src(args, g, rng)
-        info, ok = _run_bfs(args, g, src)
+        info, ok = _RUNNERS[args.primitive](args, g, src)
         all_ok &= ok
         if not args.quiet:
             mteps = info.get("m_teps")
             print(f"run {it}: process {info.get('process_ms', 0.0):.3f} ms"
                   + (f", {mteps:.1f} MTEPS" if mteps else "")
-                  + f", depth {info['search_depth']}"
+                  + (f", depth {info['search_depth']}"
+                     if "search_depth" in info else "")
                   + f" on {info['gpuinfo']['name']}")
             if args.instrumented and info.get("phase_ms"):
                 split = ", ".join(

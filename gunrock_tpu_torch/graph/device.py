@@ -12,16 +12,23 @@ equals its JAX counterpart element for element:
     repeat ``num_edges`` so padded vertices have degree 0.
   * ``col_indices`` / ``csc_indices`` are padded to ``e_pad`` with 0;
     padded edges are never reachable via offsets.
-  * ``csc_edge_dst`` (destination of each CSC edge) uses ``v_pad`` as
-    the fill.
+  * ``edge_src`` (source of each CSR edge) and ``csc_edge_dst``
+    (destination of each CSC edge) use ``v_pad`` as the fill.
+  * ``edge_values`` / ``csc_edge_values`` are padded with 0.0.
 
 The blocked-CSC and pull-v2 layouts of the JAX package are not built:
-the Hopper pull kernel reads the plain CSC.
+the Hopper pull kernels read the plain CSC, so every graph with a CSC
+takes them, with ``inv_outdeg``, the per-vertex weight behind the JAX
+package's ``pv2_wpr`` edge stream. ``with_blocked_values`` only marks
+the graph as the JAX package marks it; with ``has_pull2`` it picks
+PageRank's route (power or loop) by the JAX package's rule, so that the
+route and the iteration counts are the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -30,12 +37,19 @@ import torch
 from .csr import CsrGraph
 
 __all__ = ["DeviceGraph", "to_device", "from_numpy", "round_up",
-           "resolve_device"]
+           "resolve_device", "sync"]
 
 LANE = 128
 
-_FIELDS = ("row_offsets", "col_indices", "csc_offsets", "csc_indices",
-           "csc_edge_dst")
+# Per-edge int32 arrays, the offsets, and the float32 edge values that
+# from_numpy takes, with the expected length of each ("v" = v_pad + 1,
+# "e" = e_pad).
+_INT_FIELDS = {"row_offsets": "v", "col_indices": "e", "edge_src": "e",
+               "csc_offsets": "v", "csc_indices": "e", "csc_edge_dst": "e"}
+_FLOAT_FIELDS = {"edge_values": "e", "csc_edge_values": "e"}
+_CSC = ("csc_offsets", "csc_indices", "csc_edge_dst")
+# The JAX package's blocked layouts, which from_numpy drops.
+_TPU_LAYOUT_PREFIXES = ("pv2_", "bcsc_")
 
 
 def round_up(x: int, m: int = LANE) -> int:
@@ -47,6 +61,14 @@ def _pad(sz: int) -> int:
     return round_up(max(sz, 1), 8192 if sz >= 8192 else LANE)
 
 
+def pull2_ok(v_pad: int) -> bool:
+    """Whether the JAX package builds its pull-v2 layout for a graph of
+    ``v_pad`` padded vertices asked ``with_blocked_values``
+    (``graph/device.py:464-467``): that decides PageRank's power route."""
+    return (32 <= v_pad // LANE <= 16384 and v_pad % 1024 == 0
+            and os.environ.get("GUNROCK_PULL2", "1") != "0")
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device`` for a public call's ``device`` argument. Raises
     when CUDA is asked for and absent: nothing moves to the CPU unasked."""
@@ -56,6 +78,12 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +100,23 @@ class DeviceGraph:
     e_pad: int
     row_offsets: torch.Tensor                   # (v_pad+1,) int32
     col_indices: torch.Tensor                   # (e_pad,)   int32
+    edge_values: Optional[torch.Tensor] = None  # (e_pad,)   float32
+    edge_src: Optional[torch.Tensor] = None     # (e_pad,)   int32, fill v_pad
     # Inverse CSR: csc row v lists the in-neighbors (sources) of v.
     csc_offsets: Optional[torch.Tensor] = None  # (v_pad+1,) int32
     csc_indices: Optional[torch.Tensor] = None  # (e_pad,)   int32
+    csc_edge_values: Optional[torch.Tensor] = None  # (e_pad,) float32
     csc_edge_dst: Optional[torch.Tensor] = None  # (e_pad,)  int32, fill v_pad
+    # 1/out-degree per vertex (0 where the degree is 0), float64 division
+    # cast to float32 as the JAX package's build_pull2 computes it
+    # (graph/pull2.py:93-98); set with the CSC.
+    inv_outdeg: Optional[torch.Tensor] = None   # (v_pad,) float32
     undirected: bool = False
+    # Built with_blocked_values, as the JAX package marks its graphs.
+    has_blocked_values: bool = False
+    # The JAX package would hold its pull-v2 layout for this graph
+    # (pull2_ok): PageRank takes the power route.
+    has_pull2: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +129,29 @@ class DeviceGraph:
     def out_degrees(self) -> torch.Tensor:
         """(v_pad,) int32 out-degree of every (padded) vertex."""
         return self.row_offsets[1:] - self.row_offsets[:-1]
+
+    def reverse(self) -> "DeviceGraph":
+        """The transpose, on the same tensors: its CSR is this graph's CSC
+        and its CSC this graph's CSR, so a reduction over out-edges here
+        is a pull over in-edges there (kernel K3). Needs the CSC and
+        ``edge_src``, which becomes the reverse CSC's ``csc_edge_dst``."""
+        if not self.has_csc or self.edge_src is None:
+            raise ValueError("reverse() needs to_device(with_csc=True, "
+                             "with_edge_src=True)")
+        return dataclasses.replace(
+            self, row_offsets=self.csc_offsets, col_indices=self.csc_indices,
+            edge_values=self.csc_edge_values, edge_src=self.csc_edge_dst,
+            csc_offsets=self.row_offsets, csc_indices=self.col_indices,
+            csc_edge_values=self.edge_values, csc_edge_dst=self.edge_src,
+            inv_outdeg=_inv_degree(self.csc_offsets))
+
+
+def _inv_degree(offsets: torch.Tensor) -> torch.Tensor:
+    """(v_pad,) float32 1/degree of each row of an offset array, 0 where
+    the degree is 0: float64 division cast to float32, as the JAX
+    package's ``build_pull2`` computes it (``graph/pull2.py:93-98``)."""
+    deg = (offsets[1:] - offsets[:-1]).double()
+    return torch.where(deg > 0, 1.0 / deg, 0.0).float()
 
 
 def _pad_offsets(row_offsets: np.ndarray, v_pad: int,
@@ -104,9 +167,56 @@ def _pad_edges(arr: np.ndarray, e_pad: int, fill) -> np.ndarray:
     return out
 
 
+def _seg_ids(offsets: np.ndarray) -> np.ndarray:
+    """Row id of every edge of an offset array (COO rows)."""
+    off = np.asarray(offsets).astype(np.int64)
+    return np.repeat(np.arange(off.shape[0] - 1, dtype=np.int32),
+                     np.diff(off))
+
+
+def _host_fields(g: CsrGraph, t: Optional[CsrGraph], v_pad: int,
+                 e_pad: int, *, with_edge_values: bool,
+                 with_edge_src: bool) -> dict:
+    """Padded numpy arrays of ``g`` and, when ``t`` (the transpose of
+    ``g``) is given, of its CSC."""
+    def values(h: CsrGraph) -> np.ndarray:
+        v = h.edge_values
+        if v is None:
+            v = np.ones(h.num_edges, dtype=np.float32)
+        return _pad_edges(v.astype(np.float32), e_pad, np.float32(0.0))
+
+    fields = {
+        "row_offsets": _pad_offsets(g.row_offsets, v_pad, g.num_edges),
+        "col_indices": _pad_edges(g.col_indices.astype(np.int32), e_pad, 0),
+    }
+    if with_edge_values:
+        fields["edge_values"] = values(g)
+    if with_edge_src:
+        fields["edge_src"] = _pad_edges(_seg_ids(g.row_offsets), e_pad,
+                                        v_pad)
+    if t is not None:
+        fields["csc_offsets"] = _pad_offsets(t.row_offsets, v_pad,
+                                             t.num_edges)
+        fields["csc_indices"] = _pad_edges(t.col_indices.astype(np.int32),
+                                           e_pad, 0)
+        fields["csc_edge_dst"] = _pad_edges(_seg_ids(t.row_offsets), e_pad,
+                                            v_pad)
+        if with_edge_values:
+            fields["csc_edge_values"] = values(t)
+    return fields
+
+
 def to_device(g: CsrGraph, *, with_csc: bool = False,
+              with_edge_values: bool = False, with_edge_src: bool = False,
+              with_blocked_values: bool = False,
               device="cuda") -> DeviceGraph:
     """Upload a host CSR (and its CSC with ``with_csc``) to ``device``.
+
+    ``with_edge_values`` uploads the edge values (ones when the graph has
+    none), on the CSC too with ``with_csc``; ``with_edge_src`` the
+    per-edge source ids; ``with_blocked_values`` marks the graph as the
+    JAX package marks it, for PageRank's route (see the module
+    docstring).
 
     The kernels index with int32, so graphs whose padded edge count
     reaches 2^31 - 2 (the JAX package's ``sizet64`` rule) are refused.
@@ -114,73 +224,88 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
     dev = resolve_device(device)
     v_pad = _pad(g.num_nodes)
     e_pad = _pad(g.num_edges)
-    fields = {
-        "row_offsets": _pad_offsets(g.row_offsets, v_pad, g.num_edges),
-        "col_indices": _pad_edges(g.col_indices.astype(np.int32), e_pad, 0),
-    }
-    if with_csc:
-        t = g.csc()
-        fields["csc_offsets"] = _pad_offsets(t.row_offsets, v_pad,
-                                             t.num_edges)
-        fields["csc_indices"] = _pad_edges(t.col_indices.astype(np.int32),
-                                           e_pad, 0)
-        fields["csc_edge_dst"] = _pad_edges(
-            np.repeat(np.arange(t.num_nodes, dtype=np.int32),
-                      np.diff(t.row_offsets)), e_pad, v_pad)
+    fields = _host_fields(g, g.csc() if with_csc else None, v_pad, e_pad,
+                          with_edge_values=with_edge_values,
+                          with_edge_src=with_edge_src)
     return from_numpy(fields, num_nodes=g.num_nodes, num_edges=g.num_edges,
                       v_pad=v_pad, e_pad=e_pad, device=dev,
-                      undirected=bool(g.undirected))
+                      undirected=bool(g.undirected),
+                      with_blocked_values=with_blocked_values)
+
+
+def _check_seg_ids(name: str, arr: np.ndarray, offsets: np.ndarray,
+                   num_edges: int) -> None:
+    if not np.array_equal(arr[:num_edges], _seg_ids(offsets)):
+        raise ValueError(f"{name} does not match its offsets")
 
 
 def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
-               e_pad: int, device="cuda",
-               undirected: bool = False) -> DeviceGraph:
-    """Build a :class:`DeviceGraph` from padded numpy arrays, keyed by
-    field name (``row_offsets``, ``col_indices`` and optionally the three
-    ``csc_*`` arrays), such as ``np.asarray`` of a JAX ``DeviceGraph``'s
-    fields. The padding is kept as given; shapes and offsets are checked
-    here, on the host, because the kernels trust them."""
+               e_pad: int, device="cuda", undirected: bool = False,
+               with_blocked_values: bool = False) -> DeviceGraph:
+    """Build a :class:`DeviceGraph` from padded numpy arrays keyed by
+    field name, such as ``np.asarray`` of a JAX ``DeviceGraph``'s fields:
+    ``row_offsets`` and ``col_indices`` (required), ``edge_values``,
+    ``edge_src``, and the CSC's ``csc_offsets``, ``csc_indices``,
+    ``csc_edge_dst`` (these three together) and ``csc_edge_values``.
+
+    The JAX package's TPU layouts (keys starting ``pv2_`` or ``bcsc_``)
+    are ignored: the Hopper kernels read the plain CSC. Pass
+    ``with_blocked_values`` as the JAX graph was built
+    (``has_blocked_values``). With the CSC, ``inv_outdeg`` is computed
+    here from ``row_offsets``. Any other key is refused.
+
+    The padding is kept as given; shapes, offsets and per-edge row ids
+    are checked here, on the host, because the kernels trust them."""
     dev = resolve_device(device)
     if e_pad >= 2**31 - 2:
         raise ValueError("graphs past 2^31 edges need 64-bit offsets, "
                          "which the int32 kernels do not take yet")
-    unknown = set(fields) - set(_FIELDS)
+    fields = {k: v for k, v in fields.items()
+              if not k.startswith(_TPU_LAYOUT_PREFIXES) and v is not None}
+    unknown = set(fields) - set(_INT_FIELDS) - set(_FLOAT_FIELDS)
     if unknown:
         raise ValueError(f"unknown DeviceGraph fields {sorted(unknown)}")
-    shapes = {"row_offsets": v_pad + 1, "col_indices": e_pad,
-              "csc_offsets": v_pad + 1, "csc_indices": e_pad,
-              "csc_edge_dst": e_pad}
-    tensors = {}
+    if "row_offsets" not in fields or "col_indices" not in fields:
+        raise ValueError("row_offsets and col_indices are required")
+    csc = [n for n in _CSC if n in fields]
+    if csc and len(csc) != 3:
+        raise ValueError("csc_offsets, csc_indices and csc_edge_dst go "
+                         "together")
+    if "csc_edge_values" in fields and not csc:
+        raise ValueError("csc_edge_values needs the CSC")
+    lengths = {"v": v_pad + 1, "e": e_pad}
+    arrays = {}
     for name, arr in fields.items():
         arr = np.asarray(arr)
-        if arr.shape != (shapes[name],):
+        want = lengths[{**_INT_FIELDS, **_FLOAT_FIELDS}[name]]
+        if arr.shape != (want,):
             raise ValueError(f"{name} has shape {arr.shape}, "
-                             f"expected ({shapes[name]},)")
+                             f"expected ({want},)")
         if name.endswith("offsets"):
             d = np.diff(arr.astype(np.int64))
             if arr[0] != 0 or arr[-1] != num_edges or (d < 0).any():
                 raise ValueError(f"{name} is not a nondecreasing offset "
                                  f"array from 0 to num_edges={num_edges}")
-        elif name != "csc_edge_dst" and arr.size and (
+        elif name in ("col_indices", "csc_indices") and arr.size and (
                 arr.min() < 0 or arr.max() >= max(num_nodes, 1)):
             raise ValueError(f"{name} holds vertex ids outside "
                              f"[0, {num_nodes})")
-        tensors[name] = torch.from_numpy(
-            np.array(arr, dtype=np.int32)).to(dev)
-    if "row_offsets" not in tensors or "col_indices" not in tensors:
-        raise ValueError("row_offsets and col_indices are required")
-    csc = [n for n in _FIELDS[2:] if n in tensors]
-    if csc and len(csc) != 3:
-        raise ValueError("csc_offsets, csc_indices and csc_edge_dst go "
-                         "together")
+        dtype = np.int32 if name in _INT_FIELDS else np.float32
+        arrays[name] = np.array(arr, dtype=dtype)
+    # The pull kernels read per-edge row ids where their plain versions
+    # read offsets: the two must describe the same rows.
+    if "edge_src" in arrays:
+        _check_seg_ids("edge_src", arrays["edge_src"],
+                       arrays["row_offsets"], num_edges)
     if csc:
-        # The pull kernel reads csc_edge_dst where its plain version reads
-        # csc_offsets: the two must describe the same rows.
-        off = np.asarray(fields["csc_offsets"]).astype(np.int64)
-        rows = np.repeat(np.arange(v_pad, dtype=np.int32), np.diff(off))
-        if not np.array_equal(
-                np.asarray(fields["csc_edge_dst"])[:num_edges], rows):
-            raise ValueError("csc_edge_dst does not match csc_offsets")
+        _check_seg_ids("csc_edge_dst", arrays["csc_edge_dst"],
+                       arrays["csc_offsets"], num_edges)
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    if csc:
+        tensors["inv_outdeg"] = _inv_degree(tensors["row_offsets"])
     return DeviceGraph(num_nodes=int(num_nodes), num_edges=int(num_edges),
                        v_pad=int(v_pad), e_pad=int(e_pad),
-                       undirected=undirected, **tensors)
+                       undirected=undirected,
+                       has_blocked_values=bool(with_blocked_values),
+                       has_pull2=bool(with_blocked_values) and pull2_ok(v_pad),
+                       **tensors)

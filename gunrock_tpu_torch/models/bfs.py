@@ -36,7 +36,7 @@ import torch
 from ..enactor import (LoopStats, Timer, capacity_ladder, ladder_rung,
                        record_iteration)
 from ..graph.csr import CsrGraph
-from ..graph.device import DeviceGraph, resolve_device, to_device
+from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand
 from ..ops.kernels import (bitmask_gather, pack_bitmask, pull_reached_words,
                            unpack_bitmask)
@@ -68,11 +68,6 @@ class _State:
     fvalid: bool                      # frontier queue materialized
     use_pull: bool
     stats: LoopStats
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _count(mask: torch.Tensor, deg: torch.Tensor) -> tuple[int, int]:
@@ -244,7 +239,7 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
         state.use_pull = use_pull
         record_iteration(state.stats, frontier_len=state.n, edges=edges)
         if instrument is not None:
-            _sync(dev)
+            sync(dev)
             t1 = time.perf_counter()
             instrument.append({
                 "iteration": state.stats.iteration, "ms": (t1 - t0) * 1e3,
@@ -282,7 +277,7 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
         with timer.time("preprocess_ms"):
             dgraph = to_device(graph, with_csc=direction_optimized,
                                device=dev)
-            _sync(dev)
+            sync(dev)
     else:
         if graph.device != dev:
             raise ValueError(f"graph is on {graph.device}, not {dev}")
@@ -295,7 +290,7 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
             dgraph, src, mark_preds=mark_preds,
             direction_optimized=direction_optimized, alpha=alpha, beta=beta,
             max_iters=max_iters, instrument=per_iter)
-        _sync(dev)
+        sync(dev)
 
     labels_np = labels[:num_nodes].cpu().numpy()
     preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None

@@ -27,8 +27,11 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "unpack_bitmask", "bitmask_gather", "bitmask_gather_plain",
            "pull_reached_words", "pull_reached_words_plain"]
 
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0}
+# Kernel launches per wrapper since the last reset_launch_counts(), for
+# every CUDA kernel of the port: K1 and K2 here, K3 and K4 in
+# ops/pull2.py.
+LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
+            "pull_reduce2": 0, "pull_power_iters": 0}
 
 
 def reset_launch_counts() -> None:

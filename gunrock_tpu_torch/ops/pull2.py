@@ -1,0 +1,237 @@
+"""Value pulls over the CSC: kernels K3 (``pull_reduce2``) and K4
+(``pull_power_iters``).
+
+Counterpart of :mod:`gunrock_tpu.ops.pull2` (``pull_reduce2``,
+``pull_power_iters``) and of ``pull_vertex_reduce`` in
+:mod:`gunrock_tpu.ops.pallas_kernels`. Every value primitive reads one
+operation::
+
+    out[v] = init[v] (+) ((+) over in-edges (u, v) of f(values[u], w_uv))
+
+with (+) ``sum`` or ``min`` and f ``none`` (values[u]), ``add``
+(values[u] + w), ``mul`` (values[u] * w) or ``incr`` (values[u] + 1). The
+weight stream is ``val`` (the CSC's edge values) or ``wpr`` (1/out-degree
+of the source, ``graph.inv_outdeg``). The JAX package computes it on its
+TPU pull-v2 layout; here it reads the plain CSC (``csc_indices``,
+``csc_edge_dst``, ``csc_offsets``) of any graph uploaded ``with_csc``.
+
+As in :mod:`gunrock_tpu_torch.ops.kernels`, each kernel has a plain
+PyTorch version (``*_plain``), a wrapper that launches the CUDA kernel in
+``csrc/pull_kernels.cu`` for CUDA tensors (or raises), and a launch count
+in :data:`~gunrock_tpu_torch.ops.kernels.LAUNCHES`. The wrappers take the
+plain versions only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kernels import LAUNCHES, _check, _launch, _route
+from .segment import row_reduce_sorted
+
+__all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
+           "pull_power_iters_plain", "pull_vertex_reduce", "PULL_CHUNK"]
+
+# Edges per warp chunk in K3/K4 (a multiple of 32). It fixes the order of
+# every sum, so two launches on the same input agree bit for bit.
+PULL_CHUNK = 1024
+
+_OPS = {"sum": 0, "min": 1}
+_FNS = {"none": 0, "add": 1, "mul": 2, "incr": 3}
+_NO_WEIGHTS, _PER_EDGE, _PER_SOURCE = 0, 1, 2
+
+
+def _weights(graph, wmode: str, weights: str):
+    """(tensor, kind) of the weight stream ``wmode`` reads, or
+    (None, no weights)."""
+    if wmode not in _FNS:
+        raise ValueError(f"unknown wmode {wmode!r}")
+    if wmode not in ("add", "mul"):
+        return None, _NO_WEIGHTS
+    if weights == "val":
+        if graph.csc_edge_values is None:
+            raise ValueError("the val weights need to_device("
+                             "with_csc=True, with_edge_values=True)")
+        return graph.csc_edge_values, _PER_EDGE
+    if weights == "wpr":
+        if graph.inv_outdeg is None:
+            raise ValueError("the wpr weights need graph.inv_outdeg, which "
+                             "to_device(with_csc=True) computes")
+        return graph.inv_outdeg, _PER_SOURCE
+    raise ValueError(f"unknown weights {weights!r}")
+
+
+def _validate(graph, op: str, values: torch.Tensor) -> None:
+    if op not in _OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if not graph.has_csc:
+        raise ValueError("value pulls need to_device(with_csc=True)")
+    if values.shape != (graph.v_pad,):
+        raise ValueError(f"values have shape {tuple(values.shape)}, "
+                         f"expected ({graph.v_pad},)")
+
+
+def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
+                       wmode: str = "none",
+                       init: Optional[torch.Tensor] = None,
+                       weights: str = "val") -> torch.Tensor:
+    """Gather, f in float32, :func:`row_reduce_sorted` over the CSC rows
+    (sums in float64, so this version is the accurate reference the
+    kernel is held to; ``min`` is exact either way), then (+) ``init``."""
+    _validate(graph, op, values)
+    w, kind = _weights(graph, wmode, weights)
+    src = graph.csc_indices.long()
+    x = values.float()[src]
+    if w is not None:
+        wx = w if kind == _PER_EDGE else w[src]
+        x = x + wx if wmode == "add" else x * wx
+    elif wmode == "incr":
+        x = x + 1.0
+    out = row_reduce_sorted(x, graph.csc_offsets, op=op)
+    if init is None:
+        return out
+    init = init.float()
+    return init + out if op == "sum" else torch.minimum(init, out)
+
+
+def _scratch(graph, device) -> tuple[torch.Tensor, ...]:
+    """K3/K4 scratch: per-row totals, per-chunk head/tail partials, and
+    the per-source values folded with the ``wpr`` weights."""
+    nchunks = max(1, -(-graph.num_edges // PULL_CHUNK))
+    return (torch.empty(graph.v_pad, dtype=torch.float32, device=device),
+            torch.empty(nchunks, dtype=torch.float32, device=device),
+            torch.empty(nchunks, dtype=torch.float32, device=device),
+            torch.empty(graph.v_pad, dtype=torch.float32, device=device))
+
+
+def _check_float(name: str, t: torch.Tensor, n: int,
+                 device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 or \
+            not t.is_contiguous() or t.shape != (n,):
+        raise ValueError(f"{name} must be a contiguous ({n},) float32 "
+                         f"tensor on {device}; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_graph(graph, w: Optional[torch.Tensor], kind: int,
+                 device: torch.device) -> None:
+    for name in ("csc_indices", "csc_edge_dst", "csc_offsets"):
+        _check(name, getattr(graph, name), device)
+    if w is not None:
+        _check_float("weights", w,
+                     graph.e_pad if kind == _PER_EDGE else graph.v_pad,
+                     device)
+
+
+def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
+                 wmode: str = "none", init: Optional[torch.Tensor] = None,
+                 weights: str = "val") -> torch.Tensor:
+    """(v_pad,) float32 ``out[v] = init[v] (+) ((+) over CSC row v of
+    f(values[u], w))``; rows without in-edges get ``init``, or the
+    identity (0 for ``sum``, +inf for ``min``).
+
+    Kernel K3 (replaces the Pallas ``pull_reduce2``,
+    ``gunrock_tpu/ops/pull2.py:268``). ``values`` and ``init`` are
+    (v_pad,) and cast to float32. Two launches on the same input give
+    bitwise equal output."""
+    tensors = [values, graph.csc_indices] + ([] if init is None else [init])
+    if not _route(*tensors):
+        return pull_reduce2_plain(values, graph, op=op, wmode=wmode,
+                                  init=init, weights=weights)
+    _validate(graph, op, values)
+    w, kind = _weights(graph, wmode, weights)
+    dev = graph.csc_indices.device
+    values = values.to(torch.float32).contiguous()
+    _check_float("values", values, graph.v_pad, dev)
+    if init is not None:
+        init = init.to(torch.float32).contiguous()
+        _check_float("init", init, graph.v_pad, dev)
+    _check_graph(graph, w, kind, dev)
+    rowval, head, tail, folded = _scratch(graph, dev)
+    out = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
+    from . import _build
+    _launch(_build.load().gr_pull_reduce, values.data_ptr(),
+            graph.csc_indices.data_ptr(), graph.csc_edge_dst.data_ptr(),
+            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            0 if w is None else w.data_ptr(), kind, _OPS[op], _FNS[wmode],
+            0 if init is None else init.data_ptr(), PULL_CHUNK,
+            rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            folded.data_ptr(), out.data_ptr(), device=dev)
+    LAUNCHES["pull_reduce2"] += 1
+    return out
+
+
+def pull_vertex_reduce(values: torch.Tensor, graph, *, op: str = "sum",
+                       wmode: str = "none") -> torch.Tensor:
+    """(v_pad,) per-vertex reduce over in-edges with the ``val`` weights:
+    the JAX package's ``pull_vertex_reduce``
+    (``gunrock_tpu/ops/pallas_kernels.py:540``), which dispatches to
+    ``pull_reduce2`` on its pull-v2 graphs and runs its v1 blocked kernel
+    on the others. Both compute this function, so both go to K3 here."""
+    return pull_reduce2(values, graph, op=op, wmode=wmode)
+
+
+def pull_power_iters_plain(graph, init: torch.Tensor, *, iters: int,
+                           damping: float, reset: float,
+                           threshold: float = 0.0,
+                           weights: str = "wpr"):
+    """``iters`` rounds of the plain sum pull with the epilogue
+    ``rank' = v < num_nodes ? reset + damping * acc : 0`` in float32, and
+    the count of ``|rank' - rank| > threshold`` over all v_pad slots."""
+    if iters < 1:
+        raise ValueError("iters must be at least 1")
+    vmask = torch.arange(graph.v_pad, device=init.device) < graph.num_nodes
+    d32 = torch.tensor(damping, dtype=torch.float32, device=init.device)
+    r32 = torch.tensor(reset, dtype=torch.float32, device=init.device)
+    rank = init.float()
+    changed = []
+    for _ in range(iters):
+        acc = pull_reduce2_plain(rank, graph, op="sum", wmode="mul",
+                                 weights=weights)
+        fresh = torch.where(vmask, r32 + d32 * acc, 0.0)
+        changed.append(((fresh - rank).abs() > threshold).sum())
+        rank = fresh
+    return rank, torch.stack(changed).to(torch.int32)
+
+
+def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
+                     damping: float, reset: float, threshold: float = 0.0,
+                     weights: str = "wpr"):
+    """Run ``iters`` PageRank rounds ``rank' = mask * (reset + damping *
+    sum over in-edges of rank[u] * w_uv)`` from one host call; returns
+    ``(rank, changed)`` with ``changed`` the (iters,) int32 count of
+    ``|rank' - rank| > threshold`` per round.
+
+    Kernel K4 (replaces the Pallas ``pull_power_iters``,
+    ``gunrock_tpu/ops/pull2.py:842``): each round is K3's sum pull with
+    the epilogue fused (the ``wpr`` weights folded into the rank once a
+    vertex first), enqueued on the current stream with no host read; two
+    rank buffers ping-pong, and the last round's is returned."""
+    if not _route(init, graph.csc_indices):
+        return pull_power_iters_plain(graph, init, iters=iters,
+                                      damping=damping, reset=reset,
+                                      threshold=threshold, weights=weights)
+    if iters < 1:
+        raise ValueError("iters must be at least 1")
+    _validate(graph, "sum", init)
+    w, kind = _weights(graph, "mul", weights)
+    dev = graph.csc_indices.device
+    init = init.to(torch.float32).contiguous()
+    _check_float("init", init, graph.v_pad, dev)
+    _check_graph(graph, w, kind, dev)
+    rowval, head, tail, folded = _scratch(graph, dev)
+    ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
+    pong = torch.empty_like(ping)
+    changed = torch.zeros(iters, dtype=torch.int32, device=dev)
+    from . import _build
+    _launch(_build.load().gr_pull_power_iters, init.data_ptr(),
+            ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
+            graph.csc_edge_dst.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.num_edges, graph.v_pad, graph.num_nodes, w.data_ptr(),
+            kind, float(damping), float(reset), float(threshold), iters,
+            PULL_CHUNK, rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            folded.data_ptr(), changed.data_ptr(), device=dev)
+    LAUNCHES["pull_power_iters"] += 1
+    return (ping if iters % 2 else pong), changed

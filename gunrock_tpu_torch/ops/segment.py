@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["scatter_min", "scatter_max", "scatter_add", "scatter_set",
            "dedup_winners", "compact", "frontier_from_mask",
-           "mask_from_frontier"]
+           "mask_from_frontier", "row_reduce_sorted"]
 
 
 def _select(idx: torch.Tensor, vals, mask: Optional[torch.Tensor]):
@@ -105,3 +105,38 @@ def mask_from_frontier(frontier: torch.Tensor, size: int) -> torch.Tensor:
     mask = torch.zeros(size, dtype=torch.bool, device=frontier.device)
     mask[frontier.long()] = True
     return mask
+
+
+def row_reduce_sorted(vals: torch.Tensor, row_offsets: torch.Tensor, *,
+                      op: str, identity=None) -> torch.Tensor:
+    """Per-row reduction over CSR-ordered edge values (the JAX package's
+    ``row_reduce_sorted``, ``ops/segment.py:100``): the plain reduction
+    behind every value pull (``ops.pull2.pull_reduce2_plain``).
+
+    ``row_offsets`` has V+1 entries over ``vals``'s edge order; entries
+    of ``vals`` past ``row_offsets[-1]`` (padding) are ignored. Each row
+    is reduced on its own, and ``sum`` accumulates in float64: the JAX
+    package differences a float32 running sum over all edges instead,
+    which loses small rows to the rounding of the large total. Empty rows
+    get 0 for ``sum`` and ``identity`` for ``min``/``max`` (defaults:
+    +inf / -inf, or the integer type's bounds). Integers up to 32 bits.
+    """
+    if op not in ("sum", "min", "max"):
+        raise ValueError(f"unknown op {op!r}")
+    if vals.dtype == torch.int64:
+        raise ValueError("row_reduce_sorted takes up to 32-bit ints")
+    # segment_reduce takes floats; float64 holds every int32 exactly.
+    data = vals
+    if op == "sum" or not vals.dtype.is_floating_point:
+        data = vals.double()
+    off = row_offsets.long()
+    out = torch.segment_reduce(data, op, offsets=off)
+    if op != "sum":
+        if identity is None:
+            if vals.dtype.is_floating_point:
+                identity = float("inf") if op == "min" else float("-inf")
+            else:
+                info = torch.iinfo(vals.dtype)
+                identity = info.max if op == "min" else info.min
+        out = torch.where(off[1:] > off[:-1], out, identity)
+    return out.to(vals.dtype)

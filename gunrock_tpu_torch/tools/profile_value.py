@@ -1,0 +1,112 @@
+"""Device profile of the value primitives: where a PageRank or HITS run
+spends its time on the card.
+
+    python -m gunrock_tpu_torch.tools.profile_value [--scale 20]
+        [--edge-factor 32] [--runs 3] [--device cuda]
+
+Builds R-MAT (``--scale``, ``--edge-factor``, seed 1, undirected), the
+graph of ``chip_smoke.py``, uploads it ``with_csc``, ``with_edge_src``
+and ``with_blocked_values``, and for each of
+
+  * the PageRank power route (20 iterations at threshold 0, kernel K4),
+  * the PageRank loop route (the same, with ``instrument``; kernel K3),
+  * HITS (10 iterations, kernel K3 over the graph and its reverse),
+
+runs it once to warm up, then ``--runs`` times under ``torch.profiler``
+and prints:
+
+  * ``wall``: host time a run, fenced with a device synchronize
+    (the profiler's own overhead included);
+  * ``device``: the summed duration of every event the profiler records
+    on the device (kernels, copies, fills), a run. Everything runs on one
+    stream, so those events do not overlap;
+  * ``busy``: device / wall, the share of the run the card was working;
+  * each device event's name, calls a run and ms a run, largest first.
+
+The unprofiled times are ``chip_smoke.py`` phase 10. Where the profiler
+records no device events, device and busy print as "not measured".
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import torch
+
+from ..graph.device import sync, to_device
+from ..io import rmat
+from ..models.hits import hits_device
+from ..models.pr import pagerank_device
+
+PR_ITERS, HITS_ITERS = 20, 10
+
+
+def profile_run(fn, runs: int, device: torch.device) -> dict:
+    """Profile ``runs`` calls of ``fn`` after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    per_name = collections.defaultdict(lambda: [0, 0.0])
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            row = per_name[evt.name]
+            row[0] += 1
+            row[1] += evt.time_range.elapsed_us() / 1e3
+    device_ms = sum(ms for _, ms in per_name.values()) / runs
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "events": sorted(((name, calls / runs, ms / runs)
+                              for name, (calls, ms) in per_name.items()),
+                             key=lambda r: -r[2])}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--scale", type=int, default=20)
+    p.add_argument("--edge-factor", type=int, default=32)
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    g = rmat(scale=args.scale, edge_factor=args.edge_factor, seed=1,
+             undirected=True)
+    dg = to_device(g, with_csc=True, with_edge_src=True,
+                   with_blocked_values=True, device=args.device)
+    dev = dg.device
+    print(f"graph: rmat n{args.scale} e{args.edge_factor} seed 1, "
+          f"|V|={dg.num_nodes} |E|={dg.num_edges}, has_pull2 "
+          f"{dg.has_pull2}, on {dev}")
+    cases = (
+        ("pagerank power route", PR_ITERS,
+         lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0)),
+        ("pagerank loop route", PR_ITERS,
+         lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0,
+                                 instrument=[])),
+        ("hits", HITS_ITERS, lambda: hits_device(dg, HITS_ITERS)),
+    )
+    for name, iters, fn in cases:
+        r = profile_run(fn, args.runs, dev)
+        if r["device_ms"] > 0:
+            device = (f"device {r['device_ms']:.3f} ms, busy "
+                      f"{100.0 * r['device_ms'] / r['wall_ms']:.1f}%")
+        else:
+            device = "device not measured, busy not measured"
+        print(f"[{name}] {iters} iterations, {args.runs} profiled runs: "
+              f"wall {r['wall_ms']:.3f} ms a run, {device}")
+        for ev, calls, ms in r["events"]:
+            print(f"[{name}]   {ms:9.4f} ms  {calls:7.1f} calls  {ev[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -109,10 +109,13 @@ def make_info(*, primitive: str, graph, stats=None, timer=None,
     if per_iter and process_ms > 0:
         kernel_ms = sum(r["ms"] for r in per_iter)
         info["avg_duty"] = min(kernel_ms / process_ms, 1.0)
-    if per_iter:
+    # Records without a phase (PageRank's) join no split.
+    if per_iter and any("phase" in r for r in per_iter):
         phase_ms: dict = {}
         phase_iters: dict = {}
         for r in per_iter:
+            if "phase" not in r:
+                continue
             phase_ms[r["phase"]] = phase_ms.get(r["phase"], 0.0) + r["ms"]
             phase_iters[r["phase"]] = phase_iters.get(r["phase"], 0) + 1
         info["phase_ms"] = {k: round(v, 3) for k, v in phase_ms.items()}

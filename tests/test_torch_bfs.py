@@ -146,7 +146,8 @@ def test_cli_bfs_correct(capsys, tmp_path):
     assert "phases:" in text
     info = json.loads(out.read_text())
     assert info["primitive"] == "bfs" and info["mark_predecessors"]
-    assert K.LAUNCHES == {"pull_reached_words": 0, "bitmask_gather": 0}
+    assert set(K.LAUNCHES) >= {"pull_reached_words", "bitmask_gather"}
+    assert not any(K.LAUNCHES.values())
 
 
 def test_import_loads_no_jax():

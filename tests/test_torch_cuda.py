@@ -61,4 +61,120 @@ def test_bfs_on_cuda_equals_cpu_and_launches_kernels(cuda):
                   direction_optimized=True, alpha=0.05, device="cuda")
     np.testing.assert_array_equal(got.labels, want.labels)
     np.testing.assert_array_equal(got.preds, want.preds)
-    assert min(K.LAUNCHES.values()) > 0
+    assert K.LAUNCHES["pull_reached_words"] > 0
+    assert K.LAUNCHES["bitmask_gather"] > 0
+
+
+def _value_graph(cuda, scale=14):
+    g = gtt.io.rmat(scale=scale, edge_factor=16, seed=7, undirected=True)
+    g.random_edge_values(seed=7)
+    return g, gtt.to_device(g, with_csc=True, with_edge_values=True,
+                            with_edge_src=True, with_blocked_values=True,
+                            device=cuda)
+
+
+# K3's modes: (op, wmode, weights, with init). ``min`` is exact; sums
+# accumulate in float32 in the kernel and in float64 in the plain version.
+PULL_MODES = [("sum", "none", "val", False), ("sum", "mul", "wpr", False),
+              ("sum", "add", "val", True), ("min", "add", "val", False),
+              ("min", "none", "val", True), ("min", "incr", "val", False),
+              ("sum", "mul", "val", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,wmode,weights,with_init", PULL_MODES)
+def test_pull_reduce2_kernel_equals_plain(cuda, op, wmode, weights,
+                                          with_init):
+    from gunrock_tpu_torch.ops import pull2 as P
+    _, g = _value_graph(cuda)
+    # a hub row spans many chunks: the largest in-degree exceeds one
+    assert int((g.csc_offsets[1:] - g.csc_offsets[:-1]).max()) > \
+        2 * P.PULL_CHUNK
+    vals = torch.rand(g.v_pad, device=cuda)
+    init = torch.rand(g.v_pad, device=cuda) if with_init else None
+    before = K.LAUNCHES["pull_reduce2"]
+    got = P.pull_reduce2(vals, g, op=op, wmode=wmode, init=init,
+                         weights=weights)
+    again = P.pull_reduce2(vals, g, op=op, wmode=wmode, init=init,
+                           weights=weights)
+    want = P.pull_reduce2_plain(vals, g, op=op, wmode=wmode, init=init,
+                                weights=weights)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_reduce2"] == before + 2
+    assert torch.equal(got, again)          # deterministic, bit for bit
+    if op == "min":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pull_reduce2_kernel_edge_cases(cuda):
+    """No edges; one row holding every edge; rows of exactly one chunk."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    for src, dst, n in (([], [], 300),
+                        (list(range(1, 5000)), [0] * 4999, 5000),
+                        (list(range(2 * P.PULL_CHUNK)),
+                         [1] * P.PULL_CHUNK + [2] * P.PULL_CHUNK,
+                         2 * P.PULL_CHUNK)):
+        g = gtt.to_device(gtt.from_coo(n, np.array(src, np.int64),
+                                       np.array(dst, np.int64)),
+                          with_csc=True, with_blocked_values=True,
+                          device=cuda)
+        vals = torch.rand(g.v_pad, device=cuda)
+        for op in ("sum", "min"):
+            got = P.pull_reduce2(vals, g, op=op)
+            want = P.pull_reduce2_plain(vals, g, op=op)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 4, 7])
+def test_pull_power_iters_kernel_equals_plain(cuda, iters):
+    from gunrock_tpu_torch.ops import pull2 as P
+    _, g = _value_graph(cuda)
+    n = g.num_nodes
+    init = torch.where(torch.arange(g.v_pad, device=cuda) < n, 1.0 / n,
+                       0.0).float()
+    kw = dict(iters=iters, damping=0.85, reset=0.15 / n, threshold=1e-6)
+    before = K.LAUNCHES["pull_power_iters"]
+    rank, chg = P.pull_power_iters(g, init, **kw)
+    want, want_chg = P.pull_power_iters_plain(g, init, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_power_iters"] == before + 1
+    torch.testing.assert_close(rank, want, rtol=1e-4, atol=1e-9)
+    assert chg.dtype == torch.int32 and chg.shape == (iters,)
+    assert torch.equal(chg, want_chg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prim", ["pagerank", "hits", "salsa"])
+def test_value_primitives_on_cuda_equal_cpu(cuda, prim):
+    g, dg = _value_graph(cuda, scale=12)
+    K.reset_launch_counts()
+    if prim == "pagerank":
+        got = gtt.pagerank(dg, max_iters=20, threshold=0.0)
+        dc = gtt.to_device(g, with_csc=True, with_blocked_values=True,
+                           device="cpu")
+        want = gtt.pagerank(dc, max_iters=20, threshold=0.0)
+        assert K.LAUNCHES["pull_power_iters"] > 0
+        np.testing.assert_allclose(got.ranks, want.ranks, rtol=1e-3,
+                                   atol=1e-9)
+        assert got.info["num_iterations"] == want.info["num_iterations"]
+        loop = gtt.pagerank(dg, max_iters=20, threshold=0.0,
+                            instrumented=True)
+        assert K.LAUNCHES["pull_reduce2"] == 20
+        np.testing.assert_allclose(loop.ranks, got.ranks, rtol=1e-4,
+                                   atol=1e-9)
+        # The host graph is uploaded with_csc only: the loop route, K3.
+        host = gtt.pagerank(g, max_iters=20, threshold=0.0, device="cuda")
+        assert K.LAUNCHES["pull_reduce2"] == 40
+        np.testing.assert_allclose(host.ranks, got.ranks, rtol=1e-4,
+                                   atol=1e-9)
+        return
+    got = getattr(gtt, prim)(g, max_iters=10, device="cuda")
+    want = getattr(gtt, prim)(g, max_iters=10, device="cpu")
+    assert K.LAUNCHES["pull_reduce2"] == 20
+    atol = 1e-4 if prim == "hits" else 1e-5
+    np.testing.assert_allclose(got.hubs, want.hubs, rtol=1e-3, atol=atol)
+    np.testing.assert_allclose(got.auths, want.auths, rtol=1e-3, atol=atol)

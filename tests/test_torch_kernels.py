@@ -92,7 +92,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     words = K.pack_bitmask(torch.ones(g.v_pad, dtype=torch.bool))
     K.pull_reached_words(words, g)
     K.bitmask_gather(words, g.col_indices)
-    assert K.LAUNCHES == {"pull_reached_words": 0, "bitmask_gather": 0}
+    assert K.LAUNCHES["pull_reached_words"] == 0
+    assert K.LAUNCHES["bitmask_gather"] == 0
     with pytest.raises(ValueError, match="with_csc"):
         K.pull_reached_words(words, gtt.to_device(gtt.io.rmat(scale=4),
                                                   device="cpu"))
