@@ -41,9 +41,33 @@ script exits non-zero:
     warm-up: ms per iteration and MTEPS (num_edges x iterations, twice
     that for HITS, per ms).
 
+11. SSSP, sweep route: the flagship with ``random_edge_values(seed=7)``,
+    uploaded ``with_edge_values`` and ``with_blocked_values`` (which builds
+    the CSC), ``sssp_device`` from the largest-degree vertex (bellman,
+    which takes the min-pull sweeps, kernel K6). Distances within rtol
+    1e-5 of scipy's float64 Dijkstra, the same unreachable set; the
+    route and the sweep count are printed.
+12. SSSP, push routes on the same graph: near-far with delta 32 x the
+    mean weight, the same with ``fused=True`` (K7, K8), and
+    ``gunrock_tpu_torch.sssp(g, mark_preds=True, device="cuda")`` on the
+    host graph (bellman push). Distances bitwise equal to phase 11's,
+    predecessors valid by exact float32 equality on an edge; K5 (and K3
+    where a round pulled) launched in every run.
+13. The grid of ``bench_all.py:225-263`` (1024 x 1024,
+    ``random_edge_values(seed=1)``, ``with_blocked_values``): SSSP from 0
+    with delta 256 (the sweep route bails out to near-far and its deep
+    micro-loop), distances against scipy; non-DO BFS from 0 (sweeps, bail,
+    the push loop), labels against scipy's depths; non-DO BFS on the
+    flagship (the sweep route converges), labels equal phase 3's.
+14. K5-K8 against their plain versions at the shapes of the path's
+    largest push round (K6 at 6 sweeps from the source): exact, K7's sum
+    within rtol 1e-6 and bitwise over two launches. Median times.
+15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
+    near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4) and 7-8 (K3).
+(K4), 7-8 (K3), 12 (K5, K7, K8) and 11 (K6).
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +84,8 @@ RUNS = 5
 TIMED_LAUNCHES = 20
 BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
 PR_ITERS, LINK_ITERS = 20, 10
+SSSP_WEIGHT_SEED, GRID_SIDE, GRID_WEIGHT_SEED, GRID_DELTA = 7, 1024, 1, 256.0
+SWEEPS = 6
 
 
 def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
@@ -347,20 +373,8 @@ def phase_value_kernels(dg, dev):
 def phase_value_timing(dg, card):
     """Phase 10: best of RUNS PageRank (both routes) and HITS runs after a
     warm-up, graph on the card, fenced with torch.cuda.synchronize()."""
-    import torch
     from gunrock_tpu_torch.models.hits import hits_device
     from gunrock_tpu_torch.models.pr import pagerank_device
-
-    def best_of(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(RUNS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return min(times), times
 
     for name, fn, iters, edges in (
             ("pagerank power route",
@@ -377,6 +391,357 @@ def phase_value_timing(dg, card):
               f"({', '.join(f'{t:.3f}' for t in times)}); {iters} "
               f"iterations, {best / iters:.4f} ms/iteration, "
               f"{edges * iters / (best * 1000.0):.1f} MTEPS; on {card}")
+
+
+def best_of(fn):
+    """Best of RUNS calls of ``fn`` after a warm-up, fenced; (best, all)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times), times
+
+
+def dijkstra(g, src):
+    """scipy's float64 Dijkstra over the CSR, parallel edges reduced to
+    the lightest."""
+    import numpy as np
+    import scipy.sparse
+    from scipy.sparse.csgraph import dijkstra as sp_dijkstra
+    es = g.edge_sources().astype(np.int64)
+    key = es * g.num_nodes + g.col_indices
+    order = np.lexsort((g.edge_values, key))
+    key, w = key[order], g.edge_values[order].astype(np.float64)
+    first = np.r_[True, key[1:] != key[:-1]]
+    a = scipy.sparse.csr_matrix(
+        (w[first], (key[first] // g.num_nodes, key[first] % g.num_nodes)),
+        shape=(g.num_nodes, g.num_nodes))
+    return sp_dijkstra(a, directed=True, indices=src)
+
+
+def check_dist(what, dist, ref):
+    """Same unreachable set as scipy, finite distances within rtol 1e-5."""
+    import numpy as np
+    fin = np.isfinite(ref)
+    if not np.array_equal(np.isfinite(dist), fin):
+        raise AssertionError(f"{what}: the reached set differs from scipy's")
+    check_close(what, dist[fin], ref[fin], rtol=1e-5, atol=0.0)
+
+
+def check_sssp_preds(g, src, dist, preds):
+    """pred[v] = u has an edge (u, v) with float32 dist[u] + w == dist[v];
+    -1 exactly at the source, at distance 0 and where unreached."""
+    import numpy as np
+    none = ~np.isfinite(dist) | (dist == 0)
+    if (preds[none] != -1).any() or (preds[~none] < 0).any():
+        raise AssertionError("a predecessor is set where it should not be, "
+                             "or missing")
+    v = np.nonzero(~none)[0]
+    p = preds[v].astype(np.int64)
+    keys = g.edge_sources().astype(np.int64) * g.num_nodes + g.col_indices
+    q = p * g.num_nodes + v
+    at = np.minimum(np.searchsorted(keys, q), keys.shape[0] - 1)
+    if (keys[at] != q).any():
+        raise AssertionError("a predecessor is not an in-neighbour")
+    if (dist[p] + g.edge_values[at] != dist[v]).any():
+        raise AssertionError("dist[pred] + w != dist[v] on a tree edge")
+
+
+def phase_sssp(gtt, g, src, dev, card):
+    """Phases 11 and 12: SSSP on the flagship, the sweep route and the
+    push routes. Returns the uploaded graph, the sweep route's distances
+    and the main-path launch counts of K3, K5, K6, K7 and K8."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    from gunrock_tpu_torch.ops import kernels as K
+
+    # 11. The sweep route.
+    g.random_edge_values(seed=SSSP_WEIGHT_SEED)
+    t0 = time.perf_counter()
+    dg = gtt.to_device(g, with_edge_values=True, with_blocked_values=True,
+                       device=dev)
+    torch.cuda.synchronize()
+    print(f"[sssp] to_device(with_edge_values, with_blocked_values) "
+          f"{time.perf_counter() - t0:.3f} s; has_csc {dg.has_csc}, "
+          f"has_pull2 {dg.has_pull2}")
+    K.reset_launch_counts()
+    dist_t, _, stats = sssp_device(dg, src)
+    torch.cuda.synchronize()
+    sweep_launches = dict(K.LAUNCHES)
+    print(f"[sssp] sweep route: route {stats.route}, {stats.iteration} "
+          f"iterations; changes per sweep {stats.frontier_trace}; kernel "
+          f"launches {sweep_launches}")
+    if sweep_launches["pull_min_sweeps"] <= 0:
+        raise AssertionError("K6 was not launched on the sweep route")
+    dist = dist_t[:g.num_nodes].cpu().numpy()
+    t0 = time.perf_counter()
+    ref = dijkstra(g, src)
+    print(f"[sssp] scipy Dijkstra {time.perf_counter() - t0:.3f} s; "
+          f"{int(np.isfinite(ref).sum())} reached")
+    check_dist("sssp sweep route vs scipy", dist, ref)
+
+    # 12. The push routes on the same graph.
+    delta = 32.0 * float(np.mean(g.edge_values))
+    launches = {}
+    for name, kw in (("near-far", dict(mode="nearfar", delta=delta)),
+                     ("near-far fused", dict(mode="nearfar", delta=delta,
+                                             fused=True))):
+        K.reset_launch_counts()
+        records = []
+        got, _, st = sssp_device(dg, src, instrument=records, **kw)
+        torch.cuda.synchronize()
+        n = dict(K.LAUNCHES)
+        phases = [r["phase"] for r in records]
+        print(f"[sssp] {name}: route {st.route}, {st.iteration} rounds "
+              f"({', '.join(f'{p} {phases.count(p)}' for p in sorted(set(phases)))}); "
+              f"kernel launches {n}")
+        if not torch.equal(got, dist_t):
+            raise AssertionError(f"sssp {name}: distances differ from the "
+                                 "sweep route's")
+        if n["sample_sorted"] <= 0 or n["sample_sorted2"] <= 0:
+            raise AssertionError(f"K5 was not launched by {name}")
+        if ("pull" in phases) != (n["pull_reduce2"] > 0):
+            raise AssertionError(f"{name}: K3 launches do not match the "
+                                 "pull rounds")
+        if kw.get("fused") and (n["reduce_by_dst_sorted"] <= 0
+                                or n["scatter_sorted"] <= 0):
+            raise AssertionError("K7 or K8 was not launched by the fused "
+                                 "run")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    K.reset_launch_counts()
+    res = gtt.sssp(g, src, mark_preds=True, device="cuda")
+    torch.cuda.synchronize()
+    n = dict(K.LAUNCHES)
+    print(f"[sssp] host graph, sssp(g, mark_preds=True, device='cuda'): "
+          f"route {res.info['route']}, {res.info['num_iterations']} rounds, "
+          f"preprocess {res.info['preprocess_ms']:.3f} ms, process "
+          f"{res.info['process_ms']:.3f} ms; kernel launches {n}")
+    if not np.array_equal(res.distances, dist):
+        raise AssertionError("sssp on the host graph: distances differ from "
+                             "the sweep route's")
+    if n["sample_sorted"] <= 0 or n["sample_sorted2"] <= 0:
+        raise AssertionError("K5 was not launched on the host graph")
+    check_sssp_preds(g, src, res.distances, res.preds)
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+    launches["pull_min_sweeps"] = sweep_launches["pull_min_sweeps"]
+    print("[sssp] distances bitwise equal over the sweep, near-far, fused "
+          "and bellman-push routes; preds valid")
+    return dg, dist_t, launches
+
+
+def phase_grid(gtt, g, src, dg, bfs_labels, dev):
+    """Phase 13: the grid's SSSP and non-DO BFS, then non-DO BFS on the
+    flagship. Returns the grid graphs."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import shortest_path
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.tools.profile_sssp import grid
+
+    t0 = time.perf_counter()
+    gg = grid(GRID_SIDE)
+    gg.random_edge_values(seed=GRID_WEIGHT_SEED)
+    dgw = gtt.to_device(gg, with_edge_values=True, with_blocked_values=True,
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"[grid] {GRID_SIDE}x{GRID_SIDE}: |V|={gg.num_nodes} "
+          f"|E|={gg.num_edges}, build and upload "
+          f"{time.perf_counter() - t0:.3f} s; has_pull2 {dgw.has_pull2}")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dist, _, st = sssp_device(dgw, 0, mode="pull", delta=GRID_DELTA)
+    torch.cuda.synchronize()
+    print(f"[grid] sssp mode=pull delta {GRID_DELTA}: route {st.route}, "
+          f"{st.iteration} rounds, {(time.perf_counter() - t0) * 1e3:.3f} "
+          f"ms; kernel launches {dict(K.LAUNCHES)}")
+    if st.route != "bailed_to_nearfar":
+        raise AssertionError("the grid's sweep route should bail out")
+    check_dist("grid sssp vs scipy", dist[:gg.num_nodes].cpu().numpy(),
+               dijkstra(gg, 0))
+    K.reset_launch_counts()
+    labels, _, st = bfs_device(dgw, 0)
+    torch.cuda.synchronize()
+    print(f"[grid] non-DO bfs: route {st.route}, {st.iteration} levels; "
+          f"kernel launches {dict(K.LAUNCHES)}")
+    if st.route != "bailed_to_push":
+        raise AssertionError("the grid's BFS sweep route should bail out")
+    check_labels(gg, 0, labels[:gg.num_nodes].cpu().numpy())
+    K.reset_launch_counts()
+    labels, _, st = bfs_device(dg, src)
+    torch.cuda.synchronize()
+    print(f"[grid] non-DO bfs on the flagship: route {st.route}, "
+          f"{st.iteration} sweeps; kernel launches {dict(K.LAUNCHES)}")
+    if st.route != "pull_sweeps":
+        raise AssertionError("the flagship's BFS sweep route should converge")
+    if not np.array_equal(labels[:g.num_nodes].cpu().numpy(), bfs_labels):
+        raise AssertionError("non-DO BFS labels differ from phase 3's")
+    print("[grid] distances and labels equal scipy's; flagship labels equal "
+          "phase 3's")
+    return gg, dgw
+
+
+def phase_sssp_kernels(dg, src, dist, dev):
+    """Phase 14: K5-K8 against their plain versions at the shapes of the
+    largest push round the flagship's path runs (a frontier whose edge
+    volume is just under E / 16, sorted), and K6 at 6 sweeps from the
+    source. Returns each kernel's JSON fields."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.ops import pull2 as P
+    from gunrock_tpu_torch.ops.advance import expand
+
+    rng = np.random.default_rng(SEED)
+    deg = (dg.row_offsets[1:] - dg.row_offsets[:-1]).long()
+    perm = torch.from_numpy(rng.permutation(dg.num_nodes)).to(dev)
+    take = torch.cumsum(deg[perm], 0) <= dg.num_edges // 16
+    frontier = torch.sort(perm[take]).values.to(torch.int32)
+    ex = expand(dg, frontier, with_dst=False)
+    # A mid-traversal state: half the vertices not reached yet.
+    half = torch.where(torch.from_numpy(rng.random(dg.v_pad) < 0.5).to(dev),
+                       float("inf"), dist)
+    out = {}
+
+    def report(name, err, ms, plain, note):
+        print(f"[kernels] {name}: {note}; max abs err {err}; {ms:.4f} ms vs "
+              f"plain {plain:.4f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+
+    # K5, the payload of the round: two arrays at eid, one at src.
+    two = K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid)
+    one = K.sample_sorted(half, ex.src)
+    want2 = K.sample_sorted2_plain(dg.col_indices, dg.edge_values, ex.eid)
+    want1 = K.sample_sorted_plain(half, ex.src)
+    torch.cuda.synchronize()
+    if not (torch.equal(two[0], want2[0]) and torch.equal(two[1], want2[1])
+            and torch.equal(one, want1)):
+        raise AssertionError("K5 differs from its plain version")
+    report("sample_sorted", 0.0,
+           _median_ms(lambda: K.sample_sorted2(dg.col_indices,
+                                               dg.edge_values, ex.eid))
+           + _median_ms(lambda: K.sample_sorted(half, ex.src)),
+           _median_ms(lambda: K.sample_sorted2_plain(
+               dg.col_indices, dg.edge_values, ex.eid))
+           + _median_ms(lambda: K.sample_sorted_plain(half, ex.src)),
+           f"{ex.total} lanes, both modes exact (time: one round's pair)")
+
+    # K7: the fused round's min with aux, and a sum, on the sorted lanes.
+    dst, w = two
+    sd, order = torch.sort(dst, stable=True)
+    cand = (one + w)[order]
+    aux = half[sd.long()]
+    kw_min = dict(op="min", out_lanes=min(dg.e_pad, dg.v_pad), aux=aux)
+    kw_sum = dict(op="sum", out_lanes=dg.v_pad)
+    finite = torch.where(torch.isfinite(cand), cand, 0.0)
+    ids, vals, cnt = K.reduce_by_dst_sorted(sd, cand, **kw_min)
+    again = K.reduce_by_dst_sorted(sd, cand, **kw_min)
+    want = K.reduce_by_dst_sorted_plain(sd, cand, **kw_min)
+    sids, svals, scnt = K.reduce_by_dst_sorted(sd, finite, **kw_sum)
+    sagain = K.reduce_by_dst_sorted(sd, finite, **kw_sum)
+    swant = K.reduce_by_dst_sorted_plain(sd, finite, **kw_sum)
+    torch.cuda.synchronize()
+    k, ks = int(cnt), int(scnt)
+    if k != int(want[2]) or ks != int(swant[2]) or k == 0:
+        raise AssertionError(f"K7 counts {k}, {ks} vs {int(want[2])}, "
+                             f"{int(swant[2])}")
+    if not (torch.equal(ids[:k], want[0][:k]) and
+            torch.equal(vals[:k], want[1][:k]) and
+            torch.equal(sids[:ks], swant[0][:ks])):
+        raise AssertionError("K7 ids or min values differ")
+    if not (torch.equal(vals[:k], again[1][:k]) and
+            torch.equal(svals[:ks], sagain[1][:ks])):
+        raise AssertionError("K7: two launches differ")
+    serr, srel = _errs(svals[:ks], swant[1][:ks])
+    if srel > 1e-6:
+        raise AssertionError(f"K7 sum: max rel err {srel:.3e}")
+    report("reduce_by_dst_sorted", serr,
+           _median_ms(lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min)),
+           _median_ms(lambda: K.reduce_by_dst_sorted_plain(sd, cand,
+                                                           **kw_min), reps=5),
+           f"{sd.shape[0]} lanes, {k} improving runs of {ks}; min exact, "
+           f"sum max rel err {srel:.3e}, bitwise over two launches "
+           f"(time: min with aux)")
+
+    # K8: the fused round's min, and add; float32 and int32.
+    ints = torch.from_numpy(rng.integers(-1000, 1000, dg.v_pad,
+                                         dtype=np.int32)).to(dev)
+    ivals = (ids % 1000).to(torch.int32)
+    for op in ("min", "add"):
+        for dense, v in ((half, vals), (ints, ivals)):
+            got = K.scatter_sorted(dense.clone(), ids, v, count=cnt, op=op)
+            want = K.scatter_sorted_plain(dense.clone(), ids, v, count=k,
+                                          op=op)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K8 {op} {dense.dtype} differs")
+    scratch = half.clone()
+    report("scatter_sorted", 0.0,
+           _median_ms(lambda: K.scatter_sorted(scratch, ids, vals, count=cnt,
+                                               op="min")),
+           _median_ms(lambda: K.scatter_sorted_plain(scratch, ids, vals,
+                                                     count=k, op="min")),
+           f"{k} winners; min and add, float32 and int32, exact "
+           f"(time: min, count read on the device)")
+
+    # K6: SWEEPS sweeps from the source, add/val and incr.
+    init = torch.full((dg.v_pad,), float("inf"), device=dev)
+    init[src] = 0.0
+    for wmode in ("add", "incr"):
+        got, chg = P.pull_min_sweeps(dg, init, sweeps=SWEEPS, wmode=wmode)
+        want, wchg = P.pull_min_sweeps_plain(dg, init, sweeps=SWEEPS,
+                                             wmode=wmode)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(chg, wchg)):
+            raise AssertionError(f"K6 {wmode} differs from its plain version")
+        print(f"[kernels] K6 {wmode}: distances and change counts equal "
+              f"{chg.tolist()}")
+    report("pull_min_sweeps", 0.0,
+           _median_ms(lambda: P.pull_min_sweeps(dg, init, sweeps=SWEEPS)),
+           _median_ms(lambda: P.pull_min_sweeps_plain(dg, init,
+                                                      sweeps=SWEEPS), reps=5),
+           f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)")
+    return out
+
+
+def phase_sssp_timing(g, src, dg, gg, dgw, card):
+    """Phase 15: best of RUNS SSSP and non-DO BFS runs after a warm-up."""
+    import numpy as np
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.models.sssp import sssp_device
+
+    def visited(graph, reached):
+        degs = np.diff(graph.row_offsets.astype(np.int64))
+        return int(degs[reached].sum())
+
+    delta = 32.0 * float(np.mean(g.edge_values))
+    ev = visited(g, np.isfinite(
+        sssp_device(dg, src)[0][:g.num_nodes].cpu().numpy()))
+    gev = gg.num_edges
+    for name, fn, edges in (
+            ("sssp flagship sweep route", lambda: sssp_device(dg, src), ev),
+            ("sssp flagship near-far",
+             lambda: sssp_device(dg, src, mode="nearfar", delta=delta), ev),
+            ("sssp flagship near-far fused",
+             lambda: sssp_device(dg, src, mode="nearfar", delta=delta,
+                                 fused=True), ev),
+            ("sssp grid", lambda: sssp_device(dgw, 0, mode="pull",
+                                              delta=GRID_DELTA), gev),
+            ("non-DO bfs grid", lambda: bfs_device(dgw, 0), gev)):
+        best, times = best_of(fn)
+        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); "
+              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
+              f"on {card}")
 
 
 def main() -> int:
@@ -537,9 +902,18 @@ def main() -> int:
     link_launches = phase_link_analysis(gtt, g)
     k3, k4 = phase_value_kernels(dg, dev)
     phase_value_timing(dg, card)
+    del dg
+
+    # 11-12. SSSP; 13. the grid and non-DO BFS; 14. K5-K8 against their
+    # plain versions; 15. timing.
+    dgs, dist, sssp_launches = phase_sssp(gtt, g, src, dev, card)
+    gg, dgw = phase_grid(gtt, g, src, dgs, res.labels, dev)
+    sk = phase_sssp_kernels(dgs, src, dist, dev)
+    phase_sssp_timing(g, src, dgs, gg, dgw, card)
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
+    sssp_source = "gunrock_tpu_torch/csrc/sssp_kernels.cu"
     print(json.dumps({"kernels": [
         {"name": "pull_reached_words", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
@@ -551,10 +925,28 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
-         "launches": loop_launches["pull_reduce2"] + link_launches, **k3},
+         "launches": loop_launches["pull_reduce2"] + link_launches
+         + sssp_launches["pull_reduce2"], **k3},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
          "launches": power_launches["pull_power_iters"], **k4},
+        {"name": "sample_sorted", "route": "cuda", "source": sssp_source,
+         "replaces": "gunrock_tpu/ops/pallas_kernels.py:594",
+         "launches": sssp_launches["sample_sorted"]
+         + sssp_launches["sample_sorted2"], **sk["sample_sorted"]},
+        {"name": "pull_min_sweeps", "route": "cuda", "source": pull_source,
+         "replaces": "gunrock_tpu/ops/pull2.py:323",
+         "launches": sssp_launches["pull_min_sweeps"],
+         **sk["pull_min_sweeps"]},
+        {"name": "reduce_by_dst_sorted", "route": "cuda",
+         "source": sssp_source,
+         "replaces": "gunrock_tpu/ops/pallas_kernels.py:949",
+         "launches": sssp_launches["reduce_by_dst_sorted"],
+         **sk["reduce_by_dst_sorted"]},
+        {"name": "scatter_sorted", "route": "cuda", "source": sssp_source,
+         "replaces": "gunrock_tpu/ops/pallas_kernels.py:1151",
+         "launches": sssp_launches["scatter_sorted"],
+         **sk["scatter_sorted"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,8 @@ Quick start::
     r.labels, r.info["m_teps"]
     dg = gtt.to_device(g, with_csc=True, with_blocked_values=True)
     gtt.pagerank(dg, max_iters=20).node_ids[:10]
+    g.random_edge_values(seed=7)
+    gtt.sssp(g, src="largestdegree", mark_preds=True).distances
 """
 
 from . import io  # noqa: F401
@@ -27,5 +29,6 @@ from .models.bfs import bfs  # noqa: F401
 from .models.hits import hits  # noqa: F401
 from .models.pr import pagerank  # noqa: F401
 from .models.salsa import salsa  # noqa: F401
+from .models.sssp import sssp  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,6 +6,8 @@ Usage mirrors the JAX package's CLI (and the reference's
     python -m gunrock_tpu_torch bfs rmat --rmat_scale=20 \
         --rmat_edgefactor=32 --rmat_seed=1 --undirected \
         --direction-optimized --src=largestdegree --mark-pred
+    python -m gunrock_tpu_torch sssp rmat --rmat_scale=16 \
+        --src=largestdegree --mark-pred --mode=nearfar
     python -m gunrock_tpu_torch pr rmat --rmat_scale=20 --max-iter=20
     python -m gunrock_tpu_torch hits rmat --rmat_scale=16 --max-iter=10
 
@@ -14,7 +16,9 @@ Each run: load/generate the graph -> run the primitive
 against the in-package numpy oracle with the JAX CLI's tolerances
 (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
 JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
-``pr``/``pagerank``, ``hits`` and ``salsa``. On CUDA, ``pr`` uploads the
+``sssp``, ``pr``/``pagerank``, ``hits`` and ``salsa``. ``sssp`` gives a
+graph without edge values ``random_edge_values(seed=--edge-value-seed)``
+and runs on the host graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
 graph ``with_blocked_values``, so that it takes the power route (kernel
 K4) where the JAX package's rule allows; the host graph, which the JAX
 CLI passes, would take the loop route (kernel K3).
@@ -34,7 +38,7 @@ from .utils.info import write_info
 
 __all__ = ["main", "build_parser", "load_graph_from_args"]
 
-PRIMITIVES = ("bfs", "pr", "pagerank", "hits", "salsa")
+PRIMITIVES = ("bfs", "sssp", "pr", "pagerank", "hits", "salsa")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--sw_p", type=float, default=0.1)
     g.add_argument("--no-cache", action="store_true",
                    help="skip the binary .csr cache when loading market")
+    g.add_argument("--edge-value-seed", type=int, default=0,
+                   help="seed of the random edge values SSSP gives a graph "
+                        "without them")
 
     r = p.add_argument_group("run")
     r.add_argument("--src", default="0",
@@ -81,14 +88,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "--instrumented)")
     r.add_argument("--quiet", action="store_true")
     r.add_argument("--queue-sizing", type=float, default=1.0,
-                   help="accepted for parity; queues are exact-size")
+                   help="SSSP queue capacity factor (reference "
+                        "--queue-sizing); BFS accepts it for parity")
     r.add_argument("--jsonfile", default=None)
     r.add_argument("--jsondir", default=None)
     r.add_argument("--seed", type=int, default=0)
 
     a = p.add_argument_group("primitive options")
     a.add_argument("--mark-pred", action="store_true",
-                   help="BFS MARK_PREDECESSORS")
+                   help="BFS MARK_PREDECESSORS / SSSP MARK_PATHS")
     a.add_argument("--idempotence", action="store_true",
                    help="accepted for parity (the claim filter is exact)")
     a.add_argument("--direction-optimized", action="store_true")
@@ -96,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DO-BFS push->pull factor (reference do_a=0.001)")
     a.add_argument("--do_b", type=float, default=18.0,
                    help="DO-BFS pull->push factor (reference do_b=0.200)")
+    a.add_argument("--mode", default="bellman", choices=("bellman", "nearfar"),
+                   help="SSSP strategy (near-far delta-stepping pile)")
+    a.add_argument("--delta-factor", type=float, default=32.0,
+                   help="SSSP near-far delta factor (reference gunrock.h:98)")
     a.add_argument("--max-iter", type=int, default=50,
                    help="PR/HITS/SALSA iterations (reference --max-iter)")
     a.add_argument("--error", type=float, default=1e-6,
@@ -158,6 +170,22 @@ def _run_bfs(args, g, src):
     return res.info, ok
 
 
+def _run_sssp(args, g, src):
+    from .models.sssp import sssp
+    if g.edge_values is None:
+        g.random_edge_values(seed=args.edge_value_seed)
+    res = sssp(g, src, mark_preds=args.mark_pred, mode=args.mode,
+               delta_factor=args.delta_factor,
+               queue_sizing=args.queue_sizing,
+               instrumented=args.instrumented, device=args.device)
+    ok = True
+    if not args.quick:
+        ref = oracle.cpu_sssp(g, src)
+        ok = _report(bool(np.allclose(res.distances, ref, rtol=1e-4,
+                                      atol=1e-4)), "sssp", args.quiet)
+    return res.info, ok
+
+
 def _run_pr(args, g, src):
     from .graph.device import resolve_device, to_device
     from .models.pr import pagerank
@@ -201,7 +229,8 @@ def _run_salsa(args, g, src):
     return res.info, ok
 
 
-_RUNNERS = {"bfs": _run_bfs, "pr": _run_pr, "pagerank": _run_pr,
+_RUNNERS = {"bfs": _run_bfs, "sssp": _run_sssp, "pr": _run_pr,
+            "pagerank": _run_pr,
             "hits": _run_hits, "salsa": _run_salsa}
 
 

@@ -5,10 +5,13 @@
 // K3 pull_reduce:  out[v] = init[v] (+) ((+) over CSC row v of f(values[u], w))
 // K4 power iters:  iters rounds of rank' = v < n ? reset + d * sum(rank[u] * w) : 0,
 //                  with a per-round count of |rank' - rank| > threshold.
+// K6 min sweeps:   sweeps rounds of d' = min(d, min over CSC row v of f(d[u], w)),
+//                  with a per-sweep count of d'[v] < d[v].
 //
 // Replaces the TPU kernels behind gunrock_tpu/ops/pull2.py pull_reduce2
-// (:268, _pull2_kernel :57), pull_power_iters (:842, _power_kernel :605)
-// and gunrock_tpu/ops/pallas_kernels.py pull_vertex_reduce (:540,
+// (:268, _pull2_kernel :57), pull_power_iters (:842, _power_kernel :605),
+// pull_min_sweeps (:554, _sweeps_kernel :323) and
+// gunrock_tpu/ops/pallas_kernels.py pull_vertex_reduce (:540,
 // _blocked_value_kernel :456). Those stream a blocked, source-grouped
 // edge layout through VMEM, because a TPU core cannot gather from HBM,
 // and carry per-destination partials across the sequential grid in a
@@ -46,6 +49,15 @@
 // csc_edge_dst: 485 MB at rmat n20 e32, 0.145 ms at 3.35 TB/s) plus one
 // random 32-byte L2 sector per gathered value: about 1.9 GB of L2
 // traffic a pull at that size.
+//
+// K6 is K3's min pull with init = d, a sweep at a time, the change count
+// fused into pass 2. The TPU kernel is Gauss-Seidel: its blocks run in
+// order and update the distances in place, odd sweeps backward. Here a
+// sweep reads one buffer and writes the other (Jacobi), so a sweep's
+// result and its count depend on the input alone: they equal the plain
+// version's, and a sweep that changes nothing is a fixpoint whatever its
+// parity. Every sweep is enqueued from one host call with no host read,
+// as K4's rounds are.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (or
@@ -184,7 +196,7 @@ __global__ void pull_chunks_kernel(PullArgs a) {
 }
 
 // Pass 2: per-row totals, then K3's out[v] = init[v] (+) total or K4's
-// epilogue.
+// epilogue; K4 and K6 also count the rows that changed.
 struct FinishArgs {
   const float* init;        // may be null
   float* out;
@@ -192,7 +204,9 @@ struct FinishArgs {
   const float* rank_in;
   int64_t num_nodes;
   float damping, reset, threshold;
-  int32_t* changed;         // one counter for this round
+  // One counter for this round or sweep (may be null): K4 counts
+  // |rank' - rank| > threshold, K6 the rows where out < init.
+  int32_t* changed;
 };
 
 __device__ __forceinline__ float row_total(const PullArgs& a, int64_t v) {
@@ -220,7 +234,11 @@ __global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
     if (v < a.rows) {
       float acc = row_total(a, v);
       if (f.rank_in == nullptr) {
-        if (f.init != nullptr) acc = combine(a.op, __ldg(f.init + v), acc);
+        if (f.init != nullptr) {
+          const float old = __ldg(f.init + v);
+          acc = combine(a.op, old, acc);
+          moved = acc < old;
+        }
         f.out[v] = acc;
       } else {
         const float fresh =
@@ -230,7 +248,7 @@ __global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
         f.out[v] = fresh;
       }
     }
-    if (f.rank_in != nullptr) {
+    if (f.changed != nullptr) {
       // Integer counts are exact whatever the order of the atomics: one
       // per warp, of the warp's changed lanes.
       const unsigned m = __ballot_sync(0xffffffffu, moved);
@@ -340,6 +358,38 @@ int gr_pull_power_iters(const void* init, void* ping, void* pong,
     float* out = (float*)(r % 2 == 0 ? ping : pong);
     a.values = in;
     f.rank_in = in;
+    f.out = out;
+    f.changed = (int32_t*)changed + r;
+    launch_pull(a, f, s);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    in = out;
+  }
+  return 0;
+}
+
+// K6. Sweep r reads init (r = 0) or the previous sweep's buffer and
+// writes ping (r even) or pong (r odd), so the last sweep lands in ping
+// when sweeps is odd and in pong when it is even. fn: none, add or incr
+// (with the matching weights). changed: (sweeps,) int32, zeroed by the
+// caller. Scratch as for gr_pull_reduce.
+int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
+                       const void* indices, const void* edge_dst,
+                       const void* offsets, int64_t num_edges, int64_t rows,
+                       const void* weights, int wkind, int fn, int sweeps,
+                       int chunk, void* rowval, void* head, void* tail,
+                       void* vscratch, void* changed, void* stream) {
+  PullArgs a = make_args(init, indices, edge_dst, offsets, num_edges, rows,
+                         weights, wkind, kMin, fn, chunk, rowval, head, tail,
+                         vscratch);
+  if (!valid_args(a) || sweeps < 1) return (int)cudaErrorInvalidValue;
+  FinishArgs f = {};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* in = (const float*)init;
+  for (int r = 0; r < sweeps; ++r) {
+    float* out = (float*)(r % 2 == 0 ? ping : pong);
+    a.values = in;
+    f.init = in;
     f.out = out;
     f.changed = (int32_t*)changed + r;
     launch_pull(a, f, s);

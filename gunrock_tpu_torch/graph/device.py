@@ -19,10 +19,14 @@ equals its JAX counterpart element for element:
 The blocked-CSC and pull-v2 layouts of the JAX package are not built:
 the Hopper pull kernels read the plain CSC, so every graph with a CSC
 takes them, with ``inv_outdeg``, the per-vertex weight behind the JAX
-package's ``pv2_wpr`` edge stream. ``with_blocked_values`` only marks
-the graph as the JAX package marks it; with ``has_pull2`` it picks
-PageRank's route (power or loop) by the JAX package's rule, so that the
-route and the iteration counts are the JAX package's.
+package's ``pv2_wpr`` edge stream. Where the JAX package builds its own
+in-edge layout for ``with_blocked_values`` (and no CSC unless asked),
+the port builds the CSC in its place, so a graph uploaded
+``with_blocked_values`` runs every pull the JAX package runs on it. The
+flag also marks the graph as the JAX package marks it; with
+``has_pull2`` it picks the routes of PageRank (power or loop), SSSP and
+non-DO BFS (min-pull sweeps) by the JAX package's rules, so that the
+routes and the iteration counts are the JAX package's.
 """
 
 from __future__ import annotations
@@ -206,6 +210,23 @@ def _host_fields(g: CsrGraph, t: Optional[CsrGraph], v_pad: int,
     return fields
 
 
+def _csc_from_csr(arrays: dict, num_nodes: int, num_edges: int, v_pad: int,
+                  e_pad: int) -> dict:
+    """The padded CSC fields (with ``csc_edge_values`` when the arrays
+    hold ``edge_values``) of padded CSR arrays, built on the host as
+    :func:`to_device` builds them."""
+    ev = arrays.get("edge_values")
+    g = CsrGraph(num_nodes=num_nodes,
+                 row_offsets=arrays["row_offsets"][:num_nodes + 1]
+                 .astype(np.int64),
+                 col_indices=arrays["col_indices"][:num_edges],
+                 edge_values=None if ev is None else ev[:num_edges])
+    fields = _host_fields(g, g.csc(), v_pad, e_pad,
+                          with_edge_values=ev is not None,
+                          with_edge_src=False)
+    return {k: v for k, v in fields.items() if k.startswith("csc_")}
+
+
 def to_device(g: CsrGraph, *, with_csc: bool = False,
               with_edge_values: bool = False, with_edge_src: bool = False,
               with_blocked_values: bool = False,
@@ -213,10 +234,11 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
     """Upload a host CSR (and its CSC with ``with_csc``) to ``device``.
 
     ``with_edge_values`` uploads the edge values (ones when the graph has
-    none), on the CSC too with ``with_csc``; ``with_edge_src`` the
-    per-edge source ids; ``with_blocked_values`` marks the graph as the
-    JAX package marks it, for PageRank's route (see the module
-    docstring).
+    none), on the CSC too; ``with_edge_src`` the per-edge source ids;
+    ``with_blocked_values`` builds the CSC (the port's kernels read it
+    in place of the JAX package's blocked layouts) and marks the graph as
+    the JAX package marks it, for the routes of PageRank, SSSP and BFS
+    (see the module docstring).
 
     The kernels index with int32, so graphs whose padded edge count
     reaches 2^31 - 2 (the JAX package's ``sizet64`` rule) are refused.
@@ -224,6 +246,7 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
     dev = resolve_device(device)
     v_pad = _pad(g.num_nodes)
     e_pad = _pad(g.num_edges)
+    with_csc = with_csc or with_blocked_values
     fields = _host_fields(g, g.csc() if with_csc else None, v_pad, e_pad,
                           with_edge_values=with_edge_values,
                           with_edge_src=with_edge_src)
@@ -251,8 +274,11 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
     The JAX package's TPU layouts (keys starting ``pv2_`` or ``bcsc_``)
     are ignored: the Hopper kernels read the plain CSC. Pass
     ``with_blocked_values`` as the JAX graph was built
-    (``has_blocked_values``). With the CSC, ``inv_outdeg`` is computed
-    here from ``row_offsets``. Any other key is refused.
+    (``has_blocked_values``); without the CSC's keys the CSC is then
+    built here from the CSR (with ``csc_edge_values`` from
+    ``edge_values``), as :func:`to_device` builds it. With the CSC,
+    ``inv_outdeg`` is computed here from ``row_offsets``. Any other key
+    is refused.
 
     The padding is kept as given; shapes, offsets and per-edge row ids
     are checked here, on the host, because the kernels trust them."""
@@ -292,6 +318,10 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                              f"[0, {num_nodes})")
         dtype = np.int32 if name in _INT_FIELDS else np.float32
         arrays[name] = np.array(arr, dtype=dtype)
+    if with_blocked_values and not csc:
+        arrays.update(_csc_from_csr(arrays, int(num_nodes), int(num_edges),
+                                    v_pad, e_pad))
+        csc = list(_CSC)
     # The pull kernels read per-edge row ids where their plain versions
     # read offsets: the two must describe the same rows.
     if "edge_src" in arrays:

@@ -2,3 +2,4 @@ from .bfs import bfs, bfs_device, BfsResult  # noqa: F401
 from .pr import pagerank, pagerank_device, PageRankResult  # noqa: F401
 from .hits import hits, hits_device, HitsResult  # noqa: F401
 from .salsa import salsa, salsa_device, SalsaResult  # noqa: F401
+from .sssp import sssp, sssp_device, SsspResult  # noqa: F401

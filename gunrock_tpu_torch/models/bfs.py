@@ -22,11 +22,18 @@ the pull kernel (:mod:`gunrock_tpu_torch.ops.kernels`). Predecessors
 found in push levels keep the JAX package's winner, the highest lane
 (the largest source in the sorted frontier); those found in pull levels
 are filled after the loop by :func:`_fill_preds`.
+
+Non-DO BFS on a graph with ``has_pull2`` first takes the JAX package's
+sweep route (``models/bfs.py:589-676``): unit-weight min-pull sweeps
+(kernel K6, ``wmode="incr"``) to the fixpoint, labels from the
+distances, predecessors from :func:`_fill_preds`; on the high-diameter
+bail-out it falls back to the level-synchronous push loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional, Union
 
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..enactor import (LoopStats, Timer, capacity_ladder, ladder_rung,
-                       record_iteration)
+                       record_iteration, sweep_to_fixpoint)
 from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand
@@ -188,6 +195,36 @@ def _fill_preds(graph: DeviceGraph, labels: torch.Tensor,
     return preds
 
 
+def _bfs_pull_sweeps(graph: DeviceGraph, src: int, *, mark_preds: bool,
+                     max_iters: Optional[int]):
+    """The sweep route (``models/bfs.py:589-640``): min-pull sweeps with
+    ``incr`` from ``src`` in calls of ``GUNROCK_BFS_SWEEP_CHUNK`` (6) to
+    the fixpoint. Returns ``(labels, preds, stats)``, or None on the
+    bail-out (:func:`~gunrock_tpu_torch.enactor.sweep_to_fixpoint`)."""
+    rounds = int(os.environ.get("GUNROCK_BFS_SWEEP_CHUNK", "6"))
+    init = torch.full((graph.v_pad,), float("inf"), device=graph.device)
+    init[src] = 0.0
+    out = sweep_to_fixpoint(graph, init, wmode="incr", rounds=rounds,
+                            budget=16384 if max_iters is None else max_iters)
+    if out is None:
+        return None
+    dist, changed = out
+    labels = torch.where(torch.isfinite(dist), dist,
+                         float(INVALID)).to(torch.int32)
+    preds = None
+    if mark_preds:
+        # The source is seeded as its own parent so that the fill skips
+        # it, then reset, as in the JAX package.
+        preds = torch.full_like(labels, INVALID)
+        preds[src] = src
+        _fill_preds(graph, labels, preds)
+        preds[src] = INVALID
+    stats = LoopStats(iteration=len(changed), nodes_queued=sum(changed),
+                      edges_queued=graph.num_edges * len(changed),
+                      frontier_trace=changed, route="pull_sweeps")
+    return labels, preds, stats
+
+
 def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                direction_optimized: bool = False, alpha: float = 15.0,
                beta: float = 18.0, max_iters: Optional[int] = None,
@@ -198,11 +235,24 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
 
     ``instrument``: pass a list to collect one record per iteration,
     ``{iteration, ms, frontier, phase, pull}``, as the JAX package's
-    instrumented mode does; ``phase`` is ``"pull"`` or ``"push"``."""
+    instrumented mode does; ``phase`` is ``"pull"`` or ``"push"``.
+
+    Non-DO BFS on a graph with ``has_pull2`` takes the sweep route first
+    unless ``instrument`` is given or ``GUNROCK_BFS_SWEEPS=0`` (see the
+    module docstring); ``stats.route`` names the path taken."""
     if direction_optimized and not graph.has_csc:
         raise ValueError("direction_optimized BFS needs to_device(with_csc=True)")
     if not 0 <= src < graph.num_nodes:
         raise ValueError(f"src {src} out of range [0, {graph.num_nodes})")
+    route = "direction_optimized" if direction_optimized else "push"
+    if (not direction_optimized and graph.has_pull2 and instrument is None
+            and (not mark_preds or graph.has_csc)
+            and os.environ.get("GUNROCK_BFS_SWEEPS", "1") == "1"):
+        out = _bfs_pull_sweeps(graph, src, mark_preds=mark_preds,
+                               max_iters=max_iters)
+        if out is not None:
+            return out
+        route = "bailed_to_push"
     dev = graph.device
     caps = capacity_ladder(graph.e_pad)
     if max_iters is None:
@@ -216,7 +266,7 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                    frontier=torch.tensor([src], dtype=torch.int32,
                                          device=dev),
                    n=1, m_f=end - start, fvalid=True, use_pull=False,
-                   stats=LoopStats())
+                   stats=LoopStats(route=route))
     # The vote's constants, in float32 as the JAX package computes them.
     f32 = np.float32
     thresh_valid = f32(graph.num_edges / 32.0)

@@ -27,7 +27,7 @@ __all__ = ["library_path", "build", "load"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("bfs_kernels.cu", "pull_kernels.cu")
+_SOURCES = ("bfs_kernels.cu", "pull_kernels.cu", "sssp_kernels.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
           "-v")
@@ -107,5 +107,17 @@ def load() -> ctypes.CDLL:
                 p, p, p, p, p, p, i64, i64, i64, p, i32, f32, f32, f32,
                 i32, i32, p, p, p, p, p, p]
             lib.gr_pull_power_iters.restype = ctypes.c_int
+            lib.gr_pull_min_sweeps.argtypes = [
+                p, p, p, p, p, p, i64, i64, p, i32, i32, i32, i32, p, p, p,
+                p, p, p]
+            lib.gr_pull_min_sweeps.restype = ctypes.c_int
+            lib.gr_sample_sorted.argtypes = [p, p, i64, p, i32, i64, p, p, p]
+            lib.gr_sample_sorted.restype = ctypes.c_int
+            lib.gr_reduce_by_dst_sorted.argtypes = [
+                p, p, p, i64, i32, i32, i64, p, p, p, p, p, p, p, p, p]
+            lib.gr_reduce_by_dst_sorted.restype = ctypes.c_int
+            lib.gr_scatter_sorted.argtypes = [p, i64, p, p, i64, p, i64, i32,
+                                              i32, p]
+            lib.gr_scatter_sorted.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -12,6 +12,7 @@ within each frontier vertex's run.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -30,16 +31,19 @@ class ExpandedEdges:
     """
 
     src: torch.Tensor    # (total,) int32
-    dst: torch.Tensor    # (total,) int32
+    dst: Optional[torch.Tensor]  # (total,) int32; None without with_dst
     eid: torch.Tensor    # (total,) int64 edge id into col_indices
     rank: torch.Tensor   # (total,) int64 frontier slot
     total: int
 
 
-def expand(graph: DeviceGraph, frontier: torch.Tensor) -> ExpandedEdges:
+def expand(graph: DeviceGraph, frontier: torch.Tensor, *,
+           with_dst: bool = True) -> ExpandedEdges:
     """Push-mode advance (V2V over the forward CSR) of ``frontier``
     (int32 vertex ids). Callers wanting monotonic gathers pass the
-    frontier sorted, as the DO-BFS push step does."""
+    frontier sorted, as the DO-BFS push step does. ``with_dst=False``
+    skips the destination gather, for callers that stream it with their
+    payload (the SSSP push round, kernel K5)."""
     f = frontier.long()
     start = graph.row_offsets[f].long()
     deg = graph.row_offsets[f + 1].long() - start
@@ -50,5 +54,6 @@ def expand(graph: DeviceGraph, frontier: torch.Tensor) -> ExpandedEdges:
     # eid[j] = start[rank] + (j - seg_start[rank])
     lane = torch.arange(total, device=f.device)
     eid = lane + (start - (ends - deg))[rank]
-    return ExpandedEdges(src=frontier[rank], dst=graph.col_indices[eid],
+    return ExpandedEdges(src=frontier[rank],
+                         dst=graph.col_indices[eid] if with_dst else None,
                          eid=eid, rank=rank, total=total)

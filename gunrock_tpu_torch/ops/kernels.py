@@ -1,8 +1,12 @@
-"""Packed bitmasks and the two CUDA kernels of the DO-BFS path.
+"""Packed bitmasks, the CUDA kernels of the DO-BFS path and those of
+the SSSP push round.
 
 Counterpart of :mod:`gunrock_tpu.ops.pallas_kernels` for the functions
-the DO-BFS path calls: ``words_for``, ``pack_bitmask``,
-``unpack_bitmask``, ``bitmask_gather`` and ``pull_reached_words``.
+the ported paths call: ``words_for``, ``pack_bitmask``,
+``unpack_bitmask``, ``bitmask_gather`` and ``pull_reached_words`` (K2,
+K1; ``csrc/bfs_kernels.cu``), ``sample_sorted`` and ``sample_sorted2``
+(K5), ``reduce_by_dst_sorted`` (K7) and ``scatter_sorted`` (K8; all
+three in ``csrc/sssp_kernels.cu``).
 
 A packed mask is a flat ``(nwords,)`` int32 tensor: bit v is bit
 ``v & 31`` of word ``v >> 5``, bit 31 included, the same words as the
@@ -11,8 +15,8 @@ pads the word count to whole 8x128 tiles for the TPU; here a mask holds
 ``ceil(bits / 32)`` words.
 
 Each kernel has three parts: its plain PyTorch version
-(``*_plain``), a wrapper that launches the hand-written CUDA kernel in
-``csrc/bfs_kernels.cu`` for CUDA tensors, and a launch count in
+(``*_plain``), a wrapper that launches the hand-written CUDA kernel for
+CUDA tensors, and a launch count in
 :data:`LAUNCHES`. The wrapper takes the plain version only for tensors
 that lie on the CPU; for CUDA tensors it launches the kernel or raises.
 """
@@ -25,13 +29,24 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "unpack_bitmask", "bitmask_gather", "bitmask_gather_plain",
-           "pull_reached_words", "pull_reached_words_plain"]
+           "pull_reached_words", "pull_reached_words_plain",
+           "sample_sorted", "sample_sorted_plain", "sample_sorted2",
+           "sample_sorted2_plain", "reduce_by_dst_sorted",
+           "reduce_by_dst_sorted_plain", "scatter_sorted",
+           "scatter_sorted_plain", "REDUCE_CHUNK"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
-# every CUDA kernel of the port: K1 and K2 here, K3 and K4 in
-# ops/pull2.py.
+# every CUDA kernel of the port: K1, K2, K5 (both wrappers), K7 and K8
+# here, K3, K4 and K6 in ops/pull2.py.
 LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
-            "pull_reduce2": 0, "pull_power_iters": 0}
+            "pull_reduce2": 0, "pull_power_iters": 0, "pull_min_sweeps": 0,
+            "sample_sorted": 0, "sample_sorted2": 0,
+            "reduce_by_dst_sorted": 0, "scatter_sorted": 0}
+
+# Stream lanes per warp chunk in K7 (a multiple of 32). It fixes the
+# order of every sum, so two launches on the same input agree bit for
+# bit.
+REDUCE_CHUNK = 1024
 
 
 def reset_launch_counts() -> None:
@@ -167,3 +182,243 @@ def pull_reached_words(words: torch.Tensor, graph) -> torch.Tensor:
             device=dev)
     LAUNCHES["pull_reached_words"] += 1
     return out
+
+
+_GATHER_TYPES = (torch.int32, torch.float32)
+
+
+def sample_sorted_plain(arr: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``arr[pos]``; positions outside ``arr`` read 0."""
+    p = pos.long()
+    ok = (p >= 0) & (p < arr.shape[0])
+    out = arr[torch.where(ok, p, 0)] if arr.shape[0] else \
+        torch.zeros(p.shape, dtype=arr.dtype, device=arr.device)
+    return torch.where(ok, out, torch.zeros((), dtype=arr.dtype,
+                                            device=arr.device))
+
+
+def sample_sorted2_plain(arr_a: torch.Tensor, arr_b: torch.Tensor,
+                         pos: torch.Tensor):
+    """``(arr_a[pos], arr_b[pos])``; positions outside read 0."""
+    return sample_sorted_plain(arr_a, pos), sample_sorted_plain(arr_b, pos)
+
+
+def _sample(a: torch.Tensor, b: Optional[torch.Tensor], pos: torch.Tensor,
+            name: str):
+    dev = pos.device
+    for label, t in (("arr", a), ("arr_b", b)):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype not in _GATHER_TYPES or \
+                not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(f"{label} must be a contiguous 1-D int32 or "
+                             f"float32 tensor on {dev}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if pos.dtype not in (torch.int32, torch.int64) or \
+            not pos.is_contiguous() or pos.dim() != 1:
+        raise ValueError(f"pos must be a contiguous 1-D int32 or int64 "
+                         f"tensor; got {pos.dtype} {tuple(pos.shape)}")
+    if b is not None and b.shape != a.shape:
+        raise ValueError("sample_sorted2 takes two arrays of one length")
+    out_a = torch.empty(pos.shape[0], dtype=a.dtype, device=dev)
+    out_b = None if b is None else torch.empty(pos.shape[0], dtype=b.dtype,
+                                               device=dev)
+    if pos.shape[0] == 0:
+        return out_a, out_b
+    from . import _build
+    _launch(_build.load().gr_sample_sorted, a.data_ptr(),
+            0 if b is None else b.data_ptr(), a.shape[0], pos.data_ptr(),
+            int(pos.dtype == torch.int64), pos.shape[0], out_a.data_ptr(),
+            0 if b is None else out_b.data_ptr(), device=dev)
+    LAUNCHES[name] += 1
+    return out_a, out_b
+
+
+def sample_sorted(arr: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``arr[pos]`` for int32 or float32 ``arr`` and int32 or int64
+    ``pos``; positions outside ``arr`` read 0.
+
+    Kernel K5 (replaces the Pallas ``sample_sorted``,
+    ``gunrock_tpu/ops/pallas_kernels.py:665``). Any order of ``pos`` is
+    right; sorted positions make the kernel's reads coalesce. ``arr`` may
+    have any length (the JAX package's multiple-of-8192 padding is a TPU
+    means)."""
+    if not _route(arr, pos):
+        return sample_sorted_plain(arr, pos)
+    return _sample(arr, None, pos, "sample_sorted")[0]
+
+
+def sample_sorted2(arr_a: torch.Tensor, arr_b: torch.Tensor,
+                   pos: torch.Tensor):
+    """``(arr_a[pos], arr_b[pos])`` in one pass, as :func:`sample_sorted`.
+
+    Kernel K5 in its two-array mode (replaces the Pallas
+    ``sample_sorted2``, ``gunrock_tpu/ops/pallas_kernels.py:783``)."""
+    if not _route(arr_a, arr_b, pos):
+        return sample_sorted2_plain(arr_a, arr_b, pos)
+    return _sample(arr_a, arr_b, pos, "sample_sorted2")
+
+
+_REDUCE_OPS = {"min": 0, "sum": 1}
+_SCATTER_OPS = {"min": 0, "add": 1, "max": 2, "set": 3}
+
+
+def _check_reduce(sd, vals, op, out_lanes, aux) -> None:
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if out_lanes < 0:
+        raise ValueError("out_lanes must be at least 0")
+    if vals.shape != sd.shape or (aux is not None and aux.shape != sd.shape):
+        raise ValueError("sd, vals and aux must have one shape")
+
+
+def reduce_by_dst_sorted_plain(sd: torch.Tensor, vals: torch.Tensor, *,
+                               op: str = "min", out_lanes: int,
+                               aux: Optional[torch.Tensor] = None):
+    """Runs of ``sd`` by their boundaries, :func:`row_reduce_sorted` over
+    them (sums in float64, so this version is the accurate reference the
+    kernel is held to), the aux filter, then the first ``out_lanes``
+    runs. Lanes at or past the count hold 0."""
+    from .segment import row_reduce_sorted
+    _check_reduce(sd, vals, op, out_lanes, aux)
+    dev = sd.device
+    ids = torch.zeros(out_lanes, dtype=torch.int32, device=dev)
+    rvals = torch.zeros(out_lanes, dtype=torch.float32, device=dev)
+    tail = torch.ones(sd.shape[0], dtype=torch.bool, device=dev)
+    tail[:-1] = sd[1:] != sd[:-1]
+    ends = torch.nonzero(tail).flatten() + 1
+    offsets = torch.cat([ends.new_zeros(1), ends])
+    runs = sd[tail].to(torch.int32)
+    red = row_reduce_sorted(vals.float(), offsets, op=op)
+    if aux is not None:
+        keep = red < aux.float()[tail]
+        runs, red = runs[keep], red[keep]
+    k = min(runs.shape[0], out_lanes)
+    ids[:k] = runs[:k]
+    rvals[:k] = red[:k]
+    return ids, rvals, torch.tensor(runs.shape[0], dtype=torch.int32,
+                                    device=dev)
+
+
+def reduce_by_dst_sorted(sd: torch.Tensor, vals: torch.Tensor, *,
+                         op: str = "min", out_lanes: int,
+                         aux: Optional[torch.Tensor] = None):
+    """Reduce ``vals`` by runs of equal, nondecreasing int32 ``sd``.
+
+    Returns ``(ids, rvals, count)``: one lane per run, its id and the min
+    or sum of its values, in ascending id order in the first
+    ``min(count, out_lanes)`` of ``out_lanes`` lanes, and ``count`` as a
+    0-d int32 tensor on the device. A count past ``out_lanes`` signals an
+    overflow: the runs past ``out_lanes`` were dropped, the count is
+    true. ``aux`` (float32, constant within each run, such as
+    ``dist[sd]``) turns on the strictly-improving filter: a run is kept
+    iff its value is below its aux. Lanes at or past the count are left
+    undefined.
+
+    Kernel K7 (replaces the Pallas ``reduce_by_dst_sorted``,
+    ``gunrock_tpu/ops/pallas_kernels.py:1320``). ``min`` is exact; two
+    launches on the same input agree bit for bit."""
+    tensors = [sd, vals] + ([] if aux is None else [aux])
+    if not _route(*tensors):
+        return reduce_by_dst_sorted_plain(sd, vals, op=op,
+                                          out_lanes=out_lanes, aux=aux)
+    _check_reduce(sd, vals, op, out_lanes, aux)
+    dev = sd.device
+    _check("sd", sd, dev)
+    for name, t in (("vals", vals), ("aux", aux)):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"on {dev}; got {t.dtype} on {t.device}")
+    m = sd.shape[0]
+    nchunks = max(1, -(-m // REDUCE_CHUNK))
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    part = torch.empty(max(m, 1), **f32)
+    headp, tailp = torch.empty(nchunks, **f32), torch.empty(nchunks, **f32)
+    cnt, offs = torch.empty(nchunks, **i32), torch.empty(nchunks, **i32)
+    ids = torch.empty(out_lanes, **i32)
+    rvals = torch.empty(out_lanes, **f32)
+    count = torch.empty((), **i32)
+    from . import _build
+    _launch(_build.load().gr_reduce_by_dst_sorted, sd.data_ptr(),
+            vals.data_ptr(), 0 if aux is None else aux.data_ptr(), m,
+            _REDUCE_OPS[op], REDUCE_CHUNK, out_lanes, part.data_ptr(),
+            headp.data_ptr(), tailp.data_ptr(), cnt.data_ptr(),
+            offs.data_ptr(), ids.data_ptr(), rvals.data_ptr(),
+            count.data_ptr(), device=dev)
+    LAUNCHES["reduce_by_dst_sorted"] += 1
+    return ids, rvals, count
+
+
+def _check_scatter(dense, ids, vals, op) -> None:
+    if op not in _SCATTER_OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if dense.dtype not in _GATHER_TYPES or vals.dtype != dense.dtype:
+        raise ValueError(f"dense and vals must both be int32 or float32; "
+                         f"got {dense.dtype} and {vals.dtype}")
+    if vals.shape != ids.shape:
+        raise ValueError("ids and vals must have one shape")
+
+
+def scatter_sorted_plain(dense: torch.Tensor, ids: torch.Tensor,
+                         vals: torch.Tensor, *, count=None,
+                         op: str = "min") -> torch.Tensor:
+    """Plain indexing of the lanes below ``count`` whose ids lie in
+    ``dense``; updates ``dense`` in place and returns it."""
+    _check_scatter(dense, ids, vals, op)
+    c = ids.shape[0] if count is None else min(int(count), ids.shape[0])
+    i = ids[:c].long()
+    ok = (i >= 0) & (i < dense.shape[0])
+    i, v = i[ok], vals[:c][ok]
+    if op == "min":
+        v = torch.minimum(dense[i], v)
+    elif op == "max":
+        v = torch.maximum(dense[i], v)
+    elif op == "add":
+        v = dense[i] + v
+    dense[i] = v
+    return dense
+
+
+def scatter_sorted(dense: torch.Tensor, ids: torch.Tensor,
+                   vals: torch.Tensor, *, count=None,
+                   op: str = "min") -> torch.Tensor:
+    """``dense[ids[i]] = op(dense[ids[i]], vals[i])`` for ``i < count``
+    (all lanes when None), op ``min``, ``max``, ``set`` or ``add``, on
+    int32 or float32. ``ids`` (int32) must be unique among those lanes
+    (a compacted winner stream, ascending for coalesced access); ids
+    outside ``dense`` are dropped. Updates ``dense`` IN PLACE, where the
+    JAX package returns a new array, and returns it. ``count`` may be an
+    int or a one-element int32 tensor on the device, such as the count
+    :func:`reduce_by_dst_sorted` returns, which the kernel reads there.
+
+    Kernel K8 (replaces the Pallas ``scatter_sorted``,
+    ``gunrock_tpu/ops/pallas_kernels.py:1289``)."""
+    tensors = [dense, ids, vals] + ([count] if torch.is_tensor(count)
+                                    else [])
+    if not _route(*tensors):
+        return scatter_sorted_plain(dense, ids, vals, count=count, op=op)
+    _check_scatter(dense, ids, vals, op)
+    dev = dense.device
+    _check("ids", ids, dev)
+    if not dense.is_contiguous() or not vals.is_contiguous() or \
+            vals.device != dev:
+        raise ValueError(f"dense and vals must be contiguous on {dev}")
+    count_ptr, count_host = 0, ids.shape[0]
+    if torch.is_tensor(count):
+        if count.device != dev or count.dtype != torch.int32 or \
+                count.numel() != 1:
+            raise ValueError(f"count must be one int32 on {dev}")
+        count_ptr = count.data_ptr()
+    elif count is not None:
+        count_host = int(count)
+    if ids.shape[0] == 0:
+        return dense
+    from . import _build
+    _launch(_build.load().gr_scatter_sorted, dense.data_ptr(),
+            dense.shape[0], ids.data_ptr(), vals.data_ptr(), ids.shape[0],
+            count_ptr, count_host, int(dense.dtype == torch.float32),
+            _SCATTER_OPS[op], device=dev)
+    LAUNCHES["scatter_sorted"] += 1
+    return dense

@@ -1,8 +1,8 @@
-"""Value pulls over the CSC: kernels K3 (``pull_reduce2``) and K4
-(``pull_power_iters``).
+"""Value pulls over the CSC: kernels K3 (``pull_reduce2``), K4
+(``pull_power_iters``) and K6 (``pull_min_sweeps``).
 
 Counterpart of :mod:`gunrock_tpu.ops.pull2` (``pull_reduce2``,
-``pull_power_iters``) and of ``pull_vertex_reduce`` in
+``pull_power_iters``, ``pull_min_sweeps``) and of ``pull_vertex_reduce`` in
 :mod:`gunrock_tpu.ops.pallas_kernels`. Every value primitive reads one
 operation::
 
@@ -32,7 +32,8 @@ from .kernels import LAUNCHES, _check, _launch, _route
 from .segment import row_reduce_sorted
 
 __all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
-           "pull_power_iters_plain", "pull_vertex_reduce", "PULL_CHUNK"]
+           "pull_power_iters_plain", "pull_min_sweeps",
+           "pull_min_sweeps_plain", "pull_vertex_reduce", "PULL_CHUNK"]
 
 # Edges per warp chunk in K3/K4 (a multiple of 32). It fixes the order of
 # every sum, so two launches on the same input agree bit for bit.
@@ -235,3 +236,62 @@ def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
             folded.data_ptr(), changed.data_ptr(), device=dev)
     LAUNCHES["pull_power_iters"] += 1
     return (ping if iters % 2 else pong), changed
+
+
+def pull_min_sweeps_plain(graph, init: torch.Tensor, *, sweeps: int,
+                          wmode: str = "add", weights: str = "val"):
+    """``sweeps`` rounds of :func:`pull_reduce2_plain` with ``op="min"``
+    and ``init`` the current distances (Jacobi: each sweep reads the
+    previous one's result), and the count of ``d'[v] < d[v]`` a sweep."""
+    if sweeps < 1:
+        raise ValueError("sweeps must be at least 1")
+    d = init.float()
+    changed = []
+    for _ in range(sweeps):
+        fresh = pull_reduce2_plain(d, graph, op="min", wmode=wmode, init=d,
+                                   weights=weights)
+        changed.append((fresh < d).sum())
+        d = fresh
+    return d, torch.stack(changed).to(torch.int32)
+
+
+def pull_min_sweeps(graph, init: torch.Tensor, *, sweeps: int,
+                    wmode: str = "add", weights: str = "val"):
+    """Run ``sweeps`` min-pull sweeps ``d'[v] = min(d[v], min over CSC row
+    v of f(d[u], w))`` from ``init`` ((v_pad,), +inf for unreached) in one
+    host call; returns ``(dist, changed)`` with ``changed`` the (sweeps,)
+    int32 count of improved vertices a sweep.
+
+    Kernel K6 (replaces the Pallas ``pull_min_sweeps``,
+    ``gunrock_tpu/ops/pull2.py:554``). The TPU kernel sweeps Gauss-Seidel,
+    odd sweeps backward, and only a zero on an even sweep certifies the
+    fixpoint. Here every sweep is Jacobi (two buffers ping-pong), so its
+    result and count equal the plain version's and a zero count on any
+    sweep is a fixpoint; callers that test even sweeps stay sound. The
+    fixpoint is the one the TPU kernel reaches: the least distances over
+    walks, each step rounded as float32 ``d[u] + w``."""
+    if not _route(init, graph.csc_indices):
+        return pull_min_sweeps_plain(graph, init, sweeps=sweeps,
+                                     wmode=wmode, weights=weights)
+    if sweeps < 1:
+        raise ValueError("sweeps must be at least 1")
+    _validate(graph, "min", init)
+    w, kind = _weights(graph, wmode, weights)
+    dev = graph.csc_indices.device
+    init = init.to(torch.float32).contiguous()
+    _check_float("init", init, graph.v_pad, dev)
+    _check_graph(graph, w, kind, dev)
+    rowval, head, tail, folded = _scratch(graph, dev)
+    ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
+    pong = torch.empty_like(ping)
+    changed = torch.zeros(sweeps, dtype=torch.int32, device=dev)
+    from . import _build
+    _launch(_build.load().gr_pull_min_sweeps, init.data_ptr(),
+            ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
+            graph.csc_edge_dst.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.num_edges, graph.v_pad, 0 if w is None else w.data_ptr(),
+            kind, _FNS[wmode], sweeps, PULL_CHUNK, rowval.data_ptr(),
+            head.data_ptr(), tail.data_ptr(), folded.data_ptr(),
+            changed.data_ptr(), device=dev)
+    LAUNCHES["pull_min_sweeps"] += 1
+    return (ping if sweeps % 2 else pong), changed

@@ -71,6 +71,19 @@ def profile_run(fn, runs: int, device: torch.device) -> dict:
                              key=lambda r: -r[2])}
 
 
+def print_profile(name: str, label: str, r: dict, top=None) -> None:
+    """Print one :func:`profile_run` result: wall, device and busy share
+    a run, then its ``top`` largest device events (all when None)."""
+    if r["device_ms"] > 0:
+        device = (f"device {r['device_ms']:.3f} ms, busy "
+                  f"{100.0 * r['device_ms'] / r['wall_ms']:.1f}%")
+    else:
+        device = "device not measured, busy not measured"
+    print(f"[{name}] {label}: wall {r['wall_ms']:.3f} ms a run, {device}")
+    for ev, calls, ms in r["events"][:top]:
+        print(f"[{name}]   {ms:9.4f} ms  {calls:9.1f} calls  {ev[:90]}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -95,16 +108,8 @@ def main(argv=None) -> int:
         ("hits", HITS_ITERS, lambda: hits_device(dg, HITS_ITERS)),
     )
     for name, iters, fn in cases:
-        r = profile_run(fn, args.runs, dev)
-        if r["device_ms"] > 0:
-            device = (f"device {r['device_ms']:.3f} ms, busy "
-                      f"{100.0 * r['device_ms'] / r['wall_ms']:.1f}%")
-        else:
-            device = "device not measured, busy not measured"
-        print(f"[{name}] {iters} iterations, {args.runs} profiled runs: "
-              f"wall {r['wall_ms']:.3f} ms a run, {device}")
-        for ev, calls, ms in r["events"]:
-            print(f"[{name}]   {ms:9.4f} ms  {calls:7.1f} calls  {ev[:90]}")
+        print_profile(name, f"{iters} iterations, {args.runs} profiled runs",
+                      profile_run(fn, args.runs, dev))
     return 0
 
 

@@ -94,6 +94,8 @@ def make_info(*, primitive: str, graph, stats=None, timer=None,
         info["edges_queued"] = int(stats.edges_queued)
         info["frontier_overflow"] = stats.overflow
         info["per_iteration_frontier"] = list(stats.frontier_trace)
+        if stats.route:
+            info["route"] = stats.route
     if edges_visited is not None:
         info["edges_visited"] = edges_visited
         elapsed_ms = info.get("process_ms", 0.0)

@@ -2,16 +2,17 @@
 
 Counterparts of :mod:`gunrock_tpu.utils.reference` (numpy, float64):
 ``cpu_bfs`` (reference ``ReferenceBFS``, ``tests/bfs/test_bfs.cu:186-257``),
-``cpu_pagerank``, ``cpu_hits`` and ``cpu_salsa``.
+``cpu_sssp``, ``cpu_pagerank``, ``cpu_hits`` and ``cpu_salsa``.
 """
 
 from __future__ import annotations
 
+import heapq
 from collections import deque
 
 import numpy as np
 
-__all__ = ["cpu_bfs", "cpu_pagerank", "cpu_hits", "cpu_salsa"]
+__all__ = ["cpu_bfs", "cpu_sssp", "cpu_pagerank", "cpu_hits", "cpu_salsa"]
 
 
 def cpu_bfs(g, src: int) -> np.ndarray:
@@ -28,6 +29,24 @@ def cpu_bfs(g, src: int) -> np.ndarray:
                 labels[v] = labels[u] + 1
                 q.append(v)
     return labels
+
+
+def cpu_sssp(g, src: int) -> np.ndarray:
+    """Dijkstra; dist[v] = shortest distance, +inf unreachable."""
+    dist = np.full(g.num_nodes, np.inf, dtype=np.float64)
+    dist[src] = 0.0
+    row, col, w = g.row_offsets, g.col_indices, g.edge_values
+    pq = [(0.0, src)]
+    while pq:
+        d, u = heapq.heappop(pq)
+        if d > dist[u]:
+            continue
+        for e in range(row[u], row[u + 1]):
+            v, nd = col[e], d + w[e]
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(pq, (nd, v))
+    return dist
 
 
 def cpu_pagerank(g, damping: float = 0.85, max_iters: int = 100,

@@ -1,4 +1,4 @@
-"""The CUDA kernels and the DO-BFS path on the card, against the plain
+"""The CUDA kernels, the DO-BFS path and SSSP on the card, against the plain
 PyTorch versions on the same inputs. Every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one. The file imports neither jax
 nor the JAX package, so it also runs where only the port is installed:
@@ -178,3 +178,167 @@ def test_value_primitives_on_cuda_equal_cpu(cuda, prim):
     atol = 1e-4 if prim == "hits" else 1e-5
     np.testing.assert_allclose(got.hubs, want.hubs, rtol=1e-3, atol=atol)
     np.testing.assert_allclose(got.auths, want.auths, rtol=1e-3, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two,pos64", [(False, False), (False, True),
+                                       (True, False), (True, True)])
+def test_sample_sorted_kernel_equals_plain(cuda, two, pos64):
+    n = 1 << 20
+    a = torch.rand(n, device=cuda)
+    b = torch.randint(0, 1 << 30, (n,), dtype=torch.int32, device=cuda)
+    pos = torch.sort(torch.randint(-5, n + 5, (3_000_001,),
+                                   device=cuda)).values
+    pos = pos if pos64 else pos.to(torch.int32)
+    name = "sample_sorted2" if two else "sample_sorted"
+    before = K.LAUNCHES[name]
+    if two:
+        got = K.sample_sorted2(b, a, pos)
+        want = K.sample_sorted2_plain(b, a, pos)
+    else:
+        got = (K.sample_sorted(a, pos),)
+        want = (K.sample_sorted_plain(a, pos),)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["min", "sum", "filtered", "overflow",
+                                  "giant", "aligned", "empty"])
+def test_reduce_by_dst_sorted_kernel_equals_plain(cuda, case):
+    """ids and count exact, min exact, sum within rtol 1e-6 of the float64
+    plain version, bitwise equal over two launches. ``aligned``: runs
+    that begin exactly at a chunk's first lane and span several chunks."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    m, nv, out_lanes = {"min": (3_000_000, 200_000, 200_000),
+                        "sum": (3_000_000, 200_000, 200_000),
+                        "filtered": (3_000_000, 200_000, 200_000),
+                        "overflow": (500_000, 400_000, 1000),
+                        "giant": (300_000, 3, 16),
+                        "aligned": (40 * K.REDUCE_CHUNK, 10, 16),
+                        "empty": (0, 1, 16)}[case]
+    sd = torch.sort(torch.randint(0, nv, (m,), generator=g, device=cuda,
+                                  dtype=torch.int32)).values
+    if case == "aligned":     # run i covers chunks 4i..4i+3
+        sd = torch.arange(m, device=cuda, dtype=torch.int32) // (
+            4 * K.REDUCE_CHUNK)
+    vals = torch.rand(m, generator=g, device=cuda) * 10
+    aux = None
+    if case == "filtered":
+        aux = (torch.rand(nv, generator=g, device=cuda) * 10)[sd.long()]
+    op = "sum" if case in ("sum", "giant", "aligned") else "min"
+    kw = dict(op=op, out_lanes=out_lanes, aux=aux)
+    before = K.LAUNCHES["reduce_by_dst_sorted"]
+    ids, rv, cnt = K.reduce_by_dst_sorted(sd, vals, **kw)
+    ids2, rv2, cnt2 = K.reduce_by_dst_sorted(sd, vals, **kw)
+    wid, wrv, wcnt = K.reduce_by_dst_sorted_plain(sd, vals, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["reduce_by_dst_sorted"] == before + 2
+    assert cnt.dtype == torch.int32 and int(cnt) == int(wcnt)
+    k = min(int(cnt), out_lanes)
+    assert (int(cnt) > out_lanes) == (case == "overflow")
+    assert torch.equal(ids[:k], wid[:k]) and torch.equal(ids[:k], ids2[:k])
+    assert torch.equal(rv[:k], rv2[:k])
+    if op == "min":
+        assert torch.equal(rv[:k], wrv[:k])
+    else:
+        torch.testing.assert_close(rv[:k], wrv[:k], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "max", "add", "set"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_scatter_sorted_kernel_equals_plain(cuda, op, dtype):
+    n = 1 << 20
+    ids = torch.unique(torch.randint(0, n + 100, (300_000,), device=cuda,
+                                     dtype=torch.int32))
+    if dtype == torch.float32:
+        vals = torch.randn(ids.shape[0], device=cuda) * 10
+        dense = torch.randn(n, device=cuda) * 10
+    else:
+        vals = torch.randint(-100, 100, ids.shape, device=cuda,
+                             dtype=torch.int32)
+        dense = torch.randint(-100, 100, (n,), device=cuda,
+                              dtype=torch.int32)
+    for count in (None, 1234, torch.tensor(5000, dtype=torch.int32,
+                                           device=cuda), 0):
+        before = K.LAUNCHES["scatter_sorted"]
+        got = K.scatter_sorted(dense.clone(), ids, vals, count=count, op=op)
+        want = K.scatter_sorted_plain(dense.clone(), ids, vals,
+                                      count=None if count is None
+                                      else int(count), op=op)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["scatter_sorted"] == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wmode", ["add", "incr", "none"])
+def test_pull_min_sweeps_kernel_equals_plain(cuda, wmode):
+    """Jacobi sweeps: distances and change counts equal."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    _, g = _value_graph(cuda)
+    if wmode == "none":
+        init = torch.arange(g.v_pad, device=cuda, dtype=torch.float32)
+    else:
+        init = torch.full((g.v_pad,), float("inf"), device=cuda)
+        init[0] = 0.0
+    before = K.LAUNCHES["pull_min_sweeps"]
+    for sweeps in (1, 6):
+        got, chg = P.pull_min_sweeps(g, init, sweeps=sweeps, wmode=wmode)
+        want, wchg = P.pull_min_sweeps_plain(g, init, sweeps=sweeps,
+                                             wmode=wmode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(chg, wchg)
+    assert K.LAUNCHES["pull_min_sweeps"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bellman", "nearfar"])
+def test_sssp_on_cuda_equals_cpu(cuda, mode, monkeypatch):
+    g = gtt.io.rmat(scale=12, edge_factor=16, seed=5, undirected=True)
+    g.random_edge_values(seed=5)
+    want = gtt.sssp(g, "largestdegree", mark_preds=True, mode=mode,
+                    delta_factor=0.5, device="cpu")
+    K.reset_launch_counts()
+    got = gtt.sssp(g, "largestdegree", mark_preds=True, mode=mode,
+                   delta_factor=0.5, device="cuda")
+    np.testing.assert_array_equal(got.distances, want.distances)
+    np.testing.assert_array_equal(got.preds, want.preds)
+    assert got.info["num_iterations"] == want.info["num_iterations"]
+    assert K.LAUNCHES["sample_sorted"] > 0 and K.LAUNCHES["sample_sorted2"] > 0
+    # The device graph with the blocked values: the sweep route (K6),
+    # then fused and pulling push rounds (K7, K8, K3) on the same graph.
+    dg = gtt.to_device(g, with_edge_values=True, with_blocked_values=True,
+                       device=cuda)
+    dist, _, stats = gtt.models.sssp_device(dg, got.info["src"])
+    assert stats.route == "pull_sweeps" and K.LAUNCHES["pull_min_sweeps"] > 0
+    assert np.array_equal(dist[:g.num_nodes].cpu().numpy(), want.distances)
+    monkeypatch.setenv("GUNROCK_SSSP_PULL2", "0")   # bellman pushes
+    fused, _, stats = gtt.models.sssp_device(dg, got.info["src"], mode=mode,
+                                             delta=16.0, fused=True)
+    assert torch.equal(fused, dist) and stats.route == mode
+    assert K.LAUNCHES["reduce_by_dst_sorted"] > 0
+    assert K.LAUNCHES["scatter_sorted"] > 0
+    if mode == "bellman":   # the hub's second round passes E / 16
+        assert K.LAUNCHES["pull_reduce2"] > 0
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_device_mixes(cuda):
+    from gunrock_tpu_torch.ops import pull2 as P
+    x = torch.rand(100, device=cuda)
+    pos = torch.arange(10)
+    with pytest.raises(ValueError, match="tensors on"):
+        K.sample_sorted(x, pos)
+    with pytest.raises(ValueError, match="tensors on"):
+        K.reduce_by_dst_sorted(torch.zeros(5, dtype=torch.int32, device=cuda),
+                               torch.zeros(5), out_lanes=4)
+    with pytest.raises(ValueError, match="tensors on"):
+        K.scatter_sorted(x, torch.zeros(3, dtype=torch.int32),
+                         torch.zeros(3))
+    _, g = _value_graph(cuda, scale=10)
+    with pytest.raises(ValueError, match="tensors on"):
+        P.pull_min_sweeps(g, torch.zeros(g.v_pad), sweeps=2)
