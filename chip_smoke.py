@@ -65,9 +65,37 @@ script exits non-zero:
 15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
     near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
 
+16. BC, kernel-C route: ``gunrock_tpu_torch.bc`` on phase 11's graph
+    (undirected, ``has_pull2``) from the largest-degree vertex, through
+    kernel K9. Labels equal phase 3's, sigma within rtol 1e-4 and BC
+    within rtol 1e-3, atol 1e-3 of the vectorised float64 oracle.
+17. BC, the other routes on that graph (``GUNROCK_BC_PULL2=0``): the
+    hybrid (K3 on the levels whose frontier edges pass E / 32, as many
+    launches as the labels predict), the fused hybrid (K5, K7, K8) and
+    the instrumented all-pull route (K3 a level), each against phase 16.
+18. CC on the flagship uploaded ``with_edge_src`` and
+    ``with_blocked_values``: components equal scipy's (minimum-id form)
+    and their count; the branch of every round and K3's launches are
+    printed. Then ``GUNROCK_CC_SWEEPS=1`` (K6), components equal.
+19. K9 against its plain version at the flagship's shapes: every forward
+    level in calls of 8, then every backward ring; labels and counts
+    exact, sigma and delta within rtol 1e-4 of the float64-summing plain
+    version and bitwise equal over two launches. Median times.
+20. Timing, best of 5 after a warm-up: BC (kernel C, hybrid, fused), CC
+    (hooking, sweeps) on the flagship; ms and MTEPS in ``bench_all.py``'s
+    accounting (BC 2E, CC E, per ms).
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4), 7-8 (K3), 12 (K5, K7, K8) and 11 (K6).
+(K4), 7-8 and 17 (K3), 12 and 17 (K5, K7, K8), 11 (K6) and 16 (K9).
+Every kernel's entry also carries ``bound_ms``, the least time the card
+could take for the same work at the H100's published rates (see
+:func:`bound`), and ``library_ms``, the time of one PyTorch call that
+computes the same function on the same inputs where there is one: the
+CSR sparse matrix-vector product for K3 (phase 9), ``index_select`` for
+K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
+Phase 4 also prints the bound of ``bitmask_gather_cumsum``, the one TPU
+kernel not ported yet.
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -78,6 +106,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest.mock import patch
 
 SCALE, EDGE_FACTOR, SEED = 20, 32, 1
 RUNS = 5
@@ -86,6 +115,34 @@ BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
 PR_ITERS, LINK_ITERS = 20, 10
 SSSP_WEIGHT_SEED, GRID_SIDE, GRID_WEIGHT_SEED, GRID_DELTA = 7, 1024, 1, 256.0
 SWEEPS = 6
+BC_LEVELS = 8
+# Published H100 SXM rates (NVIDIA data sheet, at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel: the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    and its float32 operations over the peak rate. A kernel whose rounds
+    each read the whole graph (K4, K6) is counted a round at a time, as
+    its plain version and a library call would run them; K9's levels
+    only need the edges of one depth each, so a phase counts the
+    reached edges once. Integer and bit operations are left out (at
+    most one per 4 bytes moved)."""
+    b_ms = nbytes / HBM_RATE * 1e3
+    o_ms = flops / FP32_RATE * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def pull_bytes(num_edges: int, v_pad: int, vectors: int,
+               edge_streams: int = 2) -> int:
+    """Bytes of one pull over the CSC: ``edge_streams`` int32 or float32
+    arrays of one entry an edge (csc_indices and csc_edge_dst, and the
+    weights where read) and ``vectors`` (v_pad,) arrays read or written
+    (the values, the offsets, the output, ...)."""
+    return 4 * edge_streams * num_edges + 4 * vectors * v_pad
 
 
 def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
@@ -339,6 +396,20 @@ def phase_value_kernels(dg, dev):
         k3["max_rel_err"] = max(k3["max_rel_err"], rel_err)
         if name == "sum/none":   # the mode HITS, SALSA and the loop run
             k3["ms"], k3["plain_ms"] = ms, plain
+            k3.update(bound(pull_bytes(dg.num_edges, dg.v_pad, 3),
+                            dg.num_edges))
+            # The yardstick: cuSPARSE's CSR matrix-vector product over the
+            # same CSC (row v lists the in-neighbours of v), built here.
+            e = dg.num_edges
+            csr = torch.sparse_csr_tensor(
+                dg.csc_offsets, dg.csc_indices[:e],
+                torch.ones(e, device=dev), size=(dg.v_pad, dg.v_pad))
+            lib_abs, lib_rel = _errs(torch.mv(csr, vals), want)
+            k3["library_ms"] = _median_ms(lambda: torch.mv(csr, vals))
+            print(f"[kernels] K3 yardstick torch.mv(sparse CSR): "
+                  f"{k3['library_ms']:.4f} ms, max rel err {lib_rel:.3e} "
+                  f"vs the plain version; bound {k3['bound_ms']:.4f} ms")
+            del csr
     n = dg.num_nodes
     start = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
                         0.0).float()
@@ -366,7 +437,10 @@ def phase_value_kernels(dg, dev):
               f"{plain:.4f} ms")
         k4 = {"max_abs_err": max(k4.get("max_abs_err", 0.0), abs_err),
               "max_rel_err": max(k4.get("max_rel_err", 0.0), rel_err),
-              "ms": ms, "plain_ms": plain}
+              "ms": ms, "plain_ms": plain, "library_ms": None,
+              # a round: rank, 1/out-degree, offsets and output vectors
+              **bound(iters * pull_bytes(dg.num_edges, dg.v_pad, 4),
+                      iters * (dg.num_edges + 3 * dg.v_pad))}
     return k3, k4
 
 
@@ -612,10 +686,12 @@ def phase_sssp_kernels(dg, src, dist, dev):
                        float("inf"), dist)
     out = {}
 
-    def report(name, err, ms, plain, note):
+    def report(name, err, ms, plain, note, work, library=None):
+        lib = "" if library is None else f", library {library:.4f} ms"
         print(f"[kernels] {name}: {note}; max abs err {err}; {ms:.4f} ms vs "
-              f"plain {plain:.4f} ms")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+              f"plain {plain:.4f} ms{lib}; bound {work['bound_ms']:.4f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "library_ms": library, **work}
 
     # K5, the payload of the round: two arrays at eid, one at src.
     two = K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid)
@@ -633,7 +709,13 @@ def phase_sssp_kernels(dg, src, dist, dev):
            _median_ms(lambda: K.sample_sorted2_plain(
                dg.col_indices, dg.edge_values, ex.eid))
            + _median_ms(lambda: K.sample_sorted_plain(half, ex.src)),
-           f"{ex.total} lanes, both modes exact (time: one round's pair)")
+           f"{ex.total} lanes, both modes exact (time: one round's pair)",
+           # eid, two gathered values and two outputs a lane; src, one
+           # output and the frontier's distances
+           bound(32 * ex.total + 4 * frontier.shape[0]),
+           _median_ms(lambda: dg.col_indices.index_select(0, ex.eid))
+           + _median_ms(lambda: dg.edge_values.index_select(0, ex.eid))
+           + _median_ms(lambda: half.index_select(0, ex.src)))
 
     # K7: the fused round's min with aux, and a sum, on the sorted lanes.
     dst, w = two
@@ -670,7 +752,8 @@ def phase_sssp_kernels(dg, src, dist, dev):
                                                            **kw_min), reps=5),
            f"{sd.shape[0]} lanes, {k} improving runs of {ks}; min exact, "
            f"sum max rel err {srel:.3e}, bitwise over two launches "
-           f"(time: min with aux)")
+           f"(time: min with aux)",
+           bound(12 * sd.shape[0] + 8 * k + 4, sd.shape[0]))
 
     # K8: the fused round's min, and add; float32 and int32.
     ints = torch.from_numpy(rng.integers(-1000, 1000, dg.v_pad,
@@ -685,13 +768,21 @@ def phase_sssp_kernels(dg, src, dist, dev):
             if not torch.equal(got, want):
                 raise AssertionError(f"K8 {op} {dense.dtype} differs")
     scratch = half.clone()
+    ids_k, vals_k = ids[:k].long(), vals[:k]
+    lib = half.clone().index_reduce_(0, ids_k, vals_k, "amin")
+    if not torch.equal(lib, K.scatter_sorted(half.clone(), ids, vals,
+                                             count=cnt, op="min")):
+        raise AssertionError("K8 differs from index_reduce_")
     report("scatter_sorted", 0.0,
            _median_ms(lambda: K.scatter_sorted(scratch, ids, vals, count=cnt,
                                                op="min")),
            _median_ms(lambda: K.scatter_sorted_plain(scratch, ids, vals,
                                                      count=k, op="min")),
            f"{k} winners; min and add, float32 and int32, exact "
-           f"(time: min, count read on the device)")
+           f"(time: min, count read on the device)",
+           bound(16 * k + 4, k),
+           _median_ms(lambda: scratch.index_reduce_(0, ids_k, vals_k,
+                                                    "amin")))
 
     # K6: SWEEPS sweeps from the source, add/val and incr.
     init = torch.full((dg.v_pad,), float("inf"), device=dev)
@@ -709,7 +800,11 @@ def phase_sssp_kernels(dg, src, dist, dev):
            _median_ms(lambda: P.pull_min_sweeps(dg, init, sweeps=SWEEPS)),
            _median_ms(lambda: P.pull_min_sweeps_plain(dg, init,
                                                       sweeps=SWEEPS), reps=5),
-           f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)")
+           f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)",
+           # a sweep: indices, rows and weights an edge; values, offsets
+           # and output vectors; an add and a min an edge
+           bound(SWEEPS * pull_bytes(dg.num_edges, dg.v_pad, 3, 3),
+                 SWEEPS * 2 * dg.num_edges))
     return out
 
 
@@ -738,6 +833,232 @@ def phase_sssp_timing(g, src, dg, gg, dgw, card):
                                               delta=GRID_DELTA), gev),
             ("non-DO bfs grid", lambda: bfs_device(dgw, 0), gev)):
         best, times = best_of(fn)
+        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); "
+              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
+              f"on {card}")
+
+
+def phase_bc(gtt, g, src, dg, bfs_labels):
+    """Phases 16 and 17: BC on the kernel-C route (K9), held against the
+    float64 oracle, then the hybrid, fused and all-pull routes against
+    it. Returns the main-path launch counts: K9 from phase 16, the rest
+    from phase 17."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.utils import reference as oracle
+
+    # 16. Kernel C.
+    if not (dg.has_pull2 and dg.undirected):
+        raise AssertionError("phase 11's graph should take the kernel-C route")
+    K.reset_launch_counts()
+    main = gtt.bc(dg, src)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"[bc] kernel C: route {main.info['route']}, search_depth "
+          f"{main.info['search_depth']}, discovered per level "
+          f"{main.info['per_iteration_frontier']}, process "
+          f"{main.info['process_ms']:.3f} ms; kernel launches {launches}")
+    if main.info["route"] != "pull2" or launches["brandes_levels"] <= 0:
+        raise AssertionError("K9 was not launched on the kernel-C route")
+    if not np.array_equal(main.labels, bfs_labels):
+        raise AssertionError("BC labels differ from phase 3's BFS labels")
+    t0 = time.perf_counter()
+    labels, sigma, delta = oracle.cpu_brandes(g, src)
+    print(f"[bc] float64 oracle {time.perf_counter() - t0:.3f} s; largest "
+          f"path count {sigma.max():.6e}")
+    if not np.array_equal(labels, main.labels):
+        raise AssertionError("BC labels differ from the oracle's")
+    check_close("bc sigma vs float64 oracle", main.sigmas, sigma,
+                rtol=1e-4, atol=0.0)
+    delta[src] = 0.0
+    check_close("bc vs float64 oracle", main.bc_values, 0.5 * delta,
+                rtol=1e-3, atol=1e-3)
+
+    # 17. The other routes. The hybrid pulls forward level d + 1 and
+    # backward ring d where level d's out-degree sum passes E / 32.
+    deg = np.diff(g.row_offsets.astype(np.int64))
+    reached = main.labels >= 0
+    msum = np.bincount(main.labels[reached], weights=deg[reached])
+    seq = ["pull" if m > max(1, g.num_edges // 32) else "push" for m in msum]
+    print(f"[bc] hybrid's frontier edges per level "
+          f"{msum.astype(np.int64).tolist()}: forward {seq}, backward "
+          f"{seq[::-1]}")
+    other = {}
+    for name, flags, instrumented in (
+            ("hybrid", {}, False),
+            ("hybrid fused", {"GUNROCK_BC_FUSED": "1"}, False),
+            ("all-pull (instrumented)", {}, True)):
+        K.reset_launch_counts()
+        with patch.dict(os.environ, GUNROCK_BC_PULL2="0", **flags):
+            res = gtt.bc(dg, src, instrumented=instrumented)
+        torch.cuda.synchronize()
+        n = dict(K.LAUNCHES)
+        print(f"[bc] {name}: route {res.info['route']}, iterations "
+              f"{res.info['num_iterations']}, process "
+              f"{res.info['process_ms']:.3f} ms; kernel launches {n}")
+        want_k3 = 2 * seq.count("pull")
+        if instrumented:
+            want_k3 = len(res.info["per_iteration"])
+            print("[bc] all-pull levels: " + ", ".join(
+                f"{r['phase'][0]}{r['level']}:{r['ms']:.3f} ms"
+                for r in res.info["per_iteration"]))
+        if n["pull_reduce2"] != want_k3 or n["brandes_levels"]:
+            raise AssertionError(f"{name}: K3 launched {n['pull_reduce2']} "
+                                 f"times, expected {want_k3}, and K9 "
+                                 f"{n['brandes_levels']} times")
+        if flags and min(n["sample_sorted"], n["reduce_by_dst_sorted"],
+                         n["scatter_sorted"]) <= 0:
+            raise AssertionError("K5, K7 or K8 was not launched by the fused "
+                                 "hybrid")
+        if not np.array_equal(res.labels, main.labels):
+            raise AssertionError(f"{name}: labels differ from kernel C's")
+        check_close(f"bc {name} sigma vs kernel C", res.sigmas, main.sigmas,
+                    rtol=1e-4, atol=0.0)
+        check_close(f"bc {name} vs kernel C", res.bc_values, main.bc_values,
+                    rtol=1e-3, atol=1e-3)
+        for k, v in n.items():
+            other[k] = other.get(k, 0) + v
+    other["brandes_levels"] = launches["brandes_levels"]
+    return other
+
+
+def phase_cc(gtt, g, dev):
+    """Phase 18: CC on the flagship, hooking and the sweeps route, against
+    scipy. Returns the graph and the launch counts of both runs."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.utils import reference as oracle
+
+    t0 = time.perf_counter()
+    dgc = gtt.to_device(g, with_edge_src=True, with_blocked_values=True,
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"[cc] to_device(with_edge_src, with_blocked_values) "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    ref = oracle.cpu_cc(g)
+    isolated = int((np.diff(g.row_offsets) == 0).sum())
+    print(f"[cc] scipy components {time.perf_counter() - t0:.3f} s: "
+          f"{len(np.unique(ref))} components, {isolated} isolated vertices")
+    launches = {}
+    for name, flags in (("hooking", {}),
+                        ("sweeps", {"GUNROCK_CC_SWEEPS": "1"})):
+        K.reset_launch_counts()
+        with patch.dict(os.environ, flags):
+            res = gtt.cc(dgc, instrumented=not flags)
+        torch.cuda.synchronize()
+        n = dict(K.LAUNCHES)
+        print(f"[cc] {name}: route {res.info['route']}, iterations "
+              f"{res.info['num_iterations']}, per-round frontier "
+              f"{res.info['per_iteration_frontier']}, process "
+              f"{res.info['process_ms']:.3f} ms; kernel launches {n}")
+        if flags:
+            if res.info["route"] != "pull_sweeps" or \
+                    n["pull_min_sweeps"] <= 0:
+                raise AssertionError("K6 was not launched by the sweeps route")
+        else:
+            branches = [r["phase"] for r in res.info["per_iteration"]]
+            print(f"[cc] remainder rounds: {branches}; K3 launches "
+                  f"{n['pull_reduce2']} (one a full-edge round)")
+            if n["pull_reduce2"] != branches.count("full_edge"):
+                raise AssertionError("K3 launches do not match the full-edge "
+                                     "rounds")
+        if not np.array_equal(res.components, ref) or \
+                res.num_components != len(np.unique(ref)):
+            raise AssertionError(f"cc {name}: components differ from scipy's")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    print("[cc] components equal scipy's on both routes")
+    return dgc, launches
+
+
+def phase_bc_kernels(dg, src, dev):
+    """Phase 19: K9 against its plain version at the flagship's shapes,
+    one whole BC source as the kernel-C route runs it: every forward
+    level in calls of BC_LEVELS, then every backward ring. Returns K9's
+    JSON fields."""
+    import torch
+    from gunrock_tpu_torch.ops import pull2 as P
+    lab0 = torch.full((dg.v_pad,), float("inf"), device=dev)
+    lab0[src] = 0.0
+    sig0 = torch.zeros(dg.v_pad, device=dev)
+    sig0[src] = 1.0
+
+    def brandes(fwd, bwd):
+        lab, sig, d, counts = lab0, sig0, 1, []
+        while True:
+            lab, sig, chg = fwd(dg, lab, sig, d0=d, levels=BC_LEVELS)
+            counts.append(chg)
+            chg = chg.tolist()
+            if 0 in chg:
+                depth = d + chg.index(0) - 1
+                break
+            d += BC_LEVELS
+        delta = torch.zeros(dg.v_pad, device=dev)
+        for t in range(depth - 1, -1, -BC_LEVELS):
+            delta, ring = bwd(dg, lab, sig, delta, t0=t,
+                              levels=min(BC_LEVELS, t + 1))
+            counts.append(ring)
+        return lab, sig, delta, torch.cat(counts)
+
+    got = brandes(P.brandes_fwd_levels, P.brandes_bwd_levels)
+    again = brandes(P.brandes_fwd_levels, P.brandes_bwd_levels)
+    want = brandes(P.brandes_fwd_levels_plain, P.brandes_bwd_levels_plain)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K9: two launches differ")
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+        raise AssertionError("K9 labels or counts differ from the plain "
+                             "version's")
+    errs = []
+    for name, i in (("sigma", 1), ("delta", 2)):
+        abs_err, rel_err = _errs(got[i], want[i])
+        errs.append(abs_err)
+        bad = int(((got[i] - want[i]).abs()
+                   > 1e-4 * want[i].abs() + 1e-6).sum())
+        print(f"[kernels] K9 {name}: max abs err {abs_err:.3e}, max rel err "
+              f"{rel_err:.3e} (rtol 1e-4, atol 1e-6), {bad} outside")
+        if bad:
+            raise AssertionError(f"K9 {name} differs from its plain version")
+    levels = got[3].shape[0]
+    # What this source needs: each phase reads the in-edges of the reached
+    # vertices once (index and row, an add each) and lab, sig and delta
+    # in and out once; K9 streams every edge on every level it runs.
+    reached = int(torch.where(got[0] < float("inf"), dg.out_degrees(),
+                              0).sum())
+    work = bound(2 * (8 * reached + 16 * dg.v_pad), 2 * reached)
+    ms = _median_ms(lambda: brandes(P.brandes_fwd_levels,
+                                    P.brandes_bwd_levels))
+    plain = _median_ms(lambda: brandes(P.brandes_fwd_levels_plain,
+                                       P.brandes_bwd_levels_plain), reps=3)
+    print(f"[kernels] K9 brandes_levels: {levels} levels (counts "
+          f"{got[3].tolist()}), labels and counts exact, bitwise over two "
+          f"launches; one source {ms:.4f} ms vs plain {plain:.4f} ms; "
+          f"bound {work['bound_ms']:.4f} ms ({reached} reached edges a "
+          f"phase)")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+            "library_ms": None, **work}
+
+
+def phase_bc_timing(g, src, dg, dgc, card):
+    """Phase 20: best of RUNS BC and CC runs after a warm-up, in
+    bench_all.py's accounting (BC 2E, CC E)."""
+    from gunrock_tpu_torch.models import bc_device, cc_device
+    e = g.num_edges
+    for name, fn, edges, flags in (
+            ("bc kernel C", lambda: bc_device(dg, src), 2 * e, {}),
+            ("bc hybrid", lambda: bc_device(dg, src), 2 * e,
+             {"GUNROCK_BC_PULL2": "0"}),
+            ("bc hybrid fused", lambda: bc_device(dg, src, fused=True),
+             2 * e, {"GUNROCK_BC_PULL2": "0"}),
+            ("cc hooking", lambda: cc_device(dgc), e, {}),
+            ("cc sweeps", lambda: cc_device(dgc), e,
+             {"GUNROCK_CC_SWEEPS": "1"})):
+        with patch.dict(os.environ, flags):
+            best, times = best_of(fn)
         print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
               f"({', '.join(f'{t:.3f}' for t in times)}); "
               f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
@@ -862,9 +1183,21 @@ def main() -> int:
     k2_plain_ms = _median_ms(lambda: K.bitmask_gather_plain(words, idx))
     print(f"[kernels] K2 bitmask_gather 2^22 random ids: equal, "
           f"{k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms")
+    # K1 a pull level: the CSC's two edge streams, the frontier and reach
+    # words; K2: the ids, the words and the output.
+    k1_work = bound(len(pull_levels) * (8 * dg.num_edges + dg.v_pad // 4))
+    k2_work = bound(8 * idx.shape[0] + dg.v_pad // 8)
     print(f"[kernels] K1 summed over the main path's pull levels "
           f"{sorted(pull_levels)}: {k1_ms:.4f} ms vs plain "
-          f"{k1_plain_ms:.4f} ms")
+          f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms")
+    print(f"[kernels] K2 bound {k2_work['bound_ms']:.4f} ms")
+    # Still to port: bitmask_gather_cumsum (gunrock_tpu/ops/pallas_kernels.py
+    # :829) over the pull fallback's stream, one CSC source id an edge in,
+    # one running count out, and the frontier words.
+    row7 = bound(8 * dg.num_edges + dg.v_pad // 8, dg.num_edges)
+    print(f"[kernels] bitmask_gather_cumsum (not ported) bound over the "
+          f"CSC's {dg.num_edges} sources: {row7['bound_ms']:.4f} ms "
+          f"({row7['bound_by']})")
 
     # 5. Timing, as bench.py times the flagship: bfs_device on the
     # uploaded graph, no predecessors, best of RUNS after a warm-up.
@@ -910,6 +1243,13 @@ def main() -> int:
     gg, dgw = phase_grid(gtt, g, src, dgs, res.labels, dev)
     sk = phase_sssp_kernels(dgs, src, dist, dev)
     phase_sssp_timing(g, src, dgs, gg, dgw, card)
+    del gg, dgw
+
+    # 16-17. BC; 18. CC; 19. K9 against its plain version; 20. timing.
+    bc_launches = phase_bc(gtt, g, src, dgs, res.labels)
+    dgc, cc_launches = phase_cc(gtt, g, dev)
+    k9 = phase_bc_kernels(dgs, src, dev)
+    phase_bc_timing(g, src, dgs, dgc, card)
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -918,35 +1258,43 @@ def main() -> int:
         {"name": "pull_reached_words", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
          "launches": launches["pull_reached_words"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": None,
+         **k1_work},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
          "launches": launches["bitmask_gather"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "library_ms": None,
+         **k2_work},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
          "launches": loop_launches["pull_reduce2"] + link_launches
-         + sssp_launches["pull_reduce2"], **k3},
+         + sssp_launches["pull_reduce2"] + bc_launches["pull_reduce2"]
+         + cc_launches["pull_reduce2"], **k3},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
          "launches": power_launches["pull_power_iters"], **k4},
         {"name": "sample_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:594",
          "launches": sssp_launches["sample_sorted"]
-         + sssp_launches["sample_sorted2"], **sk["sample_sorted"]},
+         + sssp_launches["sample_sorted2"] + bc_launches["sample_sorted"],
+         **sk["sample_sorted"]},
         {"name": "pull_min_sweeps", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:323",
-         "launches": sssp_launches["pull_min_sweeps"],
-         **sk["pull_min_sweeps"]},
+         "launches": sssp_launches["pull_min_sweeps"]
+         + cc_launches["pull_min_sweeps"], **sk["pull_min_sweeps"]},
         {"name": "reduce_by_dst_sorted", "route": "cuda",
          "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:949",
-         "launches": sssp_launches["reduce_by_dst_sorted"],
+         "launches": sssp_launches["reduce_by_dst_sorted"]
+         + bc_launches["reduce_by_dst_sorted"],
          **sk["reduce_by_dst_sorted"]},
         {"name": "scatter_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:1151",
-         "launches": sssp_launches["scatter_sorted"],
-         **sk["scatter_sorted"]},
+         "launches": sssp_launches["scatter_sorted"]
+         + bc_launches["scatter_sorted"], **sk["scatter_sorted"]},
+        {"name": "brandes_levels", "route": "cuda", "source": pull_source,
+         "replaces": "gunrock_tpu/ops/pull2.py:895",
+         "launches": bc_launches["brandes_levels"], **k9},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

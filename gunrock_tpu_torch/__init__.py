@@ -20,12 +20,16 @@ Quick start::
     gtt.pagerank(dg, max_iters=20).node_ids[:10]
     g.random_edge_values(seed=7)
     gtt.sssp(g, src="largestdegree", mark_preds=True).distances
+    gtt.bc(gtt.to_device(g, with_blocked_values=True), src=0).bc_values
+    gtt.cc(g).num_components
 """
 
 from . import io  # noqa: F401
 from .graph.csr import CsrGraph, from_coo  # noqa: F401
 from .graph.device import DeviceGraph, to_device  # noqa: F401
+from .models.bc import bc  # noqa: F401
 from .models.bfs import bfs  # noqa: F401
+from .models.cc import cc  # noqa: F401
 from .models.hits import hits  # noqa: F401
 from .models.pr import pagerank  # noqa: F401
 from .models.salsa import salsa  # noqa: F401

@@ -10,18 +10,24 @@ Usage mirrors the JAX package's CLI (and the reference's
         --src=largestdegree --mark-pred --mode=nearfar
     python -m gunrock_tpu_torch pr rmat --rmat_scale=20 --max-iter=20
     python -m gunrock_tpu_torch hits rmat --rmat_scale=16 --max-iter=10
+    python -m gunrock_tpu_torch bc rmat --rmat_scale=16 --src=largestdegree
+    python -m gunrock_tpu_torch cc rmat --rmat_scale=16
 
 Each run: load/generate the graph -> run the primitive
 ``--iteration-num`` times on ``--device`` (default ``cuda``) -> validate
 against the in-package numpy oracle with the JAX CLI's tolerances
 (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
 JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
-``sssp``, ``pr``/``pagerank``, ``hits`` and ``salsa``. ``sssp`` gives a
+``sssp``, ``pr``/``pagerank``, ``hits``, ``salsa``, ``bc`` and ``cc``.
+``sssp`` gives a
 graph without edge values ``random_edge_values(seed=--edge-value-seed)``
 and runs on the host graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
 graph ``with_blocked_values``, so that it takes the power route (kernel
 K4) where the JAX package's rule allows; the host graph, which the JAX
-CLI passes, would take the loop route (kernel K3).
+CLI passes, would take the loop route (kernel K3). In the same way, on CUDA, ``bc``
+uploads the graph ``with_blocked_values`` (the kernel-C route, K9, on an
+undirected graph) and ``cc`` a symmetric graph ``with_edge_src`` and
+``with_blocked_values``, as ``bench_all.py`` uploads them.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from .utils.info import write_info
 
 __all__ = ["main", "build_parser", "load_graph_from_args"]
 
-PRIMITIVES = ("bfs", "sssp", "pr", "pagerank", "hits", "salsa")
+PRIMITIVES = ("bfs", "sssp", "pr", "pagerank", "hits", "salsa", "bc",
+              "cc")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,7 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "--instrumented)")
     r.add_argument("--quiet", action="store_true")
     r.add_argument("--queue-sizing", type=float, default=1.0,
-                   help="SSSP queue capacity factor (reference "
+                   help="SSSP and BC queue capacity factor (reference "
                         "--queue-sizing); BFS accepts it for parity")
     r.add_argument("--jsonfile", default=None)
     r.add_argument("--jsondir", default=None)
@@ -229,9 +236,45 @@ def _run_salsa(args, g, src):
     return res.info, ok
 
 
+def _run_bc(args, g, src):
+    from .graph.device import resolve_device, to_device
+    from .models.bc import bc
+    graph = g
+    if resolve_device(args.device).type == "cuda":
+        graph = to_device(g, with_blocked_values=True, device=args.device)
+    res = bc(graph, src, queue_sizing=args.queue_sizing,
+             instrumented=args.instrumented, device=args.device)
+    ok = True
+    if not args.quick:
+        ref = oracle.cpu_bc(g, src)
+        ok = _report(bool(np.allclose(res.bc_values, ref, rtol=1e-3,
+                                      atol=1e-3)), "bc", args.quiet)
+    return res.info, ok
+
+
+def _run_cc(args, g, src):
+    from .graph.device import resolve_device, to_device
+    from .models.cc import _is_symmetric, cc
+    graph = g
+    if resolve_device(args.device).type == "cuda" and _is_symmetric(g):
+        graph = to_device(g, with_edge_src=True, with_blocked_values=True,
+                          device=args.device)
+    res = cc(graph, instrumented=args.instrumented, device=args.device)
+    ok = True
+    if not args.quick:
+        # Component ids are representatives: compare partitions.
+        same = (res.components[g.edge_sources()] ==
+                res.components[g.col_indices]).all()
+        n_ref = len(np.unique(oracle.cpu_cc(g)))
+        ok = _report(bool(same and res.num_components == n_ref), "cc",
+                     args.quiet)
+    return res.info, ok
+
+
 _RUNNERS = {"bfs": _run_bfs, "sssp": _run_sssp, "pr": _run_pr,
             "pagerank": _run_pr,
-            "hits": _run_hits, "salsa": _run_salsa}
+            "hits": _run_hits, "salsa": _run_salsa, "bc": _run_bc,
+            "cc": _run_cc}
 
 
 def main(argv=None) -> int:

@@ -7,10 +7,13 @@
 //                  with a per-round count of |rank' - rank| > threshold.
 // K6 min sweeps:   sweeps rounds of d' = min(d, min over CSC row v of f(d[u], w)),
 //                  with a per-sweep count of d'[v] < d[v].
+// K9 Brandes:      levels of Betweenness Centrality's forward or backward
+//                  phase as level-gated sum pulls, with a per-level count.
 //
 // Replaces the TPU kernels behind gunrock_tpu/ops/pull2.py pull_reduce2
 // (:268, _pull2_kernel :57), pull_power_iters (:842, _power_kernel :605),
-// pull_min_sweeps (:554, _sweeps_kernel :323) and
+// pull_min_sweeps (:554, _sweeps_kernel :323), brandes_fwd_levels /
+// brandes_bwd_levels (:1165 / :1186, _brandes_kernel :895) and
 // gunrock_tpu/ops/pallas_kernels.py pull_vertex_reduce (:540,
 // _blocked_value_kernel :456). Those stream a blocked, source-grouped
 // edge layout through VMEM, because a TPU core cannot gather from HBM,
@@ -58,6 +61,23 @@
 // version's, and a sweep that changes nothing is a fixpoint whatever its
 // parity. Every sweep is enqueued from one host call with no host read,
 // as K4's rounds are.
+//
+// K9 runs `levels` Brandes levels from one host call, three kernels a
+// level on one stream. Forward level d: a V-wide gate writes gated[u] =
+// sig[u] where lab[u] == d - 1, else 0; K3's pass 1 sums gated over the
+// CSC; the finish adds each undiscovered row's total into sig and labels
+// it d where sig > 0. Backward ring t: the gate writes (1 + delta[v]) /
+// max(sig[v], 1e-30) where lab[v] == t + 1; the finish sets delta[u] =
+// sig[u] * (delta[u] + total) where lab[u] == t. Pulls reduce over
+// in-edges, so the backward ring needs a symmetric edge set, as on the
+// TPU. lab is float32 depth (+inf unreached): exact below 2^24 levels.
+// The TPU kernel keeps lab, sig and delta in VMEM across levels and skips
+// vertex groups with no nonzero gated entry; here they stay in HBM (12 MB
+// at 2^20 vertices, mostly L2-resident) and every level streams every
+// edge. Bound on the H100: a level streams csc_indices and csc_edge_dst
+// (485 MB at rmat n20 e32, 0.145 ms at 3.35 TB/s) plus V-wide passes of
+// about 20 MB. Skipping quiet chunks, as the TPU kernel does, is the next
+// lever: a scale-free traversal's tail levels gate almost nothing.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (or
@@ -284,6 +304,53 @@ void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
   pull_finish_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a, f);
 }
 
+// K9's gate: gated[v] for the level (see the file comment). want is d - 1
+// forward, t + 1 backward.
+__global__ void brandes_gate_kernel(int64_t rows, const float* lab,
+                                    const float* sig, const float* delta,
+                                    float* gated, float want, bool fwd) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < rows;
+       v += stride) {
+    float g = 0.0f;
+    if (lab[v] == want) {
+      g = fwd ? sig[v]
+              : __fdiv_rn(__fadd_rn(1.0f, delta[v]), fmaxf(sig[v], 1e-30f));
+    }
+    gated[v] = g;
+  }
+}
+
+// K9's finish: the level's epilogue over the row totals of pass 1, and
+// the count of rows it labelled (forward) or updated (backward).
+__global__ void brandes_finish_kernel(PullArgs a, float* lab, float* sig,
+                                      float* delta, float level, bool fwd,
+                                      int32_t* count) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < a.rows; base += stride) {
+    const int64_t v = base + lane;
+    bool hit = false;
+    if (v < a.rows) {
+      const float l = lab[v];
+      if (fwd && l == __int_as_float(0x7f800000)) {
+        const float s = __fadd_rn(sig[v], row_total(a, v));
+        sig[v] = s;
+        if (s > 0.0f) {
+          lab[v] = level;
+          hit = true;
+        }
+      } else if (!fwd && l == level) {
+        delta[v] = __fmul_rn(sig[v], __fadd_rn(delta[v], row_total(a, v)));
+        hit = true;
+      }
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0 && m != 0) atomicAdd(count, (int)__popc(m));
+  }
+}
+
 PullArgs make_args(const void* values, const void* indices,
                    const void* edge_dst, const void* offsets,
                    int64_t num_edges, int64_t rows, const void* weights,
@@ -396,6 +463,42 @@ int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     in = out;
+  }
+  return 0;
+}
+
+// K9. fwd != 0: levels d = level0 .. level0 + levels - 1 update lab and
+// sig in place (delta may be null). fwd == 0: rings t = level0 down to
+// level0 - levels + 1 update delta in place, reading lab and sig.
+// counts: (levels,) int32, zeroed by the caller. Scratch: gated and
+// rowval (rows,), head and tail (ceil(num_edges / chunk),), float32 each.
+int gr_brandes_levels(void* lab, void* sig, void* delta, const void* indices,
+                      const void* edge_dst, const void* offsets,
+                      int64_t num_edges, int64_t rows, int fwd, int level0,
+                      int levels, int chunk, void* gated, void* rowval,
+                      void* head, void* tail, void* counts, void* stream) {
+  const PullArgs a = make_args(gated, indices, edge_dst, offsets, num_edges,
+                               rows, nullptr, kNoWeights, kSum, kNone, chunk,
+                               rowval, head, tail, nullptr);
+  if (!valid_args(a) || levels < 1 || (!fwd && delta == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int vblocks = blocks_for(rows);
+  for (int r = 0; r < levels; ++r) {
+    const int level = fwd ? level0 + r : level0 - r;
+    brandes_gate_kernel<<<vblocks, kThreads, 0, s>>>(
+        rows, (const float*)lab, (const float*)sig, (const float*)delta,
+        (float*)gated, (float)(fwd ? level - 1 : level + 1), fwd != 0);
+    if (num_edges > 0) {
+      const int64_t nchunks = (num_edges + chunk - 1) / chunk;
+      pull_chunks_kernel<<<blocks_for(nchunks * 32), kThreads, 0, s>>>(a);
+    }
+    brandes_finish_kernel<<<vblocks, kThreads, 0, s>>>(
+        a, (float*)lab, (float*)sig, (float*)delta, (float)level, fwd != 0,
+        (int32_t*)counts + r);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
   }
   return 0;
 }

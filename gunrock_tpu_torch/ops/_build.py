@@ -111,6 +111,10 @@ def load() -> ctypes.CDLL:
                 p, p, p, p, p, p, i64, i64, p, i32, i32, i32, i32, p, p, p,
                 p, p, p]
             lib.gr_pull_min_sweeps.restype = ctypes.c_int
+            lib.gr_brandes_levels.argtypes = [
+                p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p, p, p, p, p,
+                p]
+            lib.gr_brandes_levels.restype = ctypes.c_int
             lib.gr_sample_sorted.argtypes = [p, p, i64, p, i32, i64, p, p, p]
             lib.gr_sample_sorted.restype = ctypes.c_int
             lib.gr_reduce_by_dst_sorted.argtypes = [

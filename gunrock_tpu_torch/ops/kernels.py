@@ -37,11 +37,12 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
 # every CUDA kernel of the port: K1, K2, K5 (both wrappers), K7 and K8
-# here, K3, K4 and K6 in ops/pull2.py.
+# here, K3, K4, K6 and K9 (both phases) in ops/pull2.py.
 LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
             "pull_reduce2": 0, "pull_power_iters": 0, "pull_min_sweeps": 0,
             "sample_sorted": 0, "sample_sorted2": 0,
-            "reduce_by_dst_sorted": 0, "scatter_sorted": 0}
+            "reduce_by_dst_sorted": 0, "scatter_sorted": 0,
+            "brandes_levels": 0}
 
 # Stream lanes per warp chunk in K7 (a multiple of 32). It fixes the
 # order of every sum, so two launches on the same input agree bit for

@@ -1,8 +1,10 @@
 """Value pulls over the CSC: kernels K3 (``pull_reduce2``), K4
-(``pull_power_iters``) and K6 (``pull_min_sweeps``).
+(``pull_power_iters``), K6 (``pull_min_sweeps``) and K9
+(``brandes_fwd_levels``, ``brandes_bwd_levels``).
 
 Counterpart of :mod:`gunrock_tpu.ops.pull2` (``pull_reduce2``,
-``pull_power_iters``, ``pull_min_sweeps``) and of ``pull_vertex_reduce`` in
+``pull_power_iters``, ``pull_min_sweeps``, ``brandes_fwd_levels``,
+``brandes_bwd_levels``) and of ``pull_vertex_reduce`` in
 :mod:`gunrock_tpu.ops.pallas_kernels`. Every value primitive reads one
 operation::
 
@@ -33,7 +35,9 @@ from .segment import row_reduce_sorted
 
 __all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
            "pull_power_iters_plain", "pull_min_sweeps",
-           "pull_min_sweeps_plain", "pull_vertex_reduce", "PULL_CHUNK"]
+           "pull_min_sweeps_plain", "pull_vertex_reduce",
+           "brandes_fwd_levels", "brandes_fwd_levels_plain",
+           "brandes_bwd_levels", "brandes_bwd_levels_plain", "PULL_CHUNK"]
 
 # Edges per warp chunk in K3/K4 (a multiple of 32). It fixes the order of
 # every sum, so two launches on the same input agree bit for bit.
@@ -98,8 +102,9 @@ def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
 
 
 def _scratch(graph, device) -> tuple[torch.Tensor, ...]:
-    """K3/K4 scratch: per-row totals, per-chunk head/tail partials, and
-    the per-source values folded with the ``wpr`` weights."""
+    """K3/K4/K6/K9 scratch: per-row totals, per-chunk head/tail partials,
+    and a (v_pad,) value table (the per-source values folded with the
+    ``wpr`` weights; K9's gated values)."""
     nchunks = max(1, -(-graph.num_edges // PULL_CHUNK))
     return (torch.empty(graph.v_pad, dtype=torch.float32, device=device),
             torch.empty(nchunks, dtype=torch.float32, device=device),
@@ -295,3 +300,118 @@ def pull_min_sweeps(graph, init: torch.Tensor, *, sweeps: int,
             changed.data_ptr(), device=dev)
     LAUNCHES["pull_min_sweeps"] += 1
     return (ping if sweeps % 2 else pong), changed
+
+
+def _check_levels(graph, levels: int, *arrays: torch.Tensor) -> None:
+    if levels < 1:
+        raise ValueError("levels must be at least 1")
+    for t in arrays:
+        _validate(graph, "sum", t)
+
+
+def brandes_fwd_levels_plain(graph, lab: torch.Tensor, sig: torch.Tensor, *,
+                             d0: int, levels: int):
+    """``levels`` forward Brandes levels, each a :func:`pull_reduce2_plain`
+    sum of the gated path counts (sums in float64, the accurate reference
+    the kernel is held to) and the epilogue in float32."""
+    _check_levels(graph, levels, lab, sig)
+    lab, sig = lab.float(), sig.float()
+    counts = []
+    for d in range(d0, d0 + levels):
+        gated = torch.where(lab == float(d - 1), sig, 0.0)
+        acc = pull_reduce2_plain(gated, graph, op="sum")
+        open_ = lab == float("inf")
+        sig = torch.where(open_, sig + acc, sig)
+        new = open_ & (sig > 0)
+        lab = torch.where(new, float(d), lab)
+        counts.append(new.sum())
+    return lab, sig, torch.stack(counts).to(torch.int32)
+
+
+def brandes_bwd_levels_plain(graph, lab: torch.Tensor, sig: torch.Tensor,
+                             delta: torch.Tensor, *, t0: int, levels: int):
+    """``levels`` backward Brandes rings, as
+    :func:`brandes_fwd_levels_plain`."""
+    _check_levels(graph, levels, lab, sig, delta)
+    lab, sig, delta = lab.float(), sig.float(), delta.float()
+    counts = []
+    for t in range(t0, t0 - levels, -1):
+        gated = torch.where(lab == float(t + 1),
+                            (1.0 + delta) / sig.clamp(min=1e-30), 0.0)
+        acc = pull_reduce2_plain(gated, graph, op="sum")
+        ring = lab == float(t)
+        delta = torch.where(ring, sig * (delta + acc), delta)
+        counts.append(ring.sum())
+    return delta, torch.stack(counts).to(torch.int32)
+
+
+def _brandes(graph, lab, sig, delta, *, fwd: bool, level0: int,
+             levels: int):
+    """Launch K9 on copies of the state; returns them and the counts."""
+    dev = graph.csc_indices.device
+    state = []
+    for name, t in (("lab", lab), ("sig", sig), ("delta", delta)):
+        if t is None:
+            state.append(None)
+            continue
+        t = t.to(torch.float32).clone(memory_format=torch.contiguous_format)
+        _check_float(name, t, graph.v_pad, dev)
+        state.append(t)
+    _check_graph(graph, None, _NO_WEIGHTS, dev)
+    rowval, head, tail, gated = _scratch(graph, dev)
+    counts = torch.zeros(levels, dtype=torch.int32, device=dev)
+    lab, sig, delta = state
+    from . import _build
+    _launch(_build.load().gr_brandes_levels, lab.data_ptr(), sig.data_ptr(),
+            0 if delta is None else delta.data_ptr(),
+            graph.csc_indices.data_ptr(), graph.csc_edge_dst.data_ptr(),
+            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            int(fwd), int(level0), levels, PULL_CHUNK, gated.data_ptr(),
+            rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            counts.data_ptr(), device=dev)
+    LAUNCHES["brandes_levels"] += 1
+    return lab, sig, delta, counts
+
+
+def brandes_fwd_levels(graph, lab: torch.Tensor, sig: torch.Tensor, *,
+                       d0: int, levels: int):
+    """Run ``levels`` forward Brandes levels (depths ``d0`` .. ``d0 +
+    levels - 1``) over the CSC. ``lab`` is the (v_pad,) float32 depth
+    (+inf unreached), ``sig`` the running path counts. Level d sums, over
+    the in-edges of each undiscovered vertex, ``sig`` of the sources at
+    depth d - 1, and labels d the vertices whose count becomes positive.
+    Returns ``(lab', sig', discovered)``, ``discovered`` the (levels,)
+    int32 count of vertices a level labelled; the inputs are not changed.
+
+    Kernel K9 (replaces the Pallas ``_brandes_kernel``,
+    ``gunrock_tpu/ops/pull2.py:895``): every level is enqueued from one
+    host call with no host read. Two launches on the same input agree
+    bit for bit."""
+    if not _route(lab, sig, graph.csc_indices):
+        return brandes_fwd_levels_plain(graph, lab, sig, d0=d0,
+                                        levels=levels)
+    _check_levels(graph, levels, lab, sig)
+    lab, sig, _, counts = _brandes(graph, lab, sig, None, fwd=True,
+                                   level0=d0, levels=levels)
+    return lab, sig, counts
+
+
+def brandes_bwd_levels(graph, lab: torch.Tensor, sig: torch.Tensor,
+                       delta: torch.Tensor, *, t0: int, levels: int):
+    """Run ``levels`` backward Brandes rings (``t0`` down to ``t0 - levels
+    + 1``): ring t sets ``delta[u] = sig[u] * (delta[u] + sum over
+    in-neighbours v at depth t + 1 of (1 + delta[v]) / sig[v])`` for the
+    vertices at depth t. The pull reduces over in-edges while the
+    recurrence runs over out-edges, so the edge set must be symmetric.
+    Returns ``(delta', ring_size)``, the (levels,) int32 count of vertices
+    a ring updated; the inputs are not changed.
+
+    Kernel K9 (replaces the Pallas ``_brandes_kernel``,
+    ``gunrock_tpu/ops/pull2.py:895``), as :func:`brandes_fwd_levels`."""
+    if not _route(lab, sig, delta, graph.csc_indices):
+        return brandes_bwd_levels_plain(graph, lab, sig, delta, t0=t0,
+                                        levels=levels)
+    _check_levels(graph, levels, lab, sig, delta)
+    _, _, delta, counts = _brandes(graph, lab, sig, delta, fwd=False,
+                                   level0=t0, levels=levels)
+    return delta, counts

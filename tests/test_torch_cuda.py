@@ -1,7 +1,8 @@
-"""The CUDA kernels, the DO-BFS path and SSSP on the card, against the plain
-PyTorch versions on the same inputs. Every test here needs an NVIDIA GPU
-(marker ``cuda``) and skips without one. The file imports neither jax
-nor the JAX package, so it also runs where only the port is installed:
+"""The CUDA kernels, the DO-BFS path, SSSP, BC and CC on the card,
+against the plain PyTorch versions on the same inputs. Every test here
+needs an NVIDIA GPU (marker ``cuda``) and skips without one. The file
+imports neither jax nor the JAX package, so it also runs where only the
+port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -342,3 +343,106 @@ def test_wrappers_refuse_device_mixes(cuda):
     _, g = _value_graph(cuda, scale=10)
     with pytest.raises(ValueError, match="tensors on"):
         P.pull_min_sweeps(g, torch.zeros(g.v_pad), sweeps=2)
+
+
+def _bc_graph(cuda):
+    """An undirected R-MAT graph with has_pull2 (the kernel-C route)."""
+    g = gtt.io.rmat(scale=12, edge_factor=8, seed=11, undirected=True)
+    dg = gtt.to_device(g, with_edge_src=True, with_blocked_values=True,
+                       device=cuda)
+    assert dg.has_pull2 and dg.undirected
+    return g, dg
+
+
+@pytest.mark.cuda
+def test_brandes_levels_kernel_equals_plain(cuda):
+    """K9, both phases from the largest-degree vertex in calls of 4
+    levels: labels and counts exact, sigma and delta within rtol 1e-5 of
+    the float64-summing plain version, bitwise equal over two launches."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g, dg = _bc_graph(cuda)
+    src = g.largest_degree_vertex()
+    lab = torch.full((dg.v_pad,), float("inf"), device=cuda)
+    lab[src] = 0.0
+    sig = torch.zeros(dg.v_pad, device=cuda)
+    sig[src] = 1.0
+    before = K.LAUNCHES["brandes_levels"]
+    d, depth = 1, None
+    while depth is None:
+        got = P.brandes_fwd_levels(dg, lab, sig, d0=d, levels=4)
+        again = P.brandes_fwd_levels(dg, lab, sig, d0=d, levels=4)
+        want = P.brandes_fwd_levels_plain(dg, lab, sig, d0=d, levels=4)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        lab, sig, chg = got
+        if 0 in chg.tolist():
+            depth = d + chg.tolist().index(0) - 1
+        d += 4
+    delta = torch.zeros(dg.v_pad, device=cuda)
+    for t in range(depth - 1, -1, -4):
+        n = min(4, t + 1)
+        got = P.brandes_bwd_levels(dg, lab, sig, delta, t0=t, levels=n)
+        again = P.brandes_bwd_levels(dg, lab, sig, delta, t0=t, levels=n)
+        want = P.brandes_bwd_levels_plain(dg, lab, sig, delta, t0=t,
+                                          levels=n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        delta = got[0]
+    assert K.LAUNCHES["brandes_levels"] > before + 2
+
+
+@pytest.mark.cuda
+def test_bc_routes_on_cuda_agree(cuda, monkeypatch):
+    """bc_device on CUDA: kernel C (K9), the hybrid (K3 on big levels) and
+    the fused hybrid (K5, K7, K8) agree with each other and with the
+    float64 oracle."""
+    from gunrock_tpu_torch.models import bc_device
+    from gunrock_tpu_torch.utils import reference as oracle
+    g, dg = _bc_graph(cuda)
+    src = g.largest_degree_vertex()
+    K.reset_launch_counts()
+    bc2, sig2, lab2, st2 = bc_device(dg, src)
+    assert st2.route == "pull2" and K.LAUNCHES["brandes_levels"] > 0
+    monkeypatch.setenv("GUNROCK_BC_PULL2", "0")
+    for fused in (False, True):
+        K.reset_launch_counts()
+        bc1, sig1, lab1, st1 = bc_device(dg, src, fused=fused)
+        torch.cuda.synchronize()
+        assert st1.route == "hybrid" and K.LAUNCHES["pull_reduce2"] > 0
+        if fused:
+            assert K.LAUNCHES["sample_sorted"] > 0
+            assert K.LAUNCHES["reduce_by_dst_sorted"] > 0
+            assert K.LAUNCHES["scatter_sorted"] > 0
+        assert torch.equal(lab1, lab2)
+        torch.testing.assert_close(sig1, sig2, rtol=1e-5, atol=0)
+        torch.testing.assert_close(bc1, bc2, rtol=1e-4, atol=1e-4)
+    n = g.num_nodes
+    labels, sigma, delta = oracle.cpu_brandes(g, src)
+    np.testing.assert_array_equal(lab2[:n].cpu().numpy(), labels)
+    np.testing.assert_allclose(sig2[:n].cpu().numpy(), sigma, rtol=1e-5)
+    delta[src] = 0.0
+    np.testing.assert_allclose(bc2[:n].cpu().numpy(), delta, rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cc_on_cuda_equals_scipy(cuda, monkeypatch):
+    """CC on CUDA, hooking and the sweeps route (K6), against scipy's
+    components."""
+    from gunrock_tpu_torch.utils import reference as oracle
+    g, dg = _bc_graph(cuda)
+    want = oracle.cpu_cc(g)
+    res = gtt.cc(dg)
+    np.testing.assert_array_equal(res.components, want)
+    assert res.num_components == len(np.unique(want))
+    host = gtt.cc(g, device="cuda")
+    np.testing.assert_array_equal(host.components, want)
+    monkeypatch.setenv("GUNROCK_CC_SWEEPS", "1")
+    K.reset_launch_counts()
+    sweeps = gtt.cc(dg)
+    assert sweeps.info["route"] == "pull_sweeps"
+    assert K.LAUNCHES["pull_min_sweeps"] > 0
+    np.testing.assert_array_equal(sweeps.components, want)

@@ -1,6 +1,10 @@
 """Host layer of the PyTorch port against the JAX package: the CSR and
 CSC builds, the device graph's padded arrays, the market reader and the
-binary cache give the same bytes on both sides."""
+binary cache give the same bytes on both sides; and the port imports
+nothing of JAX."""
+
+import ast
+import os
 
 import numpy as np
 import pytest
@@ -151,3 +155,43 @@ def test_binary_cache_roundtrip(tmp_path):
     _same_bytes(back.col_indices, g.col_indices)
     # the JAX package reads the port's cache file, and the other way round
     _same_bytes(gt.CsrGraph.read_binary(path).col_indices, g.col_indices)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    pkg = os.path.join(_REPO, "gunrock_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(_REPO, "chip_smoke.py")
+
+
+def _forbidden(module: str) -> bool:
+    """jax and the JAX package, by module name or dotted prefix (the
+    port's own name only shares the prefix's letters)."""
+    return any(module == m or module.startswith(m + ".")
+               for m in ("jax", "gunrock_tpu"))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of gunrock_tpu_torch and chip_smoke.py, parsed: no
+    import of jax or gunrock_tpu, at any depth of the file."""
+    assert not _forbidden("gunrock_tpu_torch") and _forbidden("jax.numpy")
+    checked, bad = 0, []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        checked += 1
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, _REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert checked > 30 and not bad, bad
