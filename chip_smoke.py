@@ -14,7 +14,9 @@ script exits non-zero:
 3. Main path: direction-optimized BFS with predecessors through the
    public entry point ``gunrock_tpu_torch.bfs`` on R-MAT scale 20, edge
    factor 32, seed 1 (undirected), from the largest-degree vertex, with
-   the kernels' launch counts reset just before and read just after.
+   the kernels' launch counts reset just before and read just after; the
+   graph is uploaded with the blocked CSC, so pulls run K1, and the
+   small levels run the deep micro-loop.
    Labels are held against scipy's unweighted shortest paths,
    predecessors by validity, plus the structural checks of ``bench.py``.
 4. Kernels against their plain PyTorch versions on the card, at the main
@@ -57,8 +59,9 @@ script exits non-zero:
     ``random_edge_values(seed=1)``, ``with_blocked_values``): SSSP from 0
     with delta 256 (the sweep route bails out to near-far and its deep
     micro-loop), distances against scipy; non-DO BFS from 0 (sweeps, bail,
-    the push loop), labels against scipy's depths; non-DO BFS on the
-    flagship (the sweep route converges), labels equal phase 3's.
+    then deep micro-loop stretches), labels against scipy's depths;
+    non-DO BFS on the flagship (the sweep route converges), labels equal
+    phase 3's.
 14. K5-K8 against their plain versions at the shapes of the path's
     largest push round (K6 at 6 sweeps from the source): exact, K7's sum
     within rtol 1e-6 and bitwise over two launches. Median times.
@@ -85,17 +88,30 @@ script exits non-zero:
     (hooking, sweeps) on the flagship; ms and MTEPS in ``bench_all.py``'s
     accounting (BC 2E, CC E, per ms).
 
+21. The rest of BFS: DO-BFS with predecessors through ``bfs_device`` on
+    the flagship uploaded ``with_csc`` only (no blocked CSC), so that
+    every pull level runs kernel K10 once and K1 never; labels equal
+    phase 3's, predecessors valid. Then the deep micro-loop: DO-BFS with
+    predecessors on the grid from 0, every level a micro round (phase
+    "deep"), labels against scipy's depths, predecessors valid.
+22. K10 against its plain version, exactly, at the shapes of every pull
+    level of phase 21 and at one length that is not a multiple of 128;
+    median times, the bound, and ``torch.cumsum`` over precomputed hits
+    as a reference for a later redesign.
+23. Timing, best of 5 after a warm-up: DO-BFS on the flagship uploaded
+    with the blocked CSC (K1; also with ``GUNROCK_BFS_DEEP=0``, where the
+    tail level is a push) and without (K10); DO and non-DO BFS on the
+    grid with the deep micro-loop and with ``GUNROCK_BFS_DEEP=0``.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4), 7-8 and 17 (K3), 12 and 17 (K5, K7, K8), 11 (K6) and 16 (K9).
-Every kernel's entry also carries ``bound_ms``, the least time the card
-could take for the same work at the H100's published rates (see
+(K4), 7-8 and 17 (K3), 12 and 17 (K5, K7, K8), 11 (K6), 16 (K9) and 21
+(K10). Every kernel's entry also carries ``bound_ms``, the least time
+the card could take for the same work at the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
 computes the same function on the same inputs where there is one: the
 CSR sparse matrix-vector product for K3 (phase 9), ``index_select`` for
 K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
-Phase 4 also prints the bound of ``bitmask_gather_cumsum``, the one TPU
-kernel not ported yet.
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +128,7 @@ SCALE, EDGE_FACTOR, SEED = 20, 32, 1
 RUNS = 5
 TIMED_LAUNCHES = 20
 BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
+K10_ODD_LENGTH = 1_000_003      # a K10 length that is not a multiple of 128
 PR_ITERS, LINK_ITERS = 20, 10
 SSSP_WEIGHT_SEED, GRID_SIDE, GRID_WEIGHT_SEED, GRID_DELTA = 7, 1024, 1, 256.0
 SWEEPS = 6
@@ -645,10 +662,13 @@ def phase_grid(gtt, g, src, dg, bfs_labels, dev):
     K.reset_launch_counts()
     labels, _, st = bfs_device(dgw, 0)
     torch.cuda.synchronize()
-    print(f"[grid] non-DO bfs: route {st.route}, {st.iteration} levels; "
-          f"kernel launches {dict(K.LAUNCHES)}")
+    print(f"[grid] non-DO bfs: route {st.route}, {st.iteration} levels in "
+          f"{st.deep_stretches} deep micro-loop stretches; kernel launches "
+          f"{dict(K.LAUNCHES)}")
     if st.route != "bailed_to_push":
         raise AssertionError("the grid's BFS sweep route should bail out")
+    if st.deep_stretches <= 0:
+        raise AssertionError("the grid's BFS ran no deep micro-loop stretch")
     check_labels(gg, 0, labels[:gg.num_nodes].cpu().numpy())
     K.reset_launch_counts()
     labels, _, st = bfs_device(dg, src)
@@ -1065,6 +1085,158 @@ def phase_bc_timing(g, src, dg, dgc, card):
               f"on {card}")
 
 
+def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
+    """Phase 21: DO-BFS with predecessors on the flagship uploaded
+    ``with_csc`` only (pull levels through K10), then DO-BFS with
+    predecessors on the grid (the deep micro-loop). Returns the K10
+    graph, the frontier depth of each pull level and K10's launches."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    dgk = gtt.to_device(g, with_csc=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"[bfs-k10] to_device(with_csc) {time.perf_counter() - t0:.3f} s; "
+          f"has_blocked_csc {dgk.has_blocked_csc}")
+    if dgk.has_blocked_csc:
+        raise AssertionError("a with_csc-only graph has no blocked CSC")
+    K.reset_launch_counts()
+    records = []
+    labels, preds, st = bfs_device(dgk, src, mark_preds=True,
+                                   direction_optimized=True,
+                                   instrument=records)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print("[bfs-k10] levels: " + ", ".join(
+        f"{r['iteration']}:{r['phase']}(n={r['frontier']}, {r['ms']:.3f} ms)"
+        for r in records))
+    print(f"[bfs-k10] kernel launches: {launches}")
+    pull_depths = [r["iteration"] - 1 for r in records
+                   if r["phase"] == "pull"]
+    if not pull_depths or \
+            launches["bitmask_gather_cumsum"] != len(pull_depths):
+        raise AssertionError(f"K10 launched {launches['bitmask_gather_cumsum']}"
+                             f" times over {len(pull_depths)} pull levels")
+    if launches["pull_reached_words"]:
+        raise AssertionError("K1 was launched on a graph without the "
+                             "blocked CSC")
+    n = g.num_nodes
+    lab = labels[:n].cpu().numpy()
+    if not np.array_equal(lab, bfs_labels):
+        raise AssertionError("K10 route's labels differ from phase 3's")
+    check_preds(g, src, lab, preds[:n].cpu().numpy())
+    print("[bfs-k10] labels equal phase 3's; preds valid; K10 once a pull "
+          "level, K1 never")
+
+    K.reset_launch_counts()
+    records = []
+    t0 = time.perf_counter()
+    labels, preds, st = bfs_device(dgw, 0, mark_preds=True,
+                                   direction_optimized=True,
+                                   instrument=records)
+    torch.cuda.synchronize()
+    phases = [r["phase"] for r in records]
+    print(f"[bfs-deep] grid DO-BFS from 0 (instrumented): {st.iteration} "
+          f"levels in {st.deep_stretches} deep stretches, "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; phases "
+          f"{ {p: phases.count(p) for p in sorted(set(phases))} }; kernel "
+          f"launches {dict(K.LAUNCHES)}")
+    if set(phases) != {"deep"}:
+        raise AssertionError("the grid's DO-BFS should run every level in "
+                             "the deep micro-loop")
+    lab = labels[:gg.num_nodes].cpu().numpy()
+    check_labels(gg, 0, lab)
+    check_preds(gg, 0, lab, preds[:gg.num_nodes].cpu().numpy())
+    print("[bfs-deep] labels equal scipy's depths; preds valid")
+    return dgk, pull_depths, launches["bitmask_gather_cumsum"]
+
+
+def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
+    """Phase 22: K10 against its plain version at the shapes of every
+    pull level of phase 21 (the frontier of that depth, all CSC sources)
+    and at K10_ODD_LENGTH ids. Returns K10's JSON fields, its time and
+    bound summed over the pull levels as K1's are."""
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    labels = torch.full((dgk.v_pad,), -1, dtype=torch.int32, device=dev)
+    labels[:bfs_labels.shape[0]] = torch.from_numpy(bfs_labels).to(dev)
+    idx = dgk.csc_indices
+    out = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    for d in pull_depths:
+        words = K.pack_bitmask(labels == d)
+        got = K.bitmask_gather_cumsum(words, idx)
+        want = K.bitmask_gather_cumsum_plain(words, idx)
+        torch.cuda.synchronize()
+        out["max_abs_err"] = max(out["max_abs_err"], _max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K10 differs from its plain version at the "
+                                 f"pull of depth {d}")
+        ms = _median_ms(lambda: K.bitmask_gather_cumsum(words, idx))
+        plain = _median_ms(lambda: K.bitmask_gather_cumsum_plain(words, idx),
+                           reps=5)
+        out["ms"] += ms
+        out["plain_ms"] += plain
+        print(f"[kernels] K10 bitmask_gather_cumsum, frontier of depth {d} "
+              f"({int((labels == d).sum())} bits), {idx.shape[0]} ids: "
+              f"equal, last sum {int(got[-1])}; {ms:.4f} ms vs plain "
+              f"{plain:.4f} ms")
+    odd = idx[:K10_ODD_LENGTH]
+    if not torch.equal(K.bitmask_gather_cumsum(words, odd),
+                       K.bitmask_gather_cumsum_plain(words, odd)):
+        raise AssertionError("K10 differs from its plain version at "
+                             f"{K10_ODD_LENGTH} ids")
+    hits = K.bitmask_gather_plain(words, idx)
+    cum_ms = _median_ms(lambda: torch.cumsum(hits, 0, dtype=torch.int32))
+    # A level: the ids read and the sums written, 4 bytes each an id, and
+    # the frontier words.
+    out.update(bound(len(pull_depths) * (8 * idx.shape[0]
+                                         + 4 * words.shape[0])))
+    print(f"[kernels] K10 equal at {K10_ODD_LENGTH} ids too; summed over "
+          f"the {len(pull_depths)} pull levels {out['ms']:.4f} ms vs plain "
+          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}); for a redesign: torch.cumsum over "
+          f"precomputed hits {cum_ms:.4f} ms a level (no PyTorch call "
+          f"computes K10's function)")
+    return out
+
+
+def phase_bfs_timing(src, edges_visited, dgb, dgk, gg, dgw, card):
+    """Phase 23: best of RUNS BFS runs after a warm-up: DO-BFS on the
+    flagship with the blocked CSC (K1), with and without the deep
+    micro-loop, and without the blocked CSC (K10); DO and non-DO BFS on
+    the grid with and without the deep micro-loop."""
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    off = {"GUNROCK_BFS_DEEP": "0"}
+    for name, fn, edges, flags in (
+            ("DO-BFS flagship, K1 graph",
+             lambda: bfs_device(dgb, src, direction_optimized=True),
+             edges_visited, {}),
+            ("DO-BFS flagship, K1 graph, GUNROCK_BFS_DEEP=0",
+             lambda: bfs_device(dgb, src, direction_optimized=True),
+             edges_visited, off),
+            ("DO-BFS flagship, K10 graph",
+             lambda: bfs_device(dgk, src, direction_optimized=True),
+             edges_visited, {}),
+            ("DO-BFS grid, deep micro-loop",
+             lambda: bfs_device(dgw, 0, direction_optimized=True),
+             gg.num_edges, {}),
+            ("DO-BFS grid, GUNROCK_BFS_DEEP=0",
+             lambda: bfs_device(dgw, 0, direction_optimized=True),
+             gg.num_edges, off),
+            ("non-DO BFS grid, deep micro-loop", lambda: bfs_device(dgw, 0),
+             gg.num_edges, {}),
+            ("non-DO BFS grid, GUNROCK_BFS_DEEP=0",
+             lambda: bfs_device(dgw, 0), gg.num_edges, off)):
+        with patch.dict(os.environ, flags):
+            best, times = best_of(fn)
+        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); "
+              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
+              f"on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1139,8 +1311,10 @@ def main() -> int:
     print(f"[main] labels equal scipy's shortest-path depths; preds valid; "
           f"structural checks pass ({time.perf_counter() - t0:.3f} s)")
 
-    # 4. Kernels against their plain versions at the main path's shapes.
-    dg = gtt.to_device(g, with_csc=True, device=dev)
+    # 4. Kernels against their plain versions at the main path's shapes,
+    # on the graph as bench.py uploads it (with the blocked CSC: K1).
+    dg = dgb = gtt.to_device(g, with_csc=True, with_blocked_csc=True,
+                             device=dev)
     labels = torch.from_numpy(res.labels).to(dev)
     labels = torch.cat([labels, labels.new_full(
         (dg.v_pad - g.num_nodes,), -1)])
@@ -1191,13 +1365,6 @@ def main() -> int:
           f"{sorted(pull_levels)}: {k1_ms:.4f} ms vs plain "
           f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms")
     print(f"[kernels] K2 bound {k2_work['bound_ms']:.4f} ms")
-    # Still to port: bitmask_gather_cumsum (gunrock_tpu/ops/pallas_kernels.py
-    # :829) over the pull fallback's stream, one CSC source id an edge in,
-    # one running count out, and the frontier words.
-    row7 = bound(8 * dg.num_edges + dg.v_pad // 8, dg.num_edges)
-    print(f"[kernels] bitmask_gather_cumsum (not ported) bound over the "
-          f"CSC's {dg.num_edges} sources: {row7['bound_ms']:.4f} ms "
-          f"({row7['bound_by']})")
 
     # 5. Timing, as bench.py times the flagship: bfs_device on the
     # uploaded graph, no predecessors, best of RUNS after a warm-up.
@@ -1243,13 +1410,20 @@ def main() -> int:
     gg, dgw = phase_grid(gtt, g, src, dgs, res.labels, dev)
     sk = phase_sssp_kernels(dgs, src, dist, dev)
     phase_sssp_timing(g, src, dgs, gg, dgw, card)
-    del gg, dgw
 
     # 16-17. BC; 18. CC; 19. K9 against its plain version; 20. timing.
     bc_launches = phase_bc(gtt, g, src, dgs, res.labels)
     dgc, cc_launches = phase_cc(gtt, g, dev)
     k9 = phase_bc_kernels(dgs, src, dev)
     phase_bc_timing(g, src, dgs, dgc, card)
+    del dgc
+
+    # 21. The rest of BFS: K10 and the deep micro-loop; 22. K10 against
+    # its plain version; 23. timing.
+    dgk, pull_depths, k10_launches = phase_bfs_rest(gtt, g, src, res.labels,
+                                                    gg, dgw, dev)
+    k10 = phase_k10_kernel(dgk, res.labels, pull_depths, dev)
+    phase_bfs_timing(src, info["edges_visited"], dgb, dgk, gg, dgw, card)
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -1295,6 +1469,9 @@ def main() -> int:
         {"name": "brandes_levels", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:895",
          "launches": bc_launches["brandes_levels"], **k9},
+        {"name": "bitmask_gather_cumsum", "route": "cuda", "source": source,
+         "replaces": "gunrock_tpu/ops/pallas_kernels.py:829",
+         "launches": k10_launches, **k10},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

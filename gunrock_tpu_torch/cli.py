@@ -95,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--instrumented)")
     r.add_argument("--quiet", action="store_true")
     r.add_argument("--queue-sizing", type=float, default=1.0,
-                   help="SSSP and BC queue capacity factor (reference "
-                        "--queue-sizing); BFS accepts it for parity")
+                   help="queue capacity factor (reference --queue-sizing): "
+                        "SSSP and BC queues; for BFS, the capacity that "
+                        "decides which deep micro-loop rungs exist")
     r.add_argument("--jsonfile", default=None)
     r.add_argument("--jsondir", default=None)
     r.add_argument("--seed", type=int, default=0)

@@ -31,7 +31,8 @@ class LoopStats:
     ``overflow`` records a capacity the JAX package's rule would have
     exceeded (SSSP's ``queue_sizing``); it stops the loop. ``route``
     names the path a primitive took where it has several (the min-pull
-    sweeps, the push loop after their bail-out), for the Info record."""
+    sweeps, the push loop after their bail-out), for the Info record.
+    ``deep_stretches`` counts the BFS deep micro-loop's stretches."""
 
     iteration: int = 0
     nodes_queued: float = 0.0
@@ -39,6 +40,7 @@ class LoopStats:
     overflow: bool = False
     frontier_trace: list = dataclasses.field(default_factory=list)
     route: str = ""
+    deep_stretches: int = 0
 
 
 def record_iteration(stats: LoopStats, *, frontier_len: int,

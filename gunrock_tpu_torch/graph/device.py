@@ -27,6 +27,10 @@ flag also marks the graph as the JAX package marks it; with
 ``has_pull2`` it picks the routes of PageRank (power or loop), SSSP and
 non-DO BFS (min-pull sweeps) by the JAX package's rules, so that the
 routes and the iteration counts are the JAX package's.
+``with_blocked_csc`` likewise builds the CSC and sets
+``has_blocked_csc`` as the JAX package would: DO-BFS pulls with it
+through kernel K1 and without it through K10, as the JAX package pulls
+through its blocked kernels or ``bitmask_gather_cumsum``.
 """
 
 from __future__ import annotations
@@ -121,6 +125,10 @@ class DeviceGraph:
     # The JAX package would hold its pull-v2 layout for this graph
     # (pull2_ok): PageRank takes the power route.
     has_pull2: bool = False
+    # The JAX package would hold its blocked CSC for this graph (asked
+    # with_blocked_csc, or with_blocked_values without pull2_ok): DO-BFS
+    # pulls through kernel K1; without it, through K10.
+    has_blocked_csc: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -229,16 +237,17 @@ def _csc_from_csr(arrays: dict, num_nodes: int, num_edges: int, v_pad: int,
 
 def to_device(g: CsrGraph, *, with_csc: bool = False,
               with_edge_values: bool = False, with_edge_src: bool = False,
+              with_blocked_csc: bool = False,
               with_blocked_values: bool = False,
               device="cuda") -> DeviceGraph:
     """Upload a host CSR (and its CSC with ``with_csc``) to ``device``.
 
     ``with_edge_values`` uploads the edge values (ones when the graph has
     none), on the CSC too; ``with_edge_src`` the per-edge source ids;
-    ``with_blocked_values`` builds the CSC (the port's kernels read it
-    in place of the JAX package's blocked layouts) and marks the graph as
-    the JAX package marks it, for the routes of PageRank, SSSP and BFS
-    (see the module docstring).
+    ``with_blocked_csc`` and ``with_blocked_values`` build the CSC (the
+    port's kernels read it in place of the JAX package's blocked layouts)
+    and mark the graph as the JAX package marks it, for the routes of
+    BFS, PageRank, SSSP, BC and CC (see the module docstring).
 
     The kernels index with int32, so graphs whose padded edge count
     reaches 2^31 - 2 (the JAX package's ``sizet64`` rule) are refused.
@@ -246,13 +255,14 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
     dev = resolve_device(device)
     v_pad = _pad(g.num_nodes)
     e_pad = _pad(g.num_edges)
-    with_csc = with_csc or with_blocked_values
+    with_csc = with_csc or with_blocked_csc or with_blocked_values
     fields = _host_fields(g, g.csc() if with_csc else None, v_pad, e_pad,
                           with_edge_values=with_edge_values,
                           with_edge_src=with_edge_src)
     return from_numpy(fields, num_nodes=g.num_nodes, num_edges=g.num_edges,
                       v_pad=v_pad, e_pad=e_pad, device=dev,
                       undirected=bool(g.undirected),
+                      with_blocked_csc=with_blocked_csc,
                       with_blocked_values=with_blocked_values)
 
 
@@ -264,6 +274,7 @@ def _check_seg_ids(name: str, arr: np.ndarray, offsets: np.ndarray,
 
 def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                e_pad: int, device="cuda", undirected: bool = False,
+               with_blocked_csc: bool = False,
                with_blocked_values: bool = False) -> DeviceGraph:
     """Build a :class:`DeviceGraph` from padded numpy arrays keyed by
     field name, such as ``np.asarray`` of a JAX ``DeviceGraph``'s fields:
@@ -273,10 +284,11 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
 
     The JAX package's TPU layouts (keys starting ``pv2_`` or ``bcsc_``)
     are ignored: the Hopper kernels read the plain CSC. Pass
-    ``with_blocked_values`` as the JAX graph was built
-    (``has_blocked_values``); without the CSC's keys the CSC is then
-    built here from the CSR (with ``csc_edge_values`` from
-    ``edge_values``), as :func:`to_device` builds it. With the CSC,
+    ``with_blocked_csc`` and ``with_blocked_values`` as the JAX graph was
+    built (``has_blocked_csc``, ``has_blocked_values``); without the
+    CSC's keys the CSC is then built here from the CSR (with
+    ``csc_edge_values`` from ``edge_values``), as :func:`to_device`
+    builds it. With the CSC,
     ``inv_outdeg`` is computed here from ``row_offsets``. Any other key
     is refused.
 
@@ -318,7 +330,7 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                              f"[0, {num_nodes})")
         dtype = np.int32 if name in _INT_FIELDS else np.float32
         arrays[name] = np.array(arr, dtype=dtype)
-    if with_blocked_values and not csc:
+    if (with_blocked_csc or with_blocked_values) and not csc:
         arrays.update(_csc_from_csr(arrays, int(num_nodes), int(num_edges),
                                     v_pad, e_pad))
         csc = list(_CSC)
@@ -338,4 +350,6 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                        undirected=undirected,
                        has_blocked_values=bool(with_blocked_values),
                        has_pull2=bool(with_blocked_values) and pull2_ok(v_pad),
+                       has_blocked_csc=bool(with_blocked_csc) or (
+                           bool(with_blocked_values) and not pull2_ok(v_pad)),
                        **tensors)

@@ -17,17 +17,32 @@ The push/pull decisions are the JAX package's, level for level:
     exact-size, so the rung is computed on the host only for that rule.
     A rung of at least ``v_pad // 4`` leaves the queue unmaterialized.
 
-Push levels filter through the bitmask-gather kernel and pull levels run
-the pull kernel (:mod:`gunrock_tpu_torch.ops.kernels`). Predecessors
-found in push levels keep the JAX package's winner, the highest lane
-(the largest source in the sorted frontier); those found in pull levels
-are filled after the loop by :func:`_fill_preds`.
+The deep micro-loop (``models/bfs.py:225-318,498-554``) runs whole
+stretches of small levels, DO or not, ahead of the vote: whenever
+``max(m_f, n)`` fits the largest micro rung. The rungs are
+``GUNROCK_BFS_DEEP_RUNGS`` (default ``DEEP_CAP`` = 8192), each kept only
+if the JAX package's queue capacity ``fcap`` holds it; ``fcap`` is
+``queue_sizing`` times ``v_pad // 4`` (DO) or ``v_pad``, at most
+``v_pad`` and at least 128.
+``GUNROCK_BFS_DEEP`` defaults to ``"1"``, the JAX package's rule off a
+TPU. A micro round keeps, for each new vertex, the first lane of its
+run after a stable sort by destination: the smallest source.
+
+Push levels filter through the bitmask-gather kernel (K2). Pull levels
+take one of two routes, as the JAX package's accelerator route does: on
+graphs with ``has_blocked_csc`` the pull kernel K1, on the others the
+running sum of frontier hits over the CSC sources (K10,
+``bitmask_gather_cumsum``) differenced at the CSC row bounds (kernels in
+:mod:`gunrock_tpu_torch.ops.kernels`). Predecessors found in push levels
+keep the JAX package's winner, the highest lane (the largest source in
+the sorted frontier); those found in pull levels are filled after the
+loop by :func:`_fill_preds`.
 
 Non-DO BFS on a graph with ``has_pull2`` first takes the JAX package's
 sweep route (``models/bfs.py:589-676``): unit-weight min-pull sweeps
 (kernel K6, ``wmode="incr"``) to the fixpoint, labels from the
 distances, predecessors from :func:`_fill_preds`; on the high-diameter
-bail-out it falls back to the level-synchronous push loop.
+bail-out it falls back to the level-synchronous loop.
 """
 
 from __future__ import annotations
@@ -40,13 +55,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..enactor import (LoopStats, Timer, capacity_ladder, ladder_rung,
-                       record_iteration, sweep_to_fixpoint)
+from ..enactor import (LoopStats, Timer, capacity_ladder, deep_rungs,
+                       ladder_rung, record_iteration, sweep_to_fixpoint)
 from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand
-from ..ops.kernels import (bitmask_gather, pack_bitmask, pull_reached_words,
-                           unpack_bitmask)
+from ..ops.kernels import (bitmask_gather, bitmask_gather_cumsum,
+                           pack_bitmask, pull_reached_words, unpack_bitmask)
 from ..ops.segment import (compact, dedup_winners, frontier_from_mask,
                            scatter_max, scatter_set)
 from ..utils.info import make_info
@@ -54,6 +69,10 @@ from ..utils.info import make_info
 __all__ = ["bfs", "BfsResult", "bfs_device"]
 
 INVALID = -1
+# Micro-loop rung width (the JAX package's DEEP_CAP).
+DEEP_CAP = 8192
+# Sort key of the lanes a micro round drops, past every vertex id.
+_PAST = 0x7FFFFFF0
 
 
 @dataclasses.dataclass
@@ -163,12 +182,67 @@ def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
     return ex.total
 
 
+def _micro_round(graph: DeviceGraph, state: _State, depth: int,
+                 deg: torch.Tensor) -> int:
+    """One round of the deep micro-loop (``models/bfs.py:272-305``) on
+    the sorted queue: expand it, drop visited destinations, sort the rest
+    stably by destination carrying the source, and keep the first lane of
+    each run (the smallest source). The new queue is those destinations,
+    ascending. Returns the edge count."""
+    ex = expand(graph, state.frontier)
+    is_new = state.labels[ex.dst.long()] == INVALID
+    key_s, order = torch.sort(torch.where(is_new, ex.dst, _PAST),
+                              stable=True)
+    keep = key_s < _PAST
+    keep[1:] &= key_s[1:] != key_s[:-1]
+    new = key_s[keep]
+    state.labels[new.long()] = depth
+    if state.preds is not None:
+        state.preds[new.long()] = ex.src[order][keep]
+    state.frontier, state.n = new, new.shape[0]
+    state.m_f = int(deg[new.long()].sum())
+    return ex.total
+
+
+def _deep_stretch(graph: DeviceGraph, state: _State, rung: int,
+                  max_iters: int, deg: torch.Tensor, on_level) -> None:
+    """Micro rounds while the queue and its edge volume fit ``rung``
+    (``models/bfs.py:268-270,307-317``). The queue is rebuilt from the
+    labels if a level left it unmaterialized, and sorted once; each
+    round keeps it sorted. ``on_level`` is called after each round with
+    the round's dispatch size."""
+    if not state.fvalid:
+        state.frontier, state.n = frontier_from_mask(
+            state.labels == state.stats.iteration)
+    state.frontier = torch.sort(state.frontier).values
+    state.fvalid, state.use_pull = True, False
+    state.stats.deep_stretches += 1
+    while (0 < state.n <= rung and state.m_f <= rung
+           and state.stats.iteration < max_iters):
+        dispatch = max(state.m_f, state.n)
+        edges = _micro_round(graph, state, state.stats.iteration + 1, deg)
+        record_iteration(state.stats, frontier_len=state.n, edges=edges)
+        on_level(dispatch)
+
+
 def _pull_step(graph: DeviceGraph, state: _State, depth: int) -> int:
     """Full-edge pull over the CSC (``models/bfs.py:321-370``): v joins
     the frontier iff it is unvisited and some in-neighbor is in the
-    current frontier. The frontier stays the label mask (no queue)."""
+    current frontier. The frontier stays the label mask (no queue).
+
+    With ``has_blocked_csc`` the reach words come from K1; without, from
+    K10's running sum of hits over ``csc_indices``, sampled at the row
+    bounds: v is reached iff its row's sum grew."""
     words = pack_bitmask(state.labels == depth - 1)
-    reached = unpack_bitmask(pull_reached_words(words, graph), graph.v_pad)
+    if graph.has_blocked_csc:
+        reached = unpack_bitmask(pull_reached_words(words, graph),
+                                 graph.v_pad)
+    else:
+        run = bitmask_gather_cumsum(words, graph.csc_indices)
+        # The sum before row bound b is run[b - 1], and 0 at b = 0.
+        off = graph.csc_offsets.long()
+        samples = torch.where(off > 0, run[(off - 1).clamp(min=0)], 0)
+        reached = (samples[1:] - samples[:-1]) > 0
     new_mask = (state.labels == INVALID) & reached
     state.labels.masked_fill_(new_mask, depth)
     state.n, state.m_f = _count(new_mask, graph.out_degrees())
@@ -225,17 +299,35 @@ def _bfs_pull_sweeps(graph: DeviceGraph, src: int, *, mark_preds: bool,
     return labels, preds, stats
 
 
+def _phase(deep_on: bool, dispatch: int, direction_optimized: bool,
+           pull: bool) -> str:
+    """An instrument record's phase by the JAX package's rule
+    (``models/bfs.py:707,721-727``): ``"deep"`` where the queue capacity
+    holds the DEEP_CAP rung and the level's dispatch size fits it, unless
+    a DO level pulled. The rule reads neither ``GUNROCK_BFS_DEEP`` nor the
+    rungs, so with the micro-loop off such a push level is "deep" too."""
+    if direction_optimized and pull:
+        return "pull"
+    return "deep" if deep_on and dispatch <= DEEP_CAP else "push"
+
+
 def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                direction_optimized: bool = False, alpha: float = 15.0,
-               beta: float = 18.0, max_iters: Optional[int] = None,
+               beta: float = 18.0, queue_sizing: float = 1.0,
+               max_iters: Optional[int] = None,
                instrument: Optional[list] = None):
     """BFS on an uploaded graph; returns ``(labels, preds, stats)`` with
     labels and preds as (v_pad,) tensors on the graph's device (preds is
     None without ``mark_preds``).
 
-    ``instrument``: pass a list to collect one record per iteration,
-    ``{iteration, ms, frontier, phase, pull}``, as the JAX package's
-    instrumented mode does; ``phase`` is ``"pull"`` or ``"push"``.
+    ``queue_sizing`` scales the JAX package's queue capacity ``fcap``,
+    which decides which micro-loop rungs exist; the queues themselves are
+    exact-size and never overflow.
+
+    ``instrument``: pass a list to collect one record per iteration (a
+    micro round counts as one), ``{iteration, ms, frontier, phase,
+    pull}``, as the JAX package's instrumented mode does; ``phase`` is
+    ``"pull"``, ``"push"`` or ``"deep"`` by its rule (:func:`_phase`).
 
     Non-DO BFS on a graph with ``has_pull2`` takes the sweep route first
     unless ``instrument`` is given or ``GUNROCK_BFS_SWEEPS=0`` (see the
@@ -257,6 +349,14 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     caps = capacity_ladder(graph.e_pad)
     if max_iters is None:
         max_iters = graph.num_nodes + 1
+    base_cap = graph.v_pad // 4 if direction_optimized else graph.v_pad
+    fcap = max(128, min(int(base_cap * queue_sizing), graph.v_pad))
+    rungs = []
+    if os.environ.get("GUNROCK_BFS_DEEP", "1") == "1":
+        rungs = [c for c in deep_rungs("GUNROCK_BFS_DEEP_RUNGS", DEEP_CAP)
+                 if fcap >= c]
+    deep_on = fcap >= DEEP_CAP
+    deg = graph.out_degrees()
     labels = torch.full((graph.v_pad,), INVALID, dtype=torch.int32,
                         device=dev)
     labels[src] = 0
@@ -272,7 +372,29 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     thresh_valid = f32(graph.num_edges / 32.0)
     thresh_lazy = f32(graph.num_edges / 4096.0)
     t0 = time.perf_counter()
+
+    def on_level(dispatch: int) -> None:
+        nonlocal t0
+        if instrument is None:
+            return
+        sync(dev)
+        t1 = time.perf_counter()
+        instrument.append({
+            "iteration": state.stats.iteration, "ms": (t1 - t0) * 1e3,
+            "frontier": state.n,
+            "phase": _phase(deep_on, dispatch, direction_optimized,
+                            state.use_pull),
+            "pull": state.use_pull})
+        t0 = t1
+
     while state.n > 0 and state.stats.iteration < max_iters:
+        dispatch = max(state.m_f, state.n)
+        if rungs and dispatch <= rungs[-1]:
+            # The smallest rung that fits; the stretch spills back here
+            # when the wavefront outgrows it.
+            rung = next(c for c in rungs if dispatch <= c)
+            _deep_stretch(graph, state, rung, max_iters, deg, on_level)
+            continue
         depth = state.stats.iteration + 1
         use_pull = False
         if direction_optimized:
@@ -288,14 +410,7 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                                may_rebuild=direction_optimized)
         state.use_pull = use_pull
         record_iteration(state.stats, frontier_len=state.n, edges=edges)
-        if instrument is not None:
-            sync(dev)
-            t1 = time.perf_counter()
-            instrument.append({
-                "iteration": state.stats.iteration, "ms": (t1 - t0) * 1e3,
-                "frontier": state.n, "phase": "pull" if use_pull else "push",
-                "pull": use_pull})
-            t0 = t1
+        on_level(dispatch)
     if mark_preds and direction_optimized:
         _fill_preds(graph, state.labels, state.preds)
     return state.labels, state.preds, state.stats
@@ -311,13 +426,16 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
 
     API of :func:`gunrock_tpu.bfs` (reference ``gunrock_bfs``,
     ``gunrock/gunrock.h:173``) plus ``device``. A :class:`CsrGraph` is
-    uploaded to ``device``; a :class:`DeviceGraph` must already be there.
-    ``queue_sizing`` and ``idempotence`` are accepted for parity and have
-    no effect: queues are exact-size, and the claim filter is exact.
-    ``instrumented`` collects per-iteration records into
+    uploaded to ``device`` with the CSC and ``with_blocked_csc`` for DO,
+    as the JAX package uploads it; a :class:`DeviceGraph` must already be
+    there. ``queue_sizing`` sets the deep micro-loop's queue capacity
+    (see :func:`bfs_device`); the JAX package's regrowth after a queue
+    overflow has nothing to do here, as exact-size queues never overflow.
+    ``idempotence`` is accepted for parity and has no effect: the claim
+    filter is exact. ``instrumented`` collects per-iteration records into
     ``info["per_iteration"]``.
     """
-    del idempotence, queue_sizing
+    del idempotence
     dev = resolve_device(device)
     timer = Timer()
     per_iter: Optional[list] = [] if instrumented else None
@@ -326,6 +444,7 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
             src = graph.largest_degree_vertex()
         with timer.time("preprocess_ms"):
             dgraph = to_device(graph, with_csc=direction_optimized,
+                               with_blocked_csc=direction_optimized,
                                device=dev)
             sync(dev)
     else:
@@ -339,7 +458,8 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
         labels, preds, stats = bfs_device(
             dgraph, src, mark_preds=mark_preds,
             direction_optimized=direction_optimized, alpha=alpha, beta=beta,
-            max_iters=max_iters, instrument=per_iter)
+            queue_sizing=queue_sizing, max_iters=max_iters,
+            instrument=per_iter)
         sync(dev)
 
     labels_np = labels[:num_nodes].cpu().numpy()

@@ -99,6 +99,9 @@ def load() -> ctypes.CDLL:
             lib.gr_pull_reached_words.restype = ctypes.c_int
             lib.gr_bitmask_gather.argtypes = [p, i64, p, i64, p, p]
             lib.gr_bitmask_gather.restype = ctypes.c_int
+            lib.gr_bitmask_gather_cumsum.argtypes = [p, i64, p, i64, p, i64,
+                                                     p, p]
+            lib.gr_bitmask_gather_cumsum.restype = ctypes.c_int
             lib.gr_pull_reduce.argtypes = [p, p, p, p, i64, i64, p, i32,
                                            i32, i32, p, i32, p, p, p, p, p,
                                            p]

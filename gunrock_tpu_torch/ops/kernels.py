@@ -3,8 +3,9 @@ the SSSP push round.
 
 Counterpart of :mod:`gunrock_tpu.ops.pallas_kernels` for the functions
 the ported paths call: ``words_for``, ``pack_bitmask``,
-``unpack_bitmask``, ``bitmask_gather`` and ``pull_reached_words`` (K2,
-K1; ``csrc/bfs_kernels.cu``), ``sample_sorted`` and ``sample_sorted2``
+``unpack_bitmask``, ``bitmask_gather``, ``pull_reached_words`` and
+``bitmask_gather_cumsum`` (K2, K1, K10; ``csrc/bfs_kernels.cu``),
+``sample_sorted`` and ``sample_sorted2``
 (K5), ``reduce_by_dst_sorted`` (K7) and ``scatter_sorted`` (K8; all
 three in ``csrc/sssp_kernels.cu``).
 
@@ -29,6 +30,7 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "unpack_bitmask", "bitmask_gather", "bitmask_gather_plain",
+           "bitmask_gather_cumsum", "bitmask_gather_cumsum_plain",
            "pull_reached_words", "pull_reached_words_plain",
            "sample_sorted", "sample_sorted_plain", "sample_sorted2",
            "sample_sorted2_plain", "reduce_by_dst_sorted",
@@ -36,9 +38,10 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "scatter_sorted_plain", "REDUCE_CHUNK"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
-# every CUDA kernel of the port: K1, K2, K5 (both wrappers), K7 and K8
-# here, K3, K4, K6 and K9 (both phases) in ops/pull2.py.
+# every CUDA kernel of the port: K1, K2, K10, K5 (both wrappers), K7 and
+# K8 here, K3, K4, K6 and K9 (both phases) in ops/pull2.py.
 LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
+            "bitmask_gather_cumsum": 0,
             "pull_reduce2": 0, "pull_power_iters": 0, "pull_min_sweeps": 0,
             "sample_sorted": 0, "sample_sorted2": 0,
             "reduce_by_dst_sorted": 0, "scatter_sorted": 0,
@@ -48,6 +51,10 @@ LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
 # order of every sum, so two launches on the same input agree bit for
 # bit.
 REDUCE_CHUNK = 1024
+
+# Ids a block of K10 scans (kTile in csrc/bfs_kernels.cu): the wrapper
+# allocates one tile-offset slot for each; the kernel refuses fewer.
+GATHER_CUMSUM_TILE = 4096
 
 
 def reset_launch_counts() -> None:
@@ -140,6 +147,42 @@ def bitmask_gather(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             words.shape[0] * 32, idx.data_ptr(), idx.shape[0],
             out.data_ptr(), device=idx.device)
     LAUNCHES["bitmask_gather"] += 1
+    return out
+
+
+def bitmask_gather_cumsum_plain(words: torch.Tensor,
+                                idx: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 running sum of :func:`bitmask_gather_plain`."""
+    return torch.cumsum(bitmask_gather_plain(words, idx), 0,
+                        dtype=torch.int32)
+
+
+def bitmask_gather_cumsum(words: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 inclusive running sum of the bits of the packed mask
+    that ``idx`` selects: out[i] = bit idx[0] + ... + bit idx[i]. Ids
+    outside the mask read 0.
+
+    Kernel K10 (replaces the Pallas ``bitmask_gather_cumsum``,
+    ``gunrock_tpu/ops/pallas_kernels.py:880``), three launches on the
+    current stream with a tile-offset scratch allocated here. ``idx`` is
+    int32 of any length (the Pallas version takes multiples of 128); the
+    sums are exact below 2^31 ids."""
+    if not _route(words, idx):
+        return bitmask_gather_cumsum_plain(words, idx)
+    _check("words", words, idx.device)
+    _check("idx", idx, idx.device)
+    n = idx.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=idx.device)
+    if n == 0:
+        return out
+    tiles = torch.empty(-(-n // GATHER_CUMSUM_TILE), dtype=torch.int32,
+                        device=idx.device)
+    from . import _build
+    _launch(_build.load().gr_bitmask_gather_cumsum, words.data_ptr(),
+            words.shape[0] * 32, idx.data_ptr(), n, tiles.data_ptr(),
+            tiles.shape[0], out.data_ptr(), device=idx.device)
+    LAUNCHES["bitmask_gather_cumsum"] += 1
     return out
 
 

@@ -1,5 +1,5 @@
-"""Device profile of SSSP and non-DO BFS: where a run spends its time on
-the card, and how long the card idles.
+"""Device profile of SSSP and BFS: where a run spends its time on the
+card, and how long the card idles.
 
     python -m gunrock_tpu_torch.tools.profile_sssp [--scale 20]
         [--edge-factor 32] [--grid-side 1024] [--runs 3] [--device cuda]
@@ -16,11 +16,15 @@ then ``--runs`` runs under ``torch.profiler``; one run on the grid):
     with ``fused=True`` (kernels K5, K3, K7, K8);
   * SSSP on the grid from 0 with delta 256 (the sweep route bails out to
     near-far and its deep micro-loop) and non-DO BFS on the grid from 0
-    (sweeps, bail-out, the push loop).
+    (sweeps, bail-out, the deep micro-loop);
+  * DO-BFS on the R-MAT from the same vertex, pulling through kernel K10
+    (the graph above has no blocked CSC) and through K1 (the R-MAT
+    uploaded ``with_blocked_csc``), and DO-BFS on the grid from 0 (the
+    deep micro-loop).
 
 Each prints wall, device time and busy share (device / wall) a run, and
 the largest device events. The unprofiled times are ``chip_smoke.py``
-phase 15.
+phases 15 and 23.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ def main(argv=None) -> int:
     gg.random_edge_values(seed=1)
     dgw = to_device(gg, with_edge_values=True, with_blocked_values=True,
                     device=args.device)
+    dgb = to_device(g, with_csc=True, with_blocked_csc=True,
+                    device=args.device)
     dev = dg.device
     print(f"graphs: rmat n{args.scale} e{args.edge_factor} seed 1 "
           f"(|E|={dg.num_edges}), grid {args.grid_side}x{args.grid_side} "
@@ -80,6 +86,12 @@ def main(argv=None) -> int:
         ("sssp grid", 1,
          lambda: sssp_device(dgw, 0, mode="pull", delta=256.0)),
         ("non-DO bfs grid", 1, lambda: bfs_device(dgw, 0)),
+        ("DO-bfs, K10", args.runs,
+         lambda: bfs_device(dg, src, direction_optimized=True)),
+        ("DO-bfs, K1", args.runs,
+         lambda: bfs_device(dgb, src, direction_optimized=True)),
+        ("DO-bfs grid", 1,
+         lambda: bfs_device(dgw, 0, direction_optimized=True)),
     )
     for name, runs, fn in cases:
         print_profile(name, f"{runs} profiled runs",

@@ -1,7 +1,8 @@
-"""The DO-BFS slice of the PyTorch port against the JAX package: labels,
-iteration counts, edge accounting and the per-level push/pull sequence
-are equal; predecessors are valid and equal the JAX package's. Also the
-port's CLI, and that importing the port loads no jax."""
+"""BFS in the PyTorch port against the JAX package: labels, iteration
+counts, edge accounting and the per-level push/pull/deep sequence are
+equal, with the deep micro-loop off and at the defaults; predecessors
+are valid and equal the JAX package's. Also the port's CLI, and that
+importing the port loads no jax."""
 
 import dataclasses
 import importlib
@@ -38,6 +39,8 @@ GRAPHS = {
     # big enough (v_pad // 4 > 4096) that DO pushes take the small rung:
     # claim dedup and a materialized queue
     "grid192": lambda m: _grid(m, 192),
+    "rmat15": lambda m: m.io.rmat(scale=15, edge_factor=8, seed=42,
+                                  undirected=True),
 }
 
 # (graph, src, direction_optimized, alpha): default knobs, and a low
@@ -66,37 +69,103 @@ def _check_preds(g, labels, preds, src):
         assert w in g.col_indices[rows[u]:rows[u + 1]]
 
 
-@pytest.mark.parametrize("name,src,do,alpha", CASES)
-def test_bfs_matches_jax(name, src, do, alpha, monkeypatch):
-    # The JAX package turns its deep micro-loop on off the TPU; the port
-    # follows the TPU default (off), so the JAX side is run that way.
-    monkeypatch.setenv("GUNROCK_BFS_DEEP", "0")
+def _run_both(name, src, do, alpha, **kw):
     jax.clear_caches()
     gj, gp = GRAPHS[name](gt), GRAPHS[name](gtt)
     rj = gt.bfs(gj, src, mark_preds=True, direction_optimized=do,
-                alpha=alpha, instrumented=True)
+                alpha=alpha, instrumented=True, **kw)
     rp = gtt.bfs(gp, src, mark_preds=True, direction_optimized=do,
-                 alpha=alpha, instrumented=True, device="cpu")
+                 alpha=alpha, instrumented=True, device="cpu", **kw)
+    # The port's queues never overflow; compare runs whose JAX queues did
+    # not either (an overflow regrows queue_sizing and so the rungs).
+    assert not rj.info["frontier_overflow"]
+    return gp, rj, rp
+
+
+def _assert_same_run(gp, rj, rp, exact_edges=True):
     np.testing.assert_array_equal(rp.labels, rj.labels)
     for k in ("num_iterations", "search_depth", "edges_visited",
-              "per_iteration_frontier", "edges_queued", "src"):
+              "per_iteration_frontier", "src"):
         assert rp.info[k] == rj.info[k], k
+    if exact_edges:
+        assert rp.info["edges_queued"] == rj.info["edges_queued"]
+    else:
+        # The JAX package sums edges_queued in float32, one rounding an
+        # iteration; the port sums exactly.
+        tol = rj.info["num_iterations"] * 2.0**-24 * rp.info["edges_queued"]
+        assert abs(rp.info["edges_queued"] - rj.info["edges_queued"]) <= tol
     phases = [r["phase"] for r in rp.info["per_iteration"]]
-    # With the micro-loop off, the JAX package still labels a push level
-    # "deep" when its queue capacity could hold a micro-loop rung
-    # (models/bfs.py:707,721); such a level ran the push ladder.
-    assert phases == [{"deep": "push"}.get(r["phase"], r["phase"])
-                      for r in rj.info["per_iteration"]]
+    assert phases == [r["phase"] for r in rj.info["per_iteration"]]
     assert [r["pull"] for r in rp.info["per_iteration"]] == \
         [r["pull"] for r in rj.info["per_iteration"]]
-    if not do:
-        assert set(phases) == {"push"}
     _check_preds(gp, rp.labels, rp.preds, rp.info["src"])
-    # push levels keep the JAX package's winner lane and pull levels
-    # its last in-neighbour, so the predecessors are the same
+    # push levels keep the JAX package's winner lane, micro rounds the
+    # smallest source and pull levels the last in-neighbour, so the
+    # predecessors are the same
     np.testing.assert_array_equal(rp.preds, rj.preds)
     assert rp.info["gpuinfo"]["platform"] == "cpu"
     assert rp.info["engine"] == "gunrock_tpu_torch"
+    return phases
+
+
+@pytest.mark.parametrize("name,src,do,alpha", CASES)
+def test_bfs_matches_jax(name, src, do, alpha, monkeypatch):
+    # The deep micro-loop off on both sides: these cases cover the push
+    # ladder and, on the grids, the pull. The JAX package still labels a
+    # push level "deep" where its queue capacity holds the micro-loop
+    # rung (models/bfs.py:707,721), and so does the port.
+    monkeypatch.setenv("GUNROCK_BFS_DEEP", "0")
+    gp, rj, rp = _run_both(name, src, do, alpha)
+    phases = _assert_same_run(gp, rj, rp)
+    if not do:
+        assert set(phases) == {"push"}
+
+
+# At the defaults on both sides (the micro-loop on, as the JAX package
+# has it off a TPU): (graph, src, DO, alpha, bfs keywords, environment,
+# the phases expected).
+DEFAULT_CASES = {
+    "grid192_do": ("grid192", 0, True, 0.01, {}, {}, {"deep"}),
+    "grid192": ("grid192", 0, False, 15.0, {}, {}, {"deep"}),
+    # v_pad 32768, so fcap reaches 8192 in DO; the hub's degree (3881)
+    # fits the rung, then two pulls, then deep again
+    "rmat15_do": ("rmat15", "largestdegree", True, 15.0, {}, {},
+                  ["deep", "pull", "pull", "deep", "deep"]),
+    "grid192_rungs": ("grid192", 0, True, 15.0, {},
+                      {"GUNROCK_BFS_DEEP_RUNGS": "512,2048,8192"}, {"deep"}),
+    # fcap 5120 holds no rung: push and pull levels
+    "grid192_queue_half": ("grid192", 0, True, 15.0, {"queue_sizing": 0.5},
+                           {}, {"push", "pull"}),
+}
+
+
+@pytest.mark.parametrize("case", list(DEFAULT_CASES))
+def test_bfs_defaults_match_jax(case, monkeypatch):
+    name, src, do, alpha, kw, env, want = DEFAULT_CASES[case]
+    monkeypatch.delenv("GUNROCK_BFS_DEEP", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    gp, rj, rp = _run_both(name, src, do, alpha, **kw)
+    phases = _assert_same_run(gp, rj, rp, exact_edges="queue_sizing" not in kw)
+    assert (phases if isinstance(want, list) else set(phases)) == want
+
+
+def test_micro_round_keeps_the_smallest_source(monkeypatch):
+    """Vertex 3 has the parents 1 and 2 at depth 1: a micro round keeps
+    the smallest source, the push ladder the highest lane. A grid of
+    side 128 (v_pad 16384) makes fcap hold the rung in non-DO mode."""
+    n = 128 * 128
+    g = gtt.from_coo(n, [0, 0, 1, 2], [1, 2, 3, 3], undirected=True)
+    dg = gtt.to_device(g, device="cpu")
+    labels, preds, stats = bfs_device(dg, 0, mark_preds=True)
+    assert labels[:4].tolist() == [0, 1, 1, 2] and preds[3] == 1
+    assert stats.deep_stretches == 1 and stats.iteration == 3
+    monkeypatch.setenv("GUNROCK_BFS_DEEP", "0")
+    labels, preds, stats = bfs_device(dg, 0, mark_preds=True)
+    assert labels[:4].tolist() == [0, 1, 1, 2] and preds[3] == 2
+    assert stats.deep_stretches == 0
+    # queue_sizing below DEEP_CAP / v_pad leaves no rung
+    assert bfs_device(dg, 0, queue_sizing=0.25)[2].deep_stretches == 0
 
 
 def test_bfs_sequence_has_push_and_pull():

@@ -1,4 +1,4 @@
-"""The CUDA kernels, the DO-BFS path, SSSP, BC and CC on the card,
+"""The CUDA kernels, the BFS paths, SSSP, BC and CC on the card,
 against the plain PyTorch versions on the same inputs. Every test here
 needs an NVIDIA GPU (marker ``cuda``) and skips without one. The file
 imports neither jax nor the JAX package, so it also runs where only the
@@ -64,6 +64,52 @@ def test_bfs_on_cuda_equals_cpu_and_launches_kernels(cuda):
     np.testing.assert_array_equal(got.preds, want.preds)
     assert K.LAUNCHES["pull_reached_words"] > 0
     assert K.LAUNCHES["bitmask_gather"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, (1 << 20) + 3, "rmat"])
+def test_bitmask_gather_cumsum_kernel_equals_plain(cuda, n):
+    """K10 against its plain version, exactly: short and ragged lengths,
+    one past a tile boundary, and the CSC sources of an R-MAT graph
+    (e_pad ids), with ids outside the mask."""
+    words = K.pack_bitmask(torch.rand(1 << 20, device=cuda) < 0.5)
+    if n == "rmat":
+        g = gtt.to_device(gtt.io.rmat(scale=12, edge_factor=16, seed=3,
+                                      undirected=True),
+                          with_csc=True, device=cuda)
+        idx = g.csc_indices
+    else:
+        idx = torch.randint(-100, (1 << 20) + 100, (n,), dtype=torch.int32,
+                            device=cuda)
+    before = K.LAUNCHES["bitmask_gather_cumsum"]
+    got = K.bitmask_gather_cumsum(words, idx)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bitmask_gather_cumsum"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, K.bitmask_gather_cumsum_plain(words, idx))
+
+
+@pytest.mark.cuda
+def test_bfs_without_blocked_csc_pulls_through_k10(cuda):
+    """DO-BFS on a graph uploaded with_csc only pulls through K10 and
+    never K1; its labels and predecessors equal the CPU run's."""
+    g = gtt.io.rmat(scale=12, edge_factor=16, seed=3, undirected=True)
+    src = g.largest_degree_vertex()
+    want = gtt.bfs(g, src, mark_preds=True, direction_optimized=True,
+                   device="cpu")
+    dg = gtt.to_device(g, with_csc=True, device=cuda)
+    K.reset_launch_counts()
+    records = []
+    labels, preds, _ = gtt.models.bfs_device(
+        dg, src, mark_preds=True, direction_optimized=True,
+        instrument=records)
+    torch.cuda.synchronize()
+    pulls = [r["phase"] for r in records].count("pull")
+    assert pulls > 0 and K.LAUNCHES["bitmask_gather_cumsum"] == pulls
+    assert K.LAUNCHES["pull_reached_words"] == 0
+    n = g.num_nodes
+    np.testing.assert_array_equal(labels[:n].cpu().numpy(), want.labels)
+    np.testing.assert_array_equal(preds[:n].cpu().numpy(), want.preds)
 
 
 def _value_graph(cuda, scale=14):

@@ -431,6 +431,7 @@ def test_profile_sssp_tool_runs_on_cpu(capsys):
                               "--device=cpu"]) == 0
     out = capsys.readouterr().out
     for name in ("sssp sweep route", "sssp near-far", "sssp near-far fused",
-                 "sssp grid", "non-DO bfs grid"):
+                 "sssp grid", "non-DO bfs grid", "DO-bfs, K10", "DO-bfs, K1",
+                 "DO-bfs grid"):
         assert f"[{name}]" in out
     assert "device not measured" in out
