@@ -38,7 +38,8 @@ script exits non-zero:
 9. K3 in four modes and K4 at 1 and 20 rounds against their plain
    PyTorch versions at the flagship's shapes: ``min`` exactly, sums
    within a relative tolerance; K3 bitwise equal over two launches; K4's
-   change counts equal. Median times from CUDA events.
+   change counts equal. Median times from CUDA events; for K3 sum/none
+   and ``torch.mv`` also the device time a call from ``torch.profiler``.
 10. Timing: best of 5 PageRank (both routes) and HITS runs after a
     warm-up: ms per iteration and MTEPS (num_edges x iterations, twice
     that for HITS, per ms).
@@ -64,7 +65,8 @@ script exits non-zero:
     phase 3's.
 14. K5-K8 against their plain versions at the shapes of the path's
     largest push round (K6 at 6 sweeps from the source): exact, K7's sum
-    within rtol 1e-6 and bitwise over two launches. Median times.
+    within rtol 1e-6 and bitwise over two launches. Median times; for K8
+    and ``index_reduce_`` also the device time a call.
 15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
     near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
 
@@ -112,6 +114,10 @@ the card could take for the same work at the H100's published rates (see
 computes the same function on the same inputs where there is one: the
 CSR sparse matrix-vector product for K3 (phase 9), ``index_select`` for
 K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
+The ``ms`` of every kernel is the CUDA-event time of a call, host path
+included where the card waits on it; K3 and K8 also carry ``device_ms``
+and ``library_device_ms``, the device time of a call of the kernel and
+of its library call (:func:`_device_ms`).
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -154,11 +160,12 @@ def bound(nbytes: float, flops: float = 0.0) -> dict:
 
 
 def pull_bytes(num_edges: int, v_pad: int, vectors: int,
-               edge_streams: int = 2) -> int:
+               edge_streams: int = 1) -> int:
     """Bytes of one pull over the CSC: ``edge_streams`` int32 or float32
-    arrays of one entry an edge (csc_indices and csc_edge_dst, and the
-    weights where read) and ``vectors`` (v_pad,) arrays read or written
-    (the values, the offsets, the output, ...)."""
+    arrays of one entry an edge (csc_indices, and the weights where read;
+    the row of each edge follows from csc_offsets) and ``vectors``
+    (v_pad,) arrays read or written (the values, the offsets, the
+    output, ...)."""
     return 4 * edge_streams * num_edges + 4 * vectors * v_pad
 
 
@@ -178,6 +185,21 @@ def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _device_ms(fn, reps: int = TIMED_LAUNCHES):
+    """Device time of one call of ``fn``: the summed durations of the
+    device events (kernels, copies, fills) that ``torch.profiler`` records
+    over ``reps`` calls after a warm-up, over ``reps`` (the port's
+    ``tools.profile_value.profile_run``); None where it records no device
+    event."""
+    import torch
+    from gunrock_tpu_torch.tools.profile_value import profile_run
+    return profile_run(fn, reps, torch.device("cuda"))["device_ms"] or None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def _max_abs_err(got, want) -> int:
@@ -423,9 +445,15 @@ def phase_value_kernels(dg, dev):
                 torch.ones(e, device=dev), size=(dg.v_pad, dg.v_pad))
             lib_abs, lib_rel = _errs(torch.mv(csr, vals), want)
             k3["library_ms"] = _median_ms(lambda: torch.mv(csr, vals))
+            k3["device_ms"] = _device_ms(lambda: P.pull_reduce2(vals, dgv,
+                                                                **kw))
+            k3["library_device_ms"] = _device_ms(lambda: torch.mv(csr, vals))
             print(f"[kernels] K3 yardstick torch.mv(sparse CSR): "
                   f"{k3['library_ms']:.4f} ms, max rel err {lib_rel:.3e} "
                   f"vs the plain version; bound {k3['bound_ms']:.4f} ms")
+            print(f"[kernels] K3 sum/none device time (torch.profiler): "
+                  f"{_fmt_ms(k3['device_ms'])} a call vs torch.mv "
+                  f"{_fmt_ms(k3['library_device_ms'])}")
             del csr
     n = dg.num_nodes
     start = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
@@ -803,6 +831,14 @@ def phase_sssp_kernels(dg, src, dist, dev):
            bound(16 * k + 4, k),
            _median_ms(lambda: scratch.index_reduce_(0, ids_k, vals_k,
                                                     "amin")))
+    out["scatter_sorted"]["device_ms"] = _device_ms(
+        lambda: K.scatter_sorted(scratch, ids, vals, count=cnt, op="min"))
+    out["scatter_sorted"]["library_device_ms"] = _device_ms(
+        lambda: scratch.index_reduce_(0, ids_k, vals_k, "amin"))
+    print(f"[kernels] scatter_sorted device time (torch.profiler): "
+          f"{_fmt_ms(out['scatter_sorted']['device_ms'])} a call vs "
+          f"index_reduce_ "
+          f"{_fmt_ms(out['scatter_sorted']['library_device_ms'])}")
 
     # K6: SWEEPS sweeps from the source, add/val and incr.
     init = torch.full((dg.v_pad,), float("inf"), device=dev)
@@ -821,9 +857,9 @@ def phase_sssp_kernels(dg, src, dist, dev):
            _median_ms(lambda: P.pull_min_sweeps_plain(dg, init,
                                                       sweeps=SWEEPS), reps=5),
            f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)",
-           # a sweep: indices, rows and weights an edge; values, offsets
-           # and output vectors; an add and a min an edge
-           bound(SWEEPS * pull_bytes(dg.num_edges, dg.v_pad, 3, 3),
+           # a sweep: indices and weights an edge; values, offsets and
+           # output vectors; an add and a min an edge
+           bound(SWEEPS * pull_bytes(dg.num_edges, dg.v_pad, 3, 2),
                  SWEEPS * 2 * dg.num_edges))
     return out
 
@@ -1045,11 +1081,11 @@ def phase_bc_kernels(dg, src, dev):
             raise AssertionError(f"K9 {name} differs from its plain version")
     levels = got[3].shape[0]
     # What this source needs: each phase reads the in-edges of the reached
-    # vertices once (index and row, an add each) and lab, sig and delta
-    # in and out once; K9 streams every edge on every level it runs.
+    # vertices once (an index and an add each) and lab, sig and delta in
+    # and out once; K9 streams every edge on every level it runs.
     reached = int(torch.where(got[0] < float("inf"), dg.out_degrees(),
                               0).sum())
-    work = bound(2 * (8 * reached + 16 * dg.v_pad), 2 * reached)
+    work = bound(2 * (4 * reached + 16 * dg.v_pad), 2 * reached)
     ms = _median_ms(lambda: brandes(P.brandes_fwd_levels,
                                     P.brandes_bwd_levels))
     plain = _median_ms(lambda: brandes(P.brandes_fwd_levels_plain,

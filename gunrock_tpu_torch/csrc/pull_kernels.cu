@@ -23,24 +23,35 @@
 //
 // Determinism. There are no float atomics: every output and every
 // partial has exactly one writer, and every sum is taken in an order
-// that depends only on the graph and on the chunk size, never on
+// that depends only on the graph and on the tile size, never on
 // scheduling.
 //
 // Load balance. R-MAT hub rows hold over 10^5 in-edges, so work is cut
-// by edges, not by rows. Pass 1 gives each warp one chunk of `chunk`
-// consecutive CSC edges (a multiple of 32). The warp walks its chunk 32
-// edges at a time: lane l reads edge e = base + l (its source u =
-// csc_indices[e] and its row csc_edge_dst[e], both coalesced), computes
-// f(values[u], w), and a 5-step shuffle reduce combines lanes of the
-// same row toward the first lane of each run. A warp-uniform carry joins
-// runs across the 32-edge steps. Each closed run (row, value) goes to
-// rowval[row]; the chunk's first run also goes to head[chunk] and its
-// last run to tail[chunk]. Pass 2 gives one thread to each row: a row
-// whose edges lie in one chunk reads rowval (written by that chunk
-// alone); a row that spans chunks c0..c1 combines tail[c0], head[c0+1..
-// c1-1] (whole chunks of the row) and head[c1] in chunk order. Rows that
-// span chunks also get rowval writes from several warps; nothing reads
-// those.
+// by edges, not by rows: pass 1 gives each block one tile of kTile (2048)
+// consecutive CSC edges, kItems (8) to a thread. The rows come from
+// csc_offsets alone, as in merge-based SpMV (Merrill and Garland, SC16):
+// a V-wide prologue, once per host call, writes tile_rows[t], the row of
+// tile t's first edge (each nonempty row writes the tiles whose first
+// edge it holds), and a tile marks in shared memory the position of each
+// row that starts inside it, reading csc_offsets over the rows
+// tile_rows[t] + 1 .. tile_rows[t + 1]. Every edge is then a position in
+// a tile, and csc_edge_dst is not read.
+//
+// Pass 1, a tile: each thread loads its 8 sources with two 16-byte loads
+// (scalar loads at a ragged end or a misaligned base; the edge stream is
+// read with the evict-first hint, so L2 keeps the value table), issues
+// its 8 gathers before using any, and reduces its run of edges in order.
+// A block-wide scan joins the threads in a fixed tree: an exclusive
+// prefix max of the rows that start in each thread gives every thread the
+// row it continues, and an exclusive segmented scan of the threads'
+// trailing partials gives the value it continues. Each thread then closes
+// the runs that end in it (rowval[row]); the tile's first run also goes
+// to head[t] and its last to tail[t]. Pass 2 gives one thread to each
+// row: a row whose edges lie in one tile reads rowval (written by that
+// tile alone); a row that spans tiles t0..t1 combines tail[t0],
+// head[t0+1..t1-1] (whole tiles of the row) and head[t1] in tile order.
+// Rows that span tiles also get rowval writes from several tiles;
+// nothing reads those.
 //
 // Per-source weights. With the "wpr" stream, f(values[u], w[u]) depends
 // on the source alone, so a V-sized pass folds it into one value a
@@ -48,10 +59,19 @@
 // random gather an edge instead of two. Each folded value is the same
 // float32 result the per-edge f would give, so the sums do not change.
 //
-// Bound on the H100: 8 bytes an edge streamed from HBM (csc_indices and
-// csc_edge_dst: 485 MB at rmat n20 e32, 0.145 ms at 3.35 TB/s) plus one
-// random 32-byte L2 sector per gathered value: about 1.9 GB of L2
-// traffic a pull at that size.
+// Bound on the H100: 4 bytes an edge streamed from HBM (csc_indices:
+// 243 MB at rmat n20 e32, 0.072 ms at 3.35 TB/s; plus the weights where
+// read) and the V-wide vectors, plus one random 32-byte L2 sector per
+// gathered value that misses L1: up to 1.9 GB of L2 traffic a pull at
+// that size. Measured there (tools/profile_pull.py), pass 1 takes about
+// 0.35 ms with the real sources and 0.24 with every source set to one
+// vertex, whose gathers all hit L1: the tile's chain of dependent loads
+// holds the second, the gathers' L2 sectors add the rest. L1 capacity
+// cuts the gathers more than resident blocks cut the chain, so pass 1
+// asks for the least shared memory three blocks need (kCarveout); that
+// beat more resident blocks, a shorter or longer tile, and a design
+// without the shared array that found each thread's row by a binary
+// search of csc_offsets.
 //
 // K6 is K3's min pull with init = d, a sweep at a time, the change count
 // fused into pass 2. The TPU kernel is Gauss-Seidel: its blocks run in
@@ -74,10 +94,10 @@
 // The TPU kernel keeps lab, sig and delta in VMEM across levels and skips
 // vertex groups with no nonzero gated entry; here they stay in HBM (12 MB
 // at 2^20 vertices, mostly L2-resident) and every level streams every
-// edge. Bound on the H100: a level streams csc_indices and csc_edge_dst
-// (485 MB at rmat n20 e32, 0.145 ms at 3.35 TB/s) plus V-wide passes of
-// about 20 MB. Skipping quiet chunks, as the TPU kernel does, is the next
-// lever: a scale-free traversal's tail levels gate almost nothing.
+// edge. Bound on the H100: a level streams csc_indices (243 MB at rmat
+// n20 e32, 0.072 ms at 3.35 TB/s) plus V-wide passes of about 20 MB.
+// Skipping quiet tiles, as the TPU kernel does, is the next lever: a
+// scale-free traversal's tail levels gate almost nothing.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (or
@@ -90,7 +110,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kItems = 8;                   // edges a thread in pass 1
+static_assert(kItems % 4 == 0, "16-byte loads of 4 edges");
+constexpr int kTile = kThreads * kItems;    // edges a block in pass 1
+constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxBlocks = 1 << 16;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Reduction and edge function codes, shared with ops/pull2.py.
 enum Op : int { kSum = 0, kMin = 1 };
@@ -102,18 +127,22 @@ enum Weights : int { kNoWeights = 0, kPerEdge = 1, kPerSource = 2 };
 struct PullArgs {
   const float* values;
   const int32_t* indices;   // csc_indices: source of each CSC edge
-  const int32_t* edge_dst;  // csc_edge_dst: row of each CSC edge
   const int32_t* offsets;   // csc_offsets: (rows + 1,)
   const float* weights;
   int64_t num_edges;
   int64_t rows;             // v_pad
-  int chunk;                // edges per warp chunk, a multiple of 32
   int op, fn, wkind;
+  int32_t* tile_rows;       // (ntiles + 1,) scratch: row of each tile's
+                            // first edge, then rows
   float* rowval;            // (rows,) scratch
-  float* head;              // (nchunks,) scratch
-  float* tail;              // (nchunks,) scratch
+  float* head;              // (ntiles,) scratch
+  float* tail;              // (ntiles,) scratch
   float* vscratch;          // (rows,) scratch: folded per-source values
 };
+
+__host__ __device__ __forceinline__ int64_t num_tiles(int64_t num_edges) {
+  return (num_edges + kTile - 1) / kTile;
+}
 
 __device__ __forceinline__ float identity(int op) {
   return op == kSum ? 0.0f : __int_as_float(0x7f800000);  // +inf
@@ -135,13 +164,6 @@ __device__ __forceinline__ float apply_fn(int fn, float x, float w) {
   }
 }
 
-// f of CSC edge e; per-source weights are folded before pass 1.
-__device__ __forceinline__ float edge_value(const PullArgs& a, int64_t e) {
-  const float x = __ldg(a.values + __ldg(a.indices + e));
-  const float w = a.wkind == kPerEdge ? __ldg(a.weights + e) : 0.0f;
-  return apply_fn(a.fn, x, w);
-}
-
 // vscratch[u] = f(values[u], weights[u]) for per-source weights.
 __global__ void fold_per_source_kernel(PullArgs a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -151,67 +173,191 @@ __global__ void fold_per_source_kernel(PullArgs a) {
   }
 }
 
-__device__ __forceinline__ void emit(const PullArgs& a, int64_t c,
-                                     int32_t first_row, int32_t last_row,
-                                     int32_t row, float val) {
-  a.rowval[row] = val;
-  if (row == first_row) a.head[c] = val;
-  if (row == last_row) a.tail[c] = val;
+// The prologue: tile_rows[t] = the row holding edge t * kTile, written by
+// that row; tile_rows[ntiles] = rows.
+__global__ void tile_rows_kernel(PullArgs a) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       v < a.rows; v += stride) {
+    const int64_t lo = __ldg(a.offsets + v);
+    const int64_t hi = __ldg(a.offsets + v + 1);
+    for (int64_t t = (lo + kTile - 1) / kTile; t * kTile < hi; ++t) {
+      a.tile_rows[t] = (int32_t)v;
+    }
+    if (v == 0) a.tile_rows[num_tiles(a.num_edges)] = (int32_t)a.rows;
+  }
 }
 
-// Pass 1: per-chunk segmented reduction (see the file comment).
-__global__ void pull_chunks_kernel(PullArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  const int64_t nchunks = (a.num_edges + a.chunk - 1) / a.chunk;
+__device__ __forceinline__ void emit(const PullArgs& a, int64_t t,
+                                     int32_t first_row, int32_t row,
+                                     bool last, float val) {
+  a.rowval[row] = val;
+  if (row == first_row) a.head[t] = val;
+  if (last) a.tail[t] = val;
+}
+
+// Pass 1: per-tile segmented reduction (see the file comment).
+__global__ void __launch_bounds__(kThreads)
+pull_tiles_kernel(PullArgs a) {
+  __shared__ __align__(16) int32_t starts[kTile];  // row starting here, or -1
+  __shared__ float warp_val[kWarps];
+  __shared__ int32_t warp_flag[kWarps];
+  __shared__ int32_t warp_row[kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p0 = tid * kItems;
+  const int64_t ntiles = num_tiles(a.num_edges);
   const float ident = identity(a.op);
-  for (int64_t c = warp; c < nchunks; c += nwarps) {
-    const int64_t lo = c * a.chunk;
-    const int64_t hi =
-        lo + a.chunk < a.num_edges ? lo + a.chunk : a.num_edges;
-    const int32_t first_row = __ldg(a.edge_dst + lo);
-    const int32_t last_row = __ldg(a.edge_dst + hi - 1);
-    int32_t carry_row = -1;  // warp-uniform: the open run
-    float carry = ident;
-    for (int64_t base = lo; base < hi; base += 32) {
-      const int64_t e = base + lane;
-      const bool valid = e < hi;
-      int32_t row = -1;      // tail lanes: a row no edge has
-      float x = ident;
-      if (valid) {
-        row = __ldg(a.edge_dst + e);
-        x = edge_value(a, e);
-      }
-      // Segmented suffix reduce: afterwards the first lane of each run
-      // holds the run's value. Rows are nondecreasing along the CSC, so
-      // equal rows at lanes l and l + d mean one run covers l..l + d.
-      for (int d = 1; d < 32; d <<= 1) {
-        const float ox = __shfl_down_sync(0xffffffffu, x, d);
-        const int32_t orow = __shfl_down_sync(0xffffffffu, row, d);
-        if (lane + d < 32 && orow == row) x = combine(a.op, x, ox);
-      }
-      const int32_t prev_row = __shfl_up_sync(0xffffffffu, row, 1);
-      const bool is_head = valid && (lane == 0 || prev_row != row);
-      const unsigned heads = __ballot_sync(0xffffffffu, is_head);
-      const int last_head = 31 - __clz(heads);  // lane 0 is always a head
-      // The first run continues the carry, or the carry closed at the
-      // step boundary.
-      if (lane == 0) {
-        if (row == carry_row) {
-          x = combine(a.op, carry, x);
-        } else if (carry_row >= 0) {
-          emit(a, c, first_row, last_row, carry_row, carry);
+  const bool per_edge = a.wkind == kPerEdge;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(a.indices) |
+        (per_edge ? reinterpret_cast<uintptr_t>(a.weights) : 0)) & 15) == 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t lo = t * kTile;
+    const int len = (int)(a.num_edges - lo < kTile ? a.num_edges - lo : kTile);
+    const int n = len - p0 < 0 ? 0 : (len - p0 < kItems ? len - p0 : kItems);
+    // This thread's sources and weights, 16 bytes a load.
+    int32_t src[kItems];
+    float w[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) w[k] = 0.0f;
+    if (n == kItems && aligned) {
+      const int4* ip = reinterpret_cast<const int4*>(a.indices + lo + p0);
+      const float4* wp = reinterpret_cast<const float4*>(a.weights + lo + p0);
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        const int4 i4 = __ldcs(ip + q);
+        src[4 * q] = i4.x;
+        src[4 * q + 1] = i4.y;
+        src[4 * q + 2] = i4.z;
+        src[4 * q + 3] = i4.w;
+        if (per_edge) {
+          const float4 w4 = __ldcs(wp + q);
+          w[4 * q] = w4.x;
+          w[4 * q + 1] = w4.y;
+          w[4 * q + 2] = w4.z;
+          w[4 * q + 3] = w4.w;
         }
       }
-      // Every run but the last is closed.
-      if (is_head && lane != last_head) {
-        emit(a, c, first_row, last_row, row, x);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        src[k] = k < n ? __ldcs(a.indices + lo + p0 + k) : 0;
+        if (per_edge && k < n) w[k] = __ldcs(a.weights + lo + p0 + k);
       }
-      carry = __shfl_sync(0xffffffffu, x, last_head);
-      carry_row = __shfl_sync(0xffffffffu, row, last_head);
     }
-    if (lane == 0) emit(a, c, first_row, last_row, carry_row, carry);
+    // Mark the rows that start inside the tile. tile_rows[t] holds edge
+    // lo, so every later row starts after lo; tile_rows[t + 1] holds edge
+    // lo + kTile (or is rows after the last tile).
+    const int32_t first_row = a.tile_rows[t];
+    const int64_t end_row = a.tile_rows[t + 1];
+    int4* mine = reinterpret_cast<int4*>(starts + p0);
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q) mine[q] = make_int4(-1, -1, -1, -1);
+    __syncthreads();
+    for (int64_t r = first_row + 1 + tid; r <= end_row && r < a.rows;
+         r += kThreads) {
+      const int32_t s = __ldg(a.offsets + r);
+      if (s < lo + len && __ldg(a.offsets + r + 1) > s) {
+        starts[s - lo] = (int32_t)r;
+      }
+    }
+    // All gathers in flight before any is used.
+    float x[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      x[k] = k < n ? __ldg(a.values + src[k]) : ident;
+    }
+    __syncthreads();
+    int32_t st[kItems];
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q) {
+      const int4 s4 = mine[q];
+      st[4 * q] = s4.x;
+      st[4 * q + 1] = s4.y;
+      st[4 * q + 2] = s4.z;
+      st[4 * q + 3] = s4.w;
+    }
+    // The thread's last run: its partial, whether it starts in this
+    // thread (always for thread 0, the tile's edge), and the row of the
+    // last start in the thread (-1 if none).
+    float trail = ident;
+    bool flag = tid == 0;
+    int32_t last_start = -1;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (k < n) {
+        x[k] = apply_fn(a.fn, x[k], w[k]);
+        if (st[k] >= 0) {
+          trail = ident;
+          flag = true;
+          last_start = st[k];
+        }
+        trail = combine(a.op, trail, x[k]);
+      }
+    }
+    // Block-wide inclusive scans over the threads, in a fixed tree: a
+    // segmented combine of the partials (a flag starts a segment) and a
+    // max of the rows.
+    float v = trail;
+    bool f = flag;
+    int32_t m = last_start;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float ov = __shfl_up_sync(kFull, v, d);
+      const int of = __shfl_up_sync(kFull, (int)f, d);
+      const int32_t om = __shfl_up_sync(kFull, m, d);
+      if (lane >= d) {
+        if (!f) v = combine(a.op, ov, v);
+        f = f || of;
+        m = om > m ? om : m;
+      }
+    }
+    if (lane == 31) {
+      warp_val[warp] = v;
+      warp_flag[warp] = f;
+      warp_row[warp] = m;
+    }
+    __syncthreads();
+    // The scan up to the end of the previous warp, in warp order.
+    float pv = ident;
+    int32_t pm = -1;
+    for (int j = 0; j < warp; ++j) {
+      pv = warp_flag[j] ? warp_val[j] : combine(a.op, pv, warp_val[j]);
+      pm = warp_row[j] > pm ? warp_row[j] : pm;
+    }
+    if (!f) v = combine(a.op, pv, v);
+    m = pm > m ? pm : m;
+    // Exclusive: the value and row this thread continues.
+    float carry = __shfl_up_sync(kFull, v, 1);
+    int32_t row = __shfl_up_sync(kFull, m, 1);
+    if (lane == 0) {
+      carry = pv;
+      row = pm;
+    }
+    if (row < 0) row = first_row;
+    if (n > 0) {
+      float acc = tid > 0 && st[0] < 0 ? carry : ident;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if (k < n) {
+          if (st[k] >= 0) {
+            if (k > 0) emit(a, t, first_row, row, false, acc);
+            row = st[k];
+            acc = ident;
+          }
+          acc = combine(a.op, acc, x[k]);
+        }
+      }
+      // The last run closes here if the next position starts a row or
+      // ends the tile.
+      const int pe = p0 + n;
+      if (pe == len || starts[pe] >= 0) {
+        emit(a, t, first_row, row, pe == len, acc);
+      }
+    }
+    __syncthreads();  // starts and the warp totals are reused
   }
 }
 
@@ -233,8 +379,8 @@ __device__ __forceinline__ float row_total(const PullArgs& a, int64_t v) {
   const int32_t lo = __ldg(a.offsets + v);
   const int32_t hi = __ldg(a.offsets + v + 1);
   if (hi <= lo) return identity(a.op);
-  const int64_t c0 = lo / a.chunk;
-  const int64_t c1 = (hi - 1) / a.chunk;
+  const int64_t c0 = lo / kTile;
+  const int64_t c1 = (hi - 1) / kTile;
   if (c0 == c1) return a.rowval[v];
   float acc = a.tail[c0];
 #pragma unroll 8
@@ -283,11 +429,41 @@ unsigned int blocks_for(int64_t threads) {
   return (unsigned int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-bool valid_args(const PullArgs& a) {
-  return a.chunk > 0 && a.chunk % 32 == 0 && a.rows > 0 &&
+bool valid_args(const PullArgs& a, int tile) {
+  return tile == kTile && a.rows > 0 &&
          (a.op == kSum || a.op == kMin) && a.fn >= kNone && a.fn <= kIncr &&
          a.wkind >= kNoWeights && a.wkind <= kPerSource &&
          ((a.fn == kAdd || a.fn == kMul) == (a.wkind != kNoWeights));
+}
+
+// Pass 1's share of an SM's 228 KB of shared memory and L1, in percent
+// (a hint the driver rounds up to a size it offers): 32 KB, three
+// blocks' tiles, the rest left to L1, which holds the hot part of the
+// gathered values.
+constexpr int kCarveout = 14;
+
+// Once per host call: the tile rows, which do not change between rounds,
+// and, once a device, the carveout.
+void launch_tile_rows(const PullArgs& a, cudaStream_t s) {
+  static bool carved[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < 64 &&
+      !carved[dev]) {
+    cudaFuncSetAttribute(pull_tiles_kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         kCarveout);
+    carved[dev] = true;
+  }
+  tile_rows_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a);
+}
+
+void launch_pass1(const PullArgs& a, cudaStream_t s) {
+  if (a.num_edges > 0) {
+    const int64_t ntiles = num_tiles(a.num_edges);
+    pull_tiles_kernel<<<(unsigned int)(ntiles < kMaxBlocks ? ntiles
+                                                            : kMaxBlocks),
+                        kThreads, 0, s>>>(a);
+  }
 }
 
 void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
@@ -297,10 +473,7 @@ void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
     a.fn = kNone;
     a.wkind = kNoWeights;
   }
-  if (a.num_edges > 0) {
-    const int64_t nchunks = (a.num_edges + a.chunk - 1) / a.chunk;
-    pull_chunks_kernel<<<blocks_for(nchunks * 32), kThreads, 0, s>>>(a);
-  }
+  launch_pass1(a, s);
   pull_finish_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a, f);
 }
 
@@ -352,22 +525,21 @@ __global__ void brandes_finish_kernel(PullArgs a, float* lab, float* sig,
 }
 
 PullArgs make_args(const void* values, const void* indices,
-                   const void* edge_dst, const void* offsets,
-                   int64_t num_edges, int64_t rows, const void* weights,
-                   int wkind, int op, int fn, int chunk, void* rowval,
-                   void* head, void* tail, void* vscratch) {
+                   const void* offsets, int64_t num_edges, int64_t rows,
+                   const void* weights, int wkind, int op, int fn,
+                   void* tile_rows, void* rowval, void* head, void* tail,
+                   void* vscratch) {
   PullArgs a;
   a.values = (const float*)values;
   a.indices = (const int32_t*)indices;
-  a.edge_dst = (const int32_t*)edge_dst;
   a.offsets = (const int32_t*)offsets;
   a.weights = (const float*)weights;
   a.num_edges = num_edges;
   a.rows = rows;
-  a.chunk = chunk;
   a.op = op;
   a.fn = fn;
   a.wkind = wkind;
+  a.tile_rows = (int32_t*)tile_rows;
   a.rowval = (float*)rowval;
   a.head = (float*)head;
   a.tail = (float*)tail;
@@ -379,22 +551,26 @@ PullArgs make_args(const void* values, const void* indices,
 
 extern "C" {
 
-// K3. Scratch: rowval and vscratch (rows,), head and tail
-// (ceil(num_edges / chunk),), float32 each. init may be null.
+// K3. tile: kTile (the wrapper's PULL_TILE). Scratch: tile_rows
+// (ntiles + 1,) int32; rowval and vscratch (rows,), head and tail
+// (ntiles,) float32, with ntiles = ceil(num_edges / tile). init may be
+// null.
 int gr_pull_reduce(const void* values, const void* indices,
-                   const void* edge_dst, const void* offsets,
-                   int64_t num_edges, int64_t rows, const void* weights,
-                   int wkind, int op, int fn, const void* init, int chunk,
-                   void* rowval, void* head, void* tail, void* vscratch,
-                   void* out, void* stream) {
-  const PullArgs a = make_args(values, indices, edge_dst, offsets, num_edges,
-                               rows, weights, wkind, op, fn, chunk, rowval,
+                   const void* offsets, int64_t num_edges, int64_t rows,
+                   const void* weights, int wkind, int op, int fn,
+                   const void* init, int tile, void* tile_rows, void* rowval,
+                   void* head, void* tail, void* vscratch, void* out,
+                   void* stream) {
+  const PullArgs a = make_args(values, indices, offsets, num_edges, rows,
+                               weights, wkind, op, fn, tile_rows, rowval,
                                head, tail, vscratch);
-  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (!valid_args(a, tile)) return (int)cudaErrorInvalidValue;
   FinishArgs f = {};
   f.init = (const float*)init;
   f.out = (float*)out;
-  launch_pull(a, f, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  launch_tile_rows(a, s);
+  launch_pull(a, f, s);
   return (int)cudaGetLastError();
 }
 
@@ -403,23 +579,23 @@ int gr_pull_reduce(const void* values, const void* indices,
 // when iters is odd and in pong when it is even. changed: (iters,) int32,
 // zeroed by the caller. Scratch as for gr_pull_reduce.
 int gr_pull_power_iters(const void* init, void* ping, void* pong,
-                        const void* indices, const void* edge_dst,
-                        const void* offsets, int64_t num_edges, int64_t rows,
-                        int64_t num_nodes, const void* weights, int wkind,
-                        float damping, float reset, float threshold,
-                        int iters, int chunk, void* rowval, void* head,
-                        void* tail, void* vscratch, void* changed,
-                        void* stream) {
-  PullArgs a = make_args(init, indices, edge_dst, offsets, num_edges, rows,
-                         weights, wkind, kSum, kMul, chunk, rowval, head,
-                         tail, vscratch);
-  if (!valid_args(a) || iters < 1) return (int)cudaErrorInvalidValue;
+                        const void* indices, const void* offsets,
+                        int64_t num_edges, int64_t rows, int64_t num_nodes,
+                        const void* weights, int wkind, float damping,
+                        float reset, float threshold, int iters, int tile,
+                        void* tile_rows, void* rowval, void* head, void* tail,
+                        void* vscratch, void* changed, void* stream) {
+  PullArgs a = make_args(init, indices, offsets, num_edges, rows, weights,
+                         wkind, kSum, kMul, tile_rows, rowval, head, tail,
+                         vscratch);
+  if (!valid_args(a, tile) || iters < 1) return (int)cudaErrorInvalidValue;
   FinishArgs f = {};
   f.num_nodes = num_nodes;
   f.damping = damping;
   f.reset = reset;
   f.threshold = threshold;
   const cudaStream_t s = (cudaStream_t)stream;
+  launch_tile_rows(a, s);
   const float* in = (const float*)init;
   for (int r = 0; r < iters; ++r) {
     float* out = (float*)(r % 2 == 0 ? ping : pong);
@@ -441,17 +617,18 @@ int gr_pull_power_iters(const void* init, void* ping, void* pong,
 // (with the matching weights). changed: (sweeps,) int32, zeroed by the
 // caller. Scratch as for gr_pull_reduce.
 int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
-                       const void* indices, const void* edge_dst,
-                       const void* offsets, int64_t num_edges, int64_t rows,
-                       const void* weights, int wkind, int fn, int sweeps,
-                       int chunk, void* rowval, void* head, void* tail,
+                       const void* indices, const void* offsets,
+                       int64_t num_edges, int64_t rows, const void* weights,
+                       int wkind, int fn, int sweeps, int tile,
+                       void* tile_rows, void* rowval, void* head, void* tail,
                        void* vscratch, void* changed, void* stream) {
-  PullArgs a = make_args(init, indices, edge_dst, offsets, num_edges, rows,
-                         weights, wkind, kMin, fn, chunk, rowval, head, tail,
+  PullArgs a = make_args(init, indices, offsets, num_edges, rows, weights,
+                         wkind, kMin, fn, tile_rows, rowval, head, tail,
                          vscratch);
-  if (!valid_args(a) || sweeps < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_args(a, tile) || sweeps < 1) return (int)cudaErrorInvalidValue;
   FinishArgs f = {};
   const cudaStream_t s = (cudaStream_t)stream;
+  launch_tile_rows(a, s);
   const float* in = (const float*)init;
   for (int r = 0; r < sweeps; ++r) {
     float* out = (float*)(r % 2 == 0 ? ping : pong);
@@ -470,30 +647,28 @@ int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
 // K9. fwd != 0: levels d = level0 .. level0 + levels - 1 update lab and
 // sig in place (delta may be null). fwd == 0: rings t = level0 down to
 // level0 - levels + 1 update delta in place, reading lab and sig.
-// counts: (levels,) int32, zeroed by the caller. Scratch: gated and
-// rowval (rows,), head and tail (ceil(num_edges / chunk),), float32 each.
+// counts: (levels,) int32, zeroed by the caller. Scratch: gated as
+// vscratch, the rest as for gr_pull_reduce.
 int gr_brandes_levels(void* lab, void* sig, void* delta, const void* indices,
-                      const void* edge_dst, const void* offsets,
-                      int64_t num_edges, int64_t rows, int fwd, int level0,
-                      int levels, int chunk, void* gated, void* rowval,
-                      void* head, void* tail, void* counts, void* stream) {
-  const PullArgs a = make_args(gated, indices, edge_dst, offsets, num_edges,
-                               rows, nullptr, kNoWeights, kSum, kNone, chunk,
+                      const void* offsets, int64_t num_edges, int64_t rows,
+                      int fwd, int level0, int levels, int tile,
+                      void* tile_rows, void* gated, void* rowval, void* head,
+                      void* tail, void* counts, void* stream) {
+  const PullArgs a = make_args(gated, indices, offsets, num_edges, rows,
+                               nullptr, kNoWeights, kSum, kNone, tile_rows,
                                rowval, head, tail, nullptr);
-  if (!valid_args(a) || levels < 1 || (!fwd && delta == nullptr)) {
+  if (!valid_args(a, tile) || levels < 1 || (!fwd && delta == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
+  launch_tile_rows(a, s);
   const unsigned int vblocks = blocks_for(rows);
   for (int r = 0; r < levels; ++r) {
     const int level = fwd ? level0 + r : level0 - r;
     brandes_gate_kernel<<<vblocks, kThreads, 0, s>>>(
         rows, (const float*)lab, (const float*)sig, (const float*)delta,
         (float*)gated, (float)(fwd ? level - 1 : level + 1), fwd != 0);
-    if (num_edges > 0) {
-      const int64_t nchunks = (num_edges + chunk - 1) / chunk;
-      pull_chunks_kernel<<<blocks_for(nchunks * 32), kThreads, 0, s>>>(a);
-    }
+    launch_pass1(a, s);
     brandes_finish_kernel<<<vblocks, kThreads, 0, s>>>(
         a, (float*)lab, (float*)sig, (float*)delta, (float)level, fwd != 0,
         (int32_t*)counts + r);

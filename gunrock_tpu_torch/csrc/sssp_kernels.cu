@@ -17,6 +17,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -273,11 +274,19 @@ __global__ void reduce_emit_kernel(ReduceArgs a) {
 // (:1151, scatter_sorted :1289), which streams the dense vector through
 // VMEM tile by tile and routes each tile's updates into place with a
 // 13-stage lane router, because a TPU core scatters one element at a
-// time. Here one thread takes one lane: the ids are unique, so each
+// time. Here one thread takes four lanes: the ids are unique, so each
 // dense slot has at most one writer and a plain read-modify-write is
 // exact, in any order. The count is read from device memory when given
-// as a pointer, so a caller that got it from K7 reads nothing back.
-// Bound: 12 bytes a lane streamed plus one random 4-byte read and write.
+// as a pointer, so a caller that got it from K7 reads nothing back; the
+// buffer may be far longer than the count (phase 14 of chip_smoke.py:
+// 135,241 winners in a 2^20-lane buffer), so the grid is a few blocks an
+// SM, each reading the count once, striding over the live lanes only.
+// Ids and values are read 16 bytes a thread where the base is aligned,
+// the last count % 4 lanes one at a time.
+// Bound: 8 bytes a lane streamed plus one random 4-byte read and write.
+// At phase 14's size the kernel takes 0.002-0.005 ms on the device and a
+// call about 0.025-0.04 ms: the ctypes call and the launch alone take
+// about 0.01 (tools/profile_pull.py), the wrapper's checks the rest.
 template <typename T>
 __device__ __forceinline__ T apply_op(int op, T old, T v);
 
@@ -303,19 +312,70 @@ __device__ __forceinline__ int32_t apply_op<int32_t>(int op, int32_t old,
 }
 
 template <typename T>
-__global__ void scatter_sorted_kernel(T* __restrict__ dense, int64_t n,
-                                      const int32_t* __restrict__ ids,
-                                      const T* __restrict__ vals, int64_t m,
-                                      const int32_t* __restrict__ count_ptr,
-                                      int64_t count, int op) {
-  int64_t limit = count_ptr != nullptr ? (int64_t)__ldg(count_ptr) : count;
-  if (limit > m) limit = m;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < limit; i += stride) {
-    const int32_t id = __ldg(ids + i);
-    if (id >= 0 && id < n) dense[id] = apply_op<T>(op, dense[id], __ldg(vals + i));
+__device__ __forceinline__ T from_bits(uint32_t bits) {
+  T v;
+  memcpy(&v, &bits, sizeof(v));
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_sorted_kernel(T* __restrict__ dense, int64_t n,
+                      const int32_t* __restrict__ ids,
+                      const uint32_t* __restrict__ vals, int64_t m,
+                      const int32_t* __restrict__ count_ptr, int64_t count,
+                      int op) {
+  __shared__ int64_t live;
+  if (threadIdx.x == 0) {
+    const int64_t c = count_ptr != nullptr ? (int64_t)*count_ptr : count;
+    live = c < m ? c : m;
   }
+  __syncthreads();
+  const int64_t limit = live;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(ids) | reinterpret_cast<uintptr_t>(vals))
+       & 15) == 0;
+  const int64_t quads = aligned && limit > 0 ? limit / 4 : 0;
+  for (int64_t q = first; q < quads; q += stride) {
+    const int4 id4 = __ldcs(reinterpret_cast<const int4*>(ids) + q);
+    const uint4 v4 = __ldcs(reinterpret_cast<const uint4*>(vals) + q);
+    const int32_t id[4] = {id4.x, id4.y, id4.z, id4.w};
+    const uint32_t bits[4] = {v4.x, v4.y, v4.z, v4.w};
+    // The ids are unique, so the four slots are distinct: read all four
+    // before writing any, one round trip instead of four.
+    T old[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (id[j] >= 0 && id[j] < n) old[j] = dense[id[j]];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (id[j] >= 0 && id[j] < n) {
+        dense[id[j]] = apply_op<T>(op, old[j], from_bits<T>(bits[j]));
+      }
+    }
+  }
+  for (int64_t i = 4 * quads + first; i < limit; i += stride) {
+    const int32_t id = __ldcs(ids + i);
+    if (id >= 0 && id < n) {
+      dense[id] = apply_op<T>(op, dense[id], from_bits<T>(__ldcs(vals + i)));
+    }
+  }
+}
+
+// Multiprocessors of the current device, read once a device.
+int sm_count() {
+  static int cache[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cache[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cache[dev] = n > 0 ? n : 132;
+  }
+  return cache[dev];
 }
 
 }  // namespace
@@ -393,13 +453,17 @@ int gr_scatter_sorted(void* dense, int64_t n, const void* ids,
   if (op < kMin || op > kSet) return (int)cudaErrorInvalidValue;
   if (m > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
+    // Four lanes a thread, at most four blocks an SM.
+    const int64_t cap = 4 * (int64_t)sm_count();
+    const int64_t want = ((m + 3) / 4 + kThreads - 1) / kThreads;
+    const unsigned int grid = (unsigned int)(want < cap ? want : cap);
     if (is_float) {
-      scatter_sorted_kernel<float><<<blocks_for(m), kThreads, 0, s>>>(
-          (float*)dense, n, (const int32_t*)ids, (const float*)vals, m,
+      scatter_sorted_kernel<float><<<grid, kThreads, 0, s>>>(
+          (float*)dense, n, (const int32_t*)ids, (const uint32_t*)vals, m,
           (const int32_t*)count_ptr, count, op);
     } else {
-      scatter_sorted_kernel<int32_t><<<blocks_for(m), kThreads, 0, s>>>(
-          (int32_t*)dense, n, (const int32_t*)ids, (const int32_t*)vals, m,
+      scatter_sorted_kernel<int32_t><<<grid, kThreads, 0, s>>>(
+          (int32_t*)dense, n, (const int32_t*)ids, (const uint32_t*)vals, m,
           (const int32_t*)count_ptr, count, op);
     }
   }

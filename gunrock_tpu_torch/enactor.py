@@ -29,7 +29,7 @@ class LoopStats:
     ``enactor_types.cuh:50-80``) and the per-iteration frontier sizes
     (``util/info.cuh:684-709``). Exact-size tensors cannot overflow, so
     ``overflow`` records a capacity the JAX package's rule would have
-    exceeded (SSSP's ``queue_sizing``); it stops the loop. ``route``
+    exceeded (BFS's and SSSP's ``queue_sizing``); it stops the loop. ``route``
     names the path a primitive took where it has several (the min-pull
     sweeps, the push loop after their bail-out), for the Info record.
     ``deep_stretches`` counts the BFS deep micro-loop's stretches."""

@@ -13,9 +13,17 @@ The push/pull decisions are the JAX package's, level for level:
     pull-entry threshold chosen by ``fvalid``.
   * ``fvalid`` (is the frontier queue materialized) depends on the push
     rung the JAX package would have dispatched to: the smallest entry of
-    ``capacity_ladder(e_pad)`` at least ``max(m_f, n)``. Tensors here are
-    exact-size, so the rung is computed on the host only for that rule.
-    A rung of at least ``v_pad // 4`` leaves the queue unmaterialized.
+    ``capacity_ladder(out_cap)`` at least ``max(m_f, n)``, ``out_cap``
+    being ``e_pad * min(queue_sizing, 1)``. Tensors here are exact-size,
+    so the rung is computed on the host only for that rule and for the
+    overflow rule below. A rung of at least ``v_pad // 4`` leaves the
+    queue unmaterialized.
+  * Queue overflow (``models/bfs.py:145-196``): a push level overflows
+    where the JAX package's fixed-size queues would have cut it, that is
+    when its expanded edges pass the rung, its next frontier passes the
+    queue capacity ``fcap`` or a queue rebuild passes ``min(rung,
+    fcap)``. The traversal stops there, and :func:`bfs` reruns it with
+    ``queue_sizing`` doubled, up to 4, as the JAX package does.
 
 The deep micro-loop (``models/bfs.py:225-318,498-554``) runs whole
 stretches of small levels, DO or not, ahead of the vote: whenever
@@ -131,7 +139,7 @@ def _single_source_step(graph: DeviceGraph, cap: int, state: _State,
                         v: int, depth: int) -> int:
     """Fast path for a 1-vertex frontier: its CSR run is one contiguous
     slice, with no expansion or dedup. Leaves the queue unmaterialized.
-    Returns the edge count."""
+    Returns the edge count (an overflow where it passes ``cap``)."""
     start, end = graph.row_offsets[v:v + 2].tolist()
     nbr = graph.col_indices[start:end]
     is_new = _unvisited(state.labels, nbr)
@@ -144,10 +152,11 @@ def _single_source_step(graph: DeviceGraph, cap: int, state: _State,
     return end - start
 
 
-def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
-               may_rebuild: bool) -> int:
-    """One push level (``models/bfs.py:141-222``). Returns the edge
-    count."""
+def _push_step(graph: DeviceGraph, caps: list, fcap: int, state: _State,
+               depth: int, may_rebuild: bool) -> tuple[int, bool]:
+    """One push level (``models/bfs.py:141-222``). Returns the edge count
+    and whether the JAX package's queues of capacity ``fcap`` and rung
+    ``cap`` would have overflowed (``:145,153,185,196``)."""
     if may_rebuild and not state.fvalid:
         # Lazy queue rebuild after levels that left it unmaterialized.
         frontier0, n0 = frontier_from_mask(state.labels == depth - 1)
@@ -155,9 +164,13 @@ def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
         frontier0, n0 = state.frontier, state.n
     cap = ladder_rung(caps, max(state.m_f, state.n))
     if may_rebuild and n0 == 1:
-        return _single_source_step(graph, cap, state, int(frontier0[0]),
-                                   depth)
+        edges = _single_source_step(graph, cap, state, int(frontier0[0]),
+                                    depth)
+        return edges, edges > cap
+    # The JAX package slices the queue to min(cap, fcap) lanes.
+    overflow = n0 > min(cap, fcap)
     ex = expand(graph, torch.sort(frontier0).values)
+    overflow = overflow or ex.total > cap
     is_new = _unvisited(state.labels, ex.dst)
     if may_rebuild and cap >= graph.v_pad // 4:
         # Big rung: duplicate dst lanes write the same depth, so no claim
@@ -170,7 +183,7 @@ def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
         state.n, state.m_f = _next_stats(graph, state.labels, depth, cap,
                                          is_new, ex.dst)
         state.frontier, state.fvalid = None, False
-        return ex.total
+        return ex.total, overflow
     keep = dedup_winners(ex.dst, is_new, graph.v_pad)
     scatter_set(state.labels, ex.dst, depth, mask=keep)
     if state.preds is not None:
@@ -179,7 +192,7 @@ def _push_step(graph: DeviceGraph, caps: list, state: _State, depth: int,
     d = state.frontier.long()
     state.m_f = int((graph.row_offsets[d + 1] - graph.row_offsets[d]).sum())
     state.fvalid = True
-    return ex.total
+    return ex.total, overflow or state.n > fcap
 
 
 def _micro_round(graph: DeviceGraph, state: _State, depth: int,
@@ -209,8 +222,9 @@ def _deep_stretch(graph: DeviceGraph, state: _State, rung: int,
     """Micro rounds while the queue and its edge volume fit ``rung``
     (``models/bfs.py:268-270,307-317``). The queue is rebuilt from the
     labels if a level left it unmaterialized, and sorted once; each
-    round keeps it sorted. ``on_level`` is called after each round with
-    the round's dispatch size."""
+    round keeps it sorted. A micro round never overflows, but the
+    stretch stops on an overflow, as the JAX package's does. ``on_level``
+    is called after each round with the round's dispatch size."""
     if not state.fvalid:
         state.frontier, state.n = frontier_from_mask(
             state.labels == state.stats.iteration)
@@ -218,7 +232,8 @@ def _deep_stretch(graph: DeviceGraph, state: _State, rung: int,
     state.fvalid, state.use_pull = True, False
     state.stats.deep_stretches += 1
     while (0 < state.n <= rung and state.m_f <= rung
-           and state.stats.iteration < max_iters):
+           and state.stats.iteration < max_iters
+           and not state.stats.overflow):
         dispatch = max(state.m_f, state.n)
         edges = _micro_round(graph, state, state.stats.iteration + 1, deg)
         record_iteration(state.stats, frontier_len=state.n, edges=edges)
@@ -320,9 +335,12 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     labels and preds as (v_pad,) tensors on the graph's device (preds is
     None without ``mark_preds``).
 
-    ``queue_sizing`` scales the JAX package's queue capacity ``fcap``,
-    which decides which micro-loop rungs exist; the queues themselves are
-    exact-size and never overflow.
+    ``queue_sizing`` scales the JAX package's queue capacity ``fcap``
+    and its push rungs, which decide which micro-loop rungs exist, the
+    ``"deep"`` label and where the JAX package's queues would overflow.
+    The queues here are exact-size; a level that would have overflowed
+    sets ``stats.overflow`` and ends the traversal there, as in the JAX
+    package, and :func:`bfs` regrows ``queue_sizing``.
 
     ``instrument``: pass a list to collect one record per iteration (a
     micro round counts as one), ``{iteration, ms, frontier, phase,
@@ -346,11 +364,13 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
             return out
         route = "bailed_to_push"
     dev = graph.device
-    caps = capacity_ladder(graph.e_pad)
     if max_iters is None:
         max_iters = graph.num_nodes + 1
     base_cap = graph.v_pad // 4 if direction_optimized else graph.v_pad
     fcap = max(128, min(int(base_cap * queue_sizing), graph.v_pad))
+    out_cap = max(128, min(int(graph.e_pad * min(queue_sizing, 1.0)),
+                           graph.e_pad))
+    caps = capacity_ladder(out_cap)
     rungs = []
     if os.environ.get("GUNROCK_BFS_DEEP", "1") == "1":
         rungs = [c for c in deep_rungs("GUNROCK_BFS_DEEP_RUNGS", DEEP_CAP)
@@ -387,7 +407,8 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
             "pull": state.use_pull})
         t0 = t1
 
-    while state.n > 0 and state.stats.iteration < max_iters:
+    while (state.n > 0 and state.stats.iteration < max_iters
+           and not state.stats.overflow):
         dispatch = max(state.m_f, state.n)
         if rungs and dispatch <= rungs[-1]:
             # The smallest rung that fits; the stretch spills back here
@@ -396,7 +417,7 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
             _deep_stretch(graph, state, rung, max_iters, deg, on_level)
             continue
         depth = state.stats.iteration + 1
-        use_pull = False
+        use_pull, overflow = False, False
         if direction_optimized:
             thresh = thresh_valid if state.fvalid else thresh_lazy
             vote = f32(state.m_f) * f32(alpha) > thresh
@@ -406,10 +427,11 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
         if use_pull:
             edges = _pull_step(graph, state, depth)
         else:
-            edges = _push_step(graph, caps, state, depth,
-                               may_rebuild=direction_optimized)
+            edges, overflow = _push_step(graph, caps, fcap, state, depth,
+                                         may_rebuild=direction_optimized)
         state.use_pull = use_pull
-        record_iteration(state.stats, frontier_len=state.n, edges=edges)
+        record_iteration(state.stats, frontier_len=state.n, edges=edges,
+                         overflow=overflow)
         on_level(dispatch)
     if mark_preds and direction_optimized:
         _fill_preds(graph, state.labels, state.preds)
@@ -428,9 +450,11 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     ``gunrock/gunrock.h:173``) plus ``device``. A :class:`CsrGraph` is
     uploaded to ``device`` with the CSC and ``with_blocked_csc`` for DO,
     as the JAX package uploads it; a :class:`DeviceGraph` must already be
-    there. ``queue_sizing`` sets the deep micro-loop's queue capacity
-    (see :func:`bfs_device`); the JAX package's regrowth after a queue
-    overflow has nothing to do here, as exact-size queues never overflow.
+    there. ``queue_sizing`` sets the JAX package's queue capacity (see
+    :func:`bfs_device`); while a run overflows it, the run is repeated
+    with the sizing doubled, up to 4, and the per-iteration records
+    cleared, as the JAX package regrows its queues (reference
+    ``Check_Size``, ``enactor_helper.cuh:103``).
     ``idempotence`` is accepted for parity and has no effect: the claim
     filter is exact. ``instrumented`` collects per-iteration records into
     ``info["per_iteration"]``.
@@ -455,11 +479,18 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     num_nodes = dgraph.num_nodes
 
     with timer.time("process_ms"):
-        labels, preds, stats = bfs_device(
-            dgraph, src, mark_preds=mark_preds,
-            direction_optimized=direction_optimized, alpha=alpha, beta=beta,
-            queue_sizing=queue_sizing, max_iters=max_iters,
-            instrument=per_iter)
+        sizing = queue_sizing
+        while True:
+            labels, preds, stats = bfs_device(
+                dgraph, src, mark_preds=mark_preds,
+                direction_optimized=direction_optimized, alpha=alpha,
+                beta=beta, queue_sizing=sizing, max_iters=max_iters,
+                instrument=per_iter)
+            if not stats.overflow or sizing >= 4.0:
+                break
+            sizing = min(sizing * 2.0, 4.0)
+            if per_iter is not None:
+                per_iter.clear()
         sync(dev)
 
     labels_np = labels[:num_nodes].cpu().numpy()

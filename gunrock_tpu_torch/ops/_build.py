@@ -35,6 +35,24 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
+# The C entry points of csrc/*.cu and their parameters, one letter each:
+# p a pointer (the last one the stream), q an int64_t, i an int, f a
+# float. ctypes passes what it is told, so these must match the sources.
+SIGNATURES = {
+    "gr_pull_reached_words": "pqppqpp",
+    "gr_bitmask_gather": "pqpqpp",
+    "gr_bitmask_gather_cumsum": "pqpqpqpp",
+    "gr_pull_reduce": "pppqqpiiipippppppp",
+    "gr_pull_power_iters": "pppppqqqpifffiippppppp",
+    "gr_pull_min_sweeps": "pppppqqpiiiippppppp",
+    "gr_brandes_levels": "pppppqqiiiippppppp",
+    "gr_sample_sorted": "ppqpiqppp",
+    "gr_reduce_by_dst_sorted": "pppqiiqppppppppp",
+    "gr_scatter_sorted": "pqppqpqiip",
+}
+_CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int,
+           "f": ctypes.c_float}
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -88,43 +106,17 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). After the first
+    call this is one global read: the wrappers call it on every launch."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            i32, f32 = ctypes.c_int, ctypes.c_float
-            lib.gr_pull_reached_words.argtypes = [p, i64, p, p, i64, p, p]
-            lib.gr_pull_reached_words.restype = ctypes.c_int
-            lib.gr_bitmask_gather.argtypes = [p, i64, p, i64, p, p]
-            lib.gr_bitmask_gather.restype = ctypes.c_int
-            lib.gr_bitmask_gather_cumsum.argtypes = [p, i64, p, i64, p, i64,
-                                                     p, p]
-            lib.gr_bitmask_gather_cumsum.restype = ctypes.c_int
-            lib.gr_pull_reduce.argtypes = [p, p, p, p, i64, i64, p, i32,
-                                           i32, i32, p, i32, p, p, p, p, p,
-                                           p]
-            lib.gr_pull_reduce.restype = ctypes.c_int
-            lib.gr_pull_power_iters.argtypes = [
-                p, p, p, p, p, p, i64, i64, i64, p, i32, f32, f32, f32,
-                i32, i32, p, p, p, p, p, p]
-            lib.gr_pull_power_iters.restype = ctypes.c_int
-            lib.gr_pull_min_sweeps.argtypes = [
-                p, p, p, p, p, p, i64, i64, p, i32, i32, i32, i32, p, p, p,
-                p, p, p]
-            lib.gr_pull_min_sweeps.restype = ctypes.c_int
-            lib.gr_brandes_levels.argtypes = [
-                p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p, p, p, p, p,
-                p]
-            lib.gr_brandes_levels.restype = ctypes.c_int
-            lib.gr_sample_sorted.argtypes = [p, p, i64, p, i32, i64, p, p, p]
-            lib.gr_sample_sorted.restype = ctypes.c_int
-            lib.gr_reduce_by_dst_sorted.argtypes = [
-                p, p, p, i64, i32, i32, i64, p, p, p, p, p, p, p, p, p]
-            lib.gr_reduce_by_dst_sorted.restype = ctypes.c_int
-            lib.gr_scatter_sorted.argtypes = [p, i64, p, p, i64, p, i64, i32,
-                                              i32, p]
-            lib.gr_scatter_sorted.restype = ctypes.c_int
+            for name, sig in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [_CTYPES[c] for c in sig]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib

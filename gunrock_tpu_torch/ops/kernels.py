@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from . import _build
+
 __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "unpack_bitmask", "bitmask_gather", "bitmask_gather_plain",
            "bitmask_gather_cumsum", "bitmask_gather_cumsum_plain",
@@ -100,8 +102,19 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 
 def _launch(fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Call a kernel's C entry point with ``device``'s current stream and
+    raise on the CUDA error it returns. A launch goes to the current
+    device, so ``device`` is made current for the call unless it is
+    already."""
+    # The raw handle of the current stream, without building a Stream
+    # object (which enters the device's context) on every launch. CUDA
+    # builds of torch only, so it is looked up here, not at import.
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
 
@@ -142,7 +155,6 @@ def bitmask_gather(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(idx.shape[0], dtype=torch.int32, device=idx.device)
     if idx.shape[0] == 0:
         return out
-    from . import _build
     _launch(_build.load().gr_bitmask_gather, words.data_ptr(),
             words.shape[0] * 32, idx.data_ptr(), idx.shape[0],
             out.data_ptr(), device=idx.device)
@@ -178,7 +190,6 @@ def bitmask_gather_cumsum(words: torch.Tensor,
         return out
     tiles = torch.empty(-(-n // GATHER_CUMSUM_TILE), dtype=torch.int32,
                         device=idx.device)
-    from . import _build
     _launch(_build.load().gr_bitmask_gather_cumsum, words.data_ptr(),
             words.shape[0] * 32, idx.data_ptr(), n, tiles.data_ptr(),
             tiles.shape[0], out.data_ptr(), device=idx.device)
@@ -219,7 +230,6 @@ def pull_reached_words(words: torch.Tensor, graph) -> torch.Tensor:
     out = torch.zeros(words_for(graph.v_pad), dtype=torch.int32, device=dev)
     if graph.num_edges == 0:
         return out
-    from . import _build
     _launch(_build.load().gr_pull_reached_words, words.data_ptr(),
             words.shape[0] * 32, graph.csc_indices.data_ptr(),
             graph.csc_edge_dst.data_ptr(), graph.num_edges, out.data_ptr(),
@@ -269,7 +279,6 @@ def _sample(a: torch.Tensor, b: Optional[torch.Tensor], pos: torch.Tensor,
                                                device=dev)
     if pos.shape[0] == 0:
         return out_a, out_b
-    from . import _build
     _launch(_build.load().gr_sample_sorted, a.data_ptr(),
             0 if b is None else b.data_ptr(), a.shape[0], pos.data_ptr(),
             int(pos.dtype == torch.int64), pos.shape[0], out_a.data_ptr(),
@@ -384,7 +393,6 @@ def reduce_by_dst_sorted(sd: torch.Tensor, vals: torch.Tensor, *,
     ids = torch.empty(out_lanes, **i32)
     rvals = torch.empty(out_lanes, **f32)
     count = torch.empty((), **i32)
-    from . import _build
     _launch(_build.load().gr_reduce_by_dst_sorted, sd.data_ptr(),
             vals.data_ptr(), 0 if aux is None else aux.data_ptr(), m,
             _REDUCE_OPS[op], REDUCE_CHUNK, out_lanes, part.data_ptr(),
@@ -459,7 +467,6 @@ def scatter_sorted(dense: torch.Tensor, ids: torch.Tensor,
         count_host = int(count)
     if ids.shape[0] == 0:
         return dense
-    from . import _build
     _launch(_build.load().gr_scatter_sorted, dense.data_ptr(),
             dense.shape[0], ids.data_ptr(), vals.data_ptr(), ids.shape[0],
             count_ptr, count_host, int(dense.dtype == torch.float32),

@@ -14,8 +14,8 @@ with (+) ``sum`` or ``min`` and f ``none`` (values[u]), ``add``
 (values[u] + w), ``mul`` (values[u] * w) or ``incr`` (values[u] + 1). The
 weight stream is ``val`` (the CSC's edge values) or ``wpr`` (1/out-degree
 of the source, ``graph.inv_outdeg``). The JAX package computes it on its
-TPU pull-v2 layout; here it reads the plain CSC (``csc_indices``,
-``csc_edge_dst``, ``csc_offsets``) of any graph uploaded ``with_csc``.
+TPU pull-v2 layout; here the kernels read the plain CSC (``csc_indices``
+and ``csc_offsets``) of any graph uploaded ``with_csc``.
 
 As in :mod:`gunrock_tpu_torch.ops.kernels`, each kernel has a plain
 PyTorch version (``*_plain``), a wrapper that launches the CUDA kernel in
@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from . import _build
 from .kernels import LAUNCHES, _check, _launch, _route
 from .segment import row_reduce_sorted
 
@@ -37,11 +38,13 @@ __all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
            "pull_power_iters_plain", "pull_min_sweeps",
            "pull_min_sweeps_plain", "pull_vertex_reduce",
            "brandes_fwd_levels", "brandes_fwd_levels_plain",
-           "brandes_bwd_levels", "brandes_bwd_levels_plain", "PULL_CHUNK"]
+           "brandes_bwd_levels", "brandes_bwd_levels_plain", "PULL_TILE"]
 
-# Edges per warp chunk in K3/K4 (a multiple of 32). It fixes the order of
-# every sum, so two launches on the same input agree bit for bit.
-PULL_CHUNK = 1024
+# CSC edges a block reduces in the pass shared by K3, K4, K6 and K9
+# (kTile in csrc/pull_kernels.cu, which refuses any other value). It fixes
+# the order of every sum, so two launches on the same input agree bit for
+# bit.
+PULL_TILE = 2048
 
 _OPS = {"sum": 0, "min": 1}
 _FNS = {"none": 0, "add": 1, "mul": 2, "incr": 3}
@@ -101,15 +104,22 @@ def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
     return init + out if op == "sum" else torch.minimum(init, out)
 
 
-def _scratch(graph, device) -> tuple[torch.Tensor, ...]:
-    """K3/K4/K6/K9 scratch: per-row totals, per-chunk head/tail partials,
-    and a (v_pad,) value table (the per-source values folded with the
-    ``wpr`` weights; K9's gated values)."""
-    nchunks = max(1, -(-graph.num_edges // PULL_CHUNK))
-    return (torch.empty(graph.v_pad, dtype=torch.float32, device=device),
-            torch.empty(nchunks, dtype=torch.float32, device=device),
-            torch.empty(nchunks, dtype=torch.float32, device=device),
-            torch.empty(graph.v_pad, dtype=torch.float32, device=device))
+def _scratch(graph, device) -> tuple[torch.Tensor, list[int]]:
+    """K3/K4/K6/K9 scratch as one buffer of 4-byte slots, and the
+    addresses the kernels take, in their order: the first row of each
+    tile and one past the last (int32), per-row totals, per-tile head and
+    tail partials, and a (v_pad,) value table (the per-source values
+    folded with the ``wpr`` weights; K9's gated values), all float32.
+    One allocation a call; the caller holds the buffer until the launch
+    is enqueued."""
+    ntiles = -(-graph.num_edges // PULL_TILE)
+    sizes = (ntiles + 1, graph.v_pad, ntiles, ntiles, graph.v_pad)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+    ptrs, at = [], buf.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    return buf, ptrs
 
 
 def _check_float(name: str, t: torch.Tensor, n: int,
@@ -123,7 +133,7 @@ def _check_float(name: str, t: torch.Tensor, n: int,
 
 def _check_graph(graph, w: Optional[torch.Tensor], kind: int,
                  device: torch.device) -> None:
-    for name in ("csc_indices", "csc_edge_dst", "csc_offsets"):
+    for name in ("csc_indices", "csc_offsets"):
         _check(name, getattr(graph, name), device)
     if w is not None:
         _check_float("weights", w,
@@ -155,16 +165,14 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
         init = init.to(torch.float32).contiguous()
         _check_float("init", init, graph.v_pad, dev)
     _check_graph(graph, w, kind, dev)
-    rowval, head, tail, folded = _scratch(graph, dev)
+    buf, scratch = _scratch(graph, dev)
     out = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
-    from . import _build
     _launch(_build.load().gr_pull_reduce, values.data_ptr(),
-            graph.csc_indices.data_ptr(), graph.csc_edge_dst.data_ptr(),
-            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
-            0 if w is None else w.data_ptr(), kind, _OPS[op], _FNS[wmode],
-            0 if init is None else init.data_ptr(), PULL_CHUNK,
-            rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
-            folded.data_ptr(), out.data_ptr(), device=dev)
+            graph.csc_indices.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.num_edges, graph.v_pad, 0 if w is None else w.data_ptr(),
+            kind, _OPS[op], _FNS[wmode],
+            0 if init is None else init.data_ptr(), PULL_TILE, *scratch,
+            out.data_ptr(), device=dev)
     LAUNCHES["pull_reduce2"] += 1
     return out
 
@@ -227,18 +235,16 @@ def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
     init = init.to(torch.float32).contiguous()
     _check_float("init", init, graph.v_pad, dev)
     _check_graph(graph, w, kind, dev)
-    rowval, head, tail, folded = _scratch(graph, dev)
+    buf, scratch = _scratch(graph, dev)
     ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     pong = torch.empty_like(ping)
     changed = torch.zeros(iters, dtype=torch.int32, device=dev)
-    from . import _build
     _launch(_build.load().gr_pull_power_iters, init.data_ptr(),
             ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
-            graph.csc_edge_dst.data_ptr(), graph.csc_offsets.data_ptr(),
-            graph.num_edges, graph.v_pad, graph.num_nodes, w.data_ptr(),
-            kind, float(damping), float(reset), float(threshold), iters,
-            PULL_CHUNK, rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
-            folded.data_ptr(), changed.data_ptr(), device=dev)
+            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            graph.num_nodes, w.data_ptr(), kind, float(damping),
+            float(reset), float(threshold), iters, PULL_TILE, *scratch,
+            changed.data_ptr(), device=dev)
     LAUNCHES["pull_power_iters"] += 1
     return (ping if iters % 2 else pong), changed
 
@@ -286,18 +292,15 @@ def pull_min_sweeps(graph, init: torch.Tensor, *, sweeps: int,
     init = init.to(torch.float32).contiguous()
     _check_float("init", init, graph.v_pad, dev)
     _check_graph(graph, w, kind, dev)
-    rowval, head, tail, folded = _scratch(graph, dev)
+    buf, scratch = _scratch(graph, dev)
     ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     pong = torch.empty_like(ping)
     changed = torch.zeros(sweeps, dtype=torch.int32, device=dev)
-    from . import _build
     _launch(_build.load().gr_pull_min_sweeps, init.data_ptr(),
             ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
-            graph.csc_edge_dst.data_ptr(), graph.csc_offsets.data_ptr(),
-            graph.num_edges, graph.v_pad, 0 if w is None else w.data_ptr(),
-            kind, _FNS[wmode], sweeps, PULL_CHUNK, rowval.data_ptr(),
-            head.data_ptr(), tail.data_ptr(), folded.data_ptr(),
-            changed.data_ptr(), device=dev)
+            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            0 if w is None else w.data_ptr(), kind, _FNS[wmode], sweeps,
+            PULL_TILE, *scratch, changed.data_ptr(), device=dev)
     LAUNCHES["pull_min_sweeps"] += 1
     return (ping if sweeps % 2 else pong), changed
 
@@ -358,16 +361,14 @@ def _brandes(graph, lab, sig, delta, *, fwd: bool, level0: int,
         _check_float(name, t, graph.v_pad, dev)
         state.append(t)
     _check_graph(graph, None, _NO_WEIGHTS, dev)
-    rowval, head, tail, gated = _scratch(graph, dev)
+    buf, (tile_rows, rowval, head, tail, gated) = _scratch(graph, dev)
     counts = torch.zeros(levels, dtype=torch.int32, device=dev)
     lab, sig, delta = state
-    from . import _build
     _launch(_build.load().gr_brandes_levels, lab.data_ptr(), sig.data_ptr(),
             0 if delta is None else delta.data_ptr(),
-            graph.csc_indices.data_ptr(), graph.csc_edge_dst.data_ptr(),
-            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
-            int(fwd), int(level0), levels, PULL_CHUNK, gated.data_ptr(),
-            rowval.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            graph.csc_indices.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.num_edges, graph.v_pad, int(fwd), int(level0), levels,
+            PULL_TILE, tile_rows, gated, rowval, head, tail,
             counts.data_ptr(), device=dev)
     LAUNCHES["brandes_levels"] += 1
     return lab, sig, delta, counts

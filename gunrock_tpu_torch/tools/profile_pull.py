@@ -1,0 +1,139 @@
+"""Where K3's time goes, and K8's: the device time of a call against the
+host's, and K3's edge stream against its gathers.
+
+    python -m gunrock_tpu_torch.tools.profile_pull [--scale 20]
+        [--edge-factor 32] [--winners 135241] [--reps 20] [--device cuda]
+
+Builds R-MAT (``--scale``, ``--edge-factor``, seed 1, undirected), the
+graph of ``chip_smoke.py``, uploads it ``with_csc`` and profiles, as
+:mod:`gunrock_tpu_torch.tools.profile_value` does (one warm-up call,
+then ``--reps`` calls under ``torch.profiler``):
+
+  * K3 ``pull_reduce2`` sum/none over the graph (the mode of HITS, SALSA
+    and the PageRank loop), and ``torch.mv`` over the same CSC as a
+    sparse CSR matrix;
+  * K3 over the same graph with every source replaced by vertex 0: the
+    same edge stream, rows and launches, but every gather reads one
+    value, so the difference from the first row is what the gathers
+    cost;
+  * K8 ``scatter_sorted`` min of ``--winners`` sorted unique ids with the
+    count on the device, in a buffer of v_pad lanes (the shapes of
+    ``chip_smoke.py`` phase 14), and ``index_reduce_`` amin of the same.
+
+Each prints wall and device time a call and the device events, and
+``host``: the median time until a call returns unfenced, over ``--reps``
+calls (the host path alone, the device work being asynchronous). On the
+card it then splits K8's host path: the wrapper, ``_launch`` with the
+arguments ready, and the C entry point alone. On the CPU the profiler
+records no device events, and device prints as "not measured".
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..graph.device import sync, to_device
+from ..io import rmat
+from ..ops import kernels as K
+from ..ops import pull2 as P
+from .profile_value import print_profile, profile_run
+
+
+def _card(device: torch.device) -> str:
+    if device.type != "cuda":
+        return f"{device.type} (no card)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, reps: int, device: torch.device) -> float:
+    """Median time until a call of ``fn`` returns, unfenced, after a
+    warm-up; the device is drained between calls."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        sync(device)
+    return float(np.median(times))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--scale", type=int, default=20)
+    p.add_argument("--edge-factor", type=int, default=32)
+    p.add_argument("--winners", type=int, default=135_241)
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    g = rmat(scale=args.scale, edge_factor=args.edge_factor, seed=1,
+             undirected=True)
+    dg = to_device(g, with_csc=True, device=args.device)
+    dev = dg.device
+    print(f"[profile_pull] rmat n{args.scale} e{args.edge_factor} seed 1, "
+          f"|V|={dg.num_nodes} |E|={dg.num_edges}, on {_card(dev)}")
+    rng = np.random.default_rng(1)
+    vals = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
+    e = dg.num_edges
+    csr = torch.sparse_csr_tensor(dg.csc_offsets, dg.csc_indices[:e],
+                                  torch.ones(e, device=dev),
+                                  size=(dg.v_pad, dg.v_pad))
+    one_source = dataclasses.replace(
+        dg, csc_indices=torch.zeros_like(dg.csc_indices))
+    ids = torch.from_numpy(np.sort(rng.choice(
+        dg.v_pad, min(args.winners, dg.v_pad), replace=False))
+        .astype(np.int32))
+    buf = torch.zeros(dg.v_pad, dtype=torch.int32)
+    buf[:ids.shape[0]] = ids
+    buf = buf.to(dev)
+    wins = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
+    count = torch.tensor(ids.shape[0], dtype=torch.int32, device=dev)
+    dense = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
+    ids_k, wins_k = buf[:ids.shape[0]].long(), wins[:ids.shape[0]]
+    cases = (
+        ("K3 pull_reduce2 sum/none", lambda: P.pull_reduce2(vals, dg)),
+        ("torch.mv (sparse CSR)", lambda: torch.mv(csr, vals)),
+        ("K3 sum/none, every source vertex 0",
+         lambda: P.pull_reduce2(vals, one_source)),
+        (f"K8 scatter_sorted min, {ids.shape[0]} winners of {dg.v_pad}",
+         lambda: K.scatter_sorted(dense, buf, wins, count=count, op="min")),
+        ("index_reduce_ amin, the same winners",
+         lambda: dense.index_reduce_(0, ids_k, wins_k, "amin")),
+    )
+    for name, fn in cases:
+        host = host_ms(fn, args.reps, dev)
+        print_profile("profile_pull", f"{name} (host {host:.4f} ms a call)",
+                      profile_run(fn, args.reps, dev))
+    if dev.type == "cuda":
+        # K8's host path in three cuts: the wrapper, its launch helper
+        # with the arguments ready, and the C entry point alone.
+        from ..ops import _build
+        from ..ops.kernels import _launch
+        lib = _build.load()
+        kargs = (dense.data_ptr(), dense.shape[0], buf.data_ptr(),
+                 wins.data_ptr(), buf.shape[0], count.data_ptr(), 0, 1, 0)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for name, fn in (
+                ("K8 wrapper", lambda: K.scatter_sorted(
+                    dense, buf, wins, count=count, op="min")),
+                ("K8 _launch", lambda: _launch(lib.gr_scatter_sorted, *kargs,
+                                               device=dev)),
+                ("K8 C entry point", lambda: lib.gr_scatter_sorted(
+                    *kargs, stream))):
+            print(f"[profile_pull] host path, {name}: "
+                  f"{host_ms(fn, args.reps, dev):.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

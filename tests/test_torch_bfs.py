@@ -1,7 +1,8 @@
 """BFS in the PyTorch port against the JAX package: labels, iteration
 counts, edge accounting and the per-level push/pull/deep sequence are
-equal, with the deep micro-loop off and at the defaults; predecessors
-are valid and equal the JAX package's. Also the port's CLI, and that
+equal, with the deep micro-loop off, at the defaults and at queue
+sizings that make the JAX package regrow its queues; predecessors are
+valid and equal the JAX package's. Also the port's CLI, and that
 importing the port loads no jax."""
 
 import dataclasses
@@ -41,6 +42,8 @@ GRAPHS = {
     "grid192": lambda m: _grid(m, 192),
     "rmat15": lambda m: m.io.rmat(scale=15, edge_factor=8, seed=42,
                                   undirected=True),
+    "rmat15_e4": lambda m: m.io.rmat(scale=15, edge_factor=4, seed=3,
+                                     undirected=True),
 }
 
 # (graph, src, direction_optimized, alpha): default knobs, and a low
@@ -69,16 +72,19 @@ def _check_preds(g, labels, preds, src):
         assert w in g.col_indices[rows[u]:rows[u + 1]]
 
 
-def _run_both(name, src, do, alpha, **kw):
-    jax.clear_caches()
+def _run_both(name, src, do, alpha, regrows=False, **kw):
+    if not regrows:
+        jax.clear_caches()
     gj, gp = GRAPHS[name](gt), GRAPHS[name](gtt)
     rj = gt.bfs(gj, src, mark_preds=True, direction_optimized=do,
                 alpha=alpha, instrumented=True, **kw)
     rp = gtt.bfs(gp, src, mark_preds=True, direction_optimized=do,
                  alpha=alpha, instrumented=True, device="cpu", **kw)
-    # The port's queues never overflow; compare runs whose JAX queues did
-    # not either (an overflow regrows queue_sizing and so the rungs).
-    assert not rj.info["frontier_overflow"]
+    # Runs that must not regrow: the JAX package's first queue sizing
+    # held, so the comparison is of the sizing the caller gave.
+    if not regrows:
+        assert not rj.info["frontier_overflow"]
+    assert rp.info["frontier_overflow"] == rj.info["frontier_overflow"]
     return gp, rj, rp
 
 
@@ -148,6 +154,55 @@ def test_bfs_defaults_match_jax(case, monkeypatch):
     gp, rj, rp = _run_both(name, src, do, alpha, **kw)
     phases = _assert_same_run(gp, rj, rp, exact_edges="queue_sizing" not in kw)
     assert (phases if isinstance(want, list) else set(phases)) == want
+
+
+# Queue sizings under which the JAX package's first runs overflow, so it
+# reruns them with the sizing doubled (models/bfs.py:773-786); the port
+# must regrow alike, or its rungs and "deep" labels differ (the labels
+# and preds agree either way). Micro-loop at its default: (graph, src,
+# DO, alpha, queue_sizing, the phases expected).
+REGROW_CASES = {
+    "rmat15_ld_0.2": ("rmat15", "largestdegree", False, 15.0, 0.2,
+                      {"deep", "push"}),
+    "rmat15_ld_0.1": ("rmat15", "largestdegree", False, 15.0, 0.1,
+                      {"deep", "push"}),
+    "rmat15_v5_0.2": ("rmat15", 5, False, 15.0, 0.2, {"deep", "push"}),
+    "rmat15_e4_v7_0.15": ("rmat15_e4", 7, False, 15.0, 0.15,
+                          {"deep", "push"}),
+    # DO: the hub's single-source step passes its rung (349 edges, rung
+    # 327; models/bfs.py:121); at 0.04 it leaves 349 vertices past fcap
+    # 128 and no overflow, then pulls
+    "rmat_do_ld_0.02": ("rmat", "largestdegree", True, 0.05, 0.02,
+                        {"push", "pull"}),
+    # DO: at 0.2 the second level's edges pass the rung; at 0.4 that
+    # big-rung push leaves 15340 vertices past fcap 3276 and no overflow
+    # (:185), then pulls
+    "rmat15_do_v5_0.2": ("rmat15", 5, True, 0.0005, 0.2, {"push", "pull"}),
+}
+
+
+@pytest.mark.parametrize("case", list(REGROW_CASES))
+def test_bfs_queue_regrowth_matches_jax(case, monkeypatch):
+    name, src, do, alpha, sizing, want = REGROW_CASES[case]
+    monkeypatch.delenv("GUNROCK_BFS_DEEP", raising=False)
+    # the packages' models/__init__ rebinds "bfs" to the function
+    tried = {}
+    for side in ("gunrock_tpu", "gunrock_tpu_torch"):
+        mod = importlib.import_module(f"{side}.models.bfs")
+        tried[side] = []
+
+        def spy(*a, _inner=mod.bfs_device, _log=tried[side], **kw):
+            _log.append(kw["queue_sizing"])
+            return _inner(*a, **kw)
+        monkeypatch.setattr(mod, "bfs_device", spy)
+    gp, rj, rp = _run_both(name, src, do, alpha, regrows=True,
+                           queue_sizing=sizing)
+    assert tried["gunrock_tpu_torch"] == tried["gunrock_tpu"]
+    assert len(tried["gunrock_tpu"]) > 1, "the JAX run did not regrow"
+    assert not rp.info["frontier_overflow"]
+    phases = _assert_same_run(gp, rj, rp, exact_edges=False)
+    assert rp.info["phase_iterations"] == rj.info["phase_iterations"]
+    assert set(phases) == want
 
 
 def test_micro_round_keeps_the_smallest_source(monkeypatch):

@@ -134,9 +134,9 @@ def test_pull_reduce2_kernel_equals_plain(cuda, op, wmode, weights,
                                           with_init):
     from gunrock_tpu_torch.ops import pull2 as P
     _, g = _value_graph(cuda)
-    # a hub row spans many chunks: the largest in-degree exceeds one
+    # a hub row spans tiles (one of three and more: _tile_graph)
     assert int((g.csc_offsets[1:] - g.csc_offsets[:-1]).max()) > \
-        2 * P.PULL_CHUNK
+        P.PULL_TILE
     vals = torch.rand(g.v_pad, device=cuda)
     init = torch.rand(g.v_pad, device=cuda) if with_init else None
     before = K.LAUNCHES["pull_reduce2"]
@@ -157,13 +157,13 @@ def test_pull_reduce2_kernel_equals_plain(cuda, op, wmode, weights,
 
 @pytest.mark.cuda
 def test_pull_reduce2_kernel_edge_cases(cuda):
-    """No edges; one row holding every edge; rows of exactly one chunk."""
+    """No edges; one row holding every edge; rows of exactly one tile."""
     from gunrock_tpu_torch.ops import pull2 as P
     for src, dst, n in (([], [], 300),
                         (list(range(1, 5000)), [0] * 4999, 5000),
-                        (list(range(2 * P.PULL_CHUNK)),
-                         [1] * P.PULL_CHUNK + [2] * P.PULL_CHUNK,
-                         2 * P.PULL_CHUNK)):
+                        (list(range(2 * P.PULL_TILE)),
+                         [1] * P.PULL_TILE + [2] * P.PULL_TILE,
+                         2 * P.PULL_TILE)):
         g = gtt.to_device(gtt.from_coo(n, np.array(src, np.int64),
                                        np.array(dst, np.int64)),
                           with_csc=True, with_blocked_values=True,
@@ -173,6 +173,80 @@ def test_pull_reduce2_kernel_edge_cases(cuda):
             got = P.pull_reduce2(vals, g, op=op)
             want = P.pull_reduce2_plain(vals, g, op=op)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _tile_graph(cuda, residue):
+    """A directed graph whose CSC puts the edges where K3's tiles are
+    hard: row 2 starts exactly at the second tile; row 2 is a hub of
+    three tiles and more; rows 3-99 and the last 50 rows are empty, and
+    the rest hold 0-3 edges with runs of empty rows between; the edge
+    count is ``residue`` mod 4 (the 16-byte loads' ragged end) and no
+    multiple of the tile. Edge values for the ``val`` weights."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    tile = P.PULL_TILE
+    rng = np.random.default_rng(residue)
+    n = 4 * tile
+    deg = np.zeros(n, np.int64)
+    deg[0], deg[1], deg[2] = tile - 5, 5, 3 * tile + 7
+    body = rng.integers(0, 4, n - 150) * (rng.random(n - 150) < 0.5)
+    deg[100:n - 50] = body
+    deg[100] += (residue - deg.sum()) % 4
+    assert deg.sum() % 4 == residue and deg.sum() % tile
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, dst.shape[0])
+    vals = rng.uniform(0.0, 64.0, dst.shape[0]).astype(np.float32)
+    g = gtt.from_coo(n, src, dst, vals, remove_self_loops=False, dedup=False)
+    dg = gtt.to_device(g, with_csc=True, with_edge_values=True,
+                       with_blocked_values=True, device=cuda)
+    assert dg.num_edges == deg.sum()
+    assert int(dg.csc_offsets[2]) == tile
+    return dg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residue", [1, 2, 3])
+@pytest.mark.parametrize("op,wmode,weights,with_init", PULL_MODES)
+def test_pull_reduce2_kernel_tile_edges(cuda, residue, op, wmode, weights,
+                                        with_init):
+    """K3 at its tile's edge cases (see _tile_graph), every mode: bitwise
+    equal over two launches, min exact, sums within rtol 1e-5 of the
+    float64-summing plain version."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g = _tile_graph(cuda, residue)
+    vals = torch.rand(g.v_pad, device=cuda)
+    init = torch.rand(g.v_pad, device=cuda) if with_init else None
+    kw = dict(op=op, wmode=wmode, init=init, weights=weights)
+    got = P.pull_reduce2(vals, g, **kw)
+    again = P.pull_reduce2(vals, g, **kw)
+    want = P.pull_reduce2_plain(vals, g, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if op == "min":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residue", [1, 3])
+def test_pull_passes_on_tile_edges_equal_plain(cuda, residue):
+    """K4 and K6, which run K3's pass, on the tile edge-case graph."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g = _tile_graph(cuda, residue)
+    n = g.num_nodes
+    start = torch.full((g.v_pad,), 1.0 / n, device=cuda)
+    kw = dict(iters=3, damping=0.85, reset=0.15 / n, threshold=1e-6,
+              weights="val")
+    rank, chg = P.pull_power_iters(g, start, **kw)
+    want, want_chg = P.pull_power_iters_plain(g, start, **kw)
+    init = torch.full((g.v_pad,), float("inf"), device=cuda)
+    init[:8] = 0.0
+    dist, dchg = P.pull_min_sweeps(g, init, sweeps=4)
+    wdist, wdchg = P.pull_min_sweeps_plain(g, init, sweeps=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rank, want, rtol=1e-4, atol=1e-9)
+    assert torch.equal(chg, want_chg)
+    assert torch.equal(dist, wdist) and torch.equal(dchg, wdchg)
 
 
 @pytest.mark.cuda
@@ -297,7 +371,12 @@ def test_reduce_by_dst_sorted_kernel_equals_plain(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["min", "max", "add", "set"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_scatter_sorted_kernel_equals_plain(cuda, op, dtype):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_scatter_sorted_kernel_equals_plain(cuda, op, dtype, offset):
+    """Counts on the host and on the device: all lanes, far fewer than
+    the buffer (the grid strides over the live lanes only), none, one
+    not a multiple of 4 and more than the buffer. ``offset`` 1 starts
+    ids and vals 4 bytes past a 16-byte boundary (no vector loads)."""
     n = 1 << 20
     ids = torch.unique(torch.randint(0, n + 100, (300_000,), device=cuda,
                                      dtype=torch.int32))
@@ -309,8 +388,14 @@ def test_scatter_sorted_kernel_equals_plain(cuda, op, dtype):
                              dtype=torch.int32)
         dense = torch.randint(-100, 100, (n,), device=cuda,
                               dtype=torch.int32)
-    for count in (None, 1234, torch.tensor(5000, dtype=torch.int32,
-                                           device=cuda), 0):
+    ids, vals = ids[offset:], vals[offset:]
+    m = ids.shape[0]
+
+    def dev(c):
+        return torch.tensor(c, dtype=torch.int32, device=cuda)
+
+    for count in (None, 1234, dev(5000), 0, dev(0), dev(4097), m + 10,
+                  dev(m + 10)):
         before = K.LAUNCHES["scatter_sorted"]
         got = K.scatter_sorted(dense.clone(), ids, vals, count=count, op=op)
         want = K.scatter_sorted_plain(dense.clone(), ids, vals,

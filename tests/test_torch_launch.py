@@ -1,0 +1,173 @@
+"""The ctypes launch path of the port's CUDA kernels, checked on the CPU:
+the C entry points in ``gunrock_tpu_torch/csrc`` take the parameters
+``_build.SIGNATURES`` gives ctypes, and every wrapper hands its entry
+point arguments of those kinds, in that number, and counts one launch.
+A wrong count or kind would pass a pointer where an int is read, which
+only a run on the card would show."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import gunrock_tpu_torch as gtt
+from gunrock_tpu_torch.ops import _build
+from gunrock_tpu_torch.ops import kernels as K
+from gunrock_tpu_torch.ops import pull2 as P
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "gunrock_tpu_torch", "csrc")
+_KINDS = {"void*": "p", "int64_t": "q", "int": "i", "float": "f"}
+
+
+def _c_signatures() -> dict:
+    """name -> parameter letters of every ``int gr_*(...)`` definition."""
+    out = {}
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name)) as f:
+            src = f.read()
+        for fn, params in re.findall(r"\nint (gr_\w+)\(([^)]*)\)\s*\{", src):
+            kinds = []
+            for param in params.split(","):
+                words = param.replace("const ", "").split()
+                kinds.append(_KINDS["".join(words[:-1])])
+            out[fn] = "".join(kinds)
+    return out
+
+
+def test_c_entry_points_match_ctypes_signatures():
+    got = _c_signatures()
+    assert got == _build.SIGNATURES
+    # every entry point takes the stream last
+    assert all(sig.endswith("p") for sig in got.values())
+
+
+class _Lib:
+    """Stands in for the loaded library: each attribute is a named stub."""
+
+    def __getattr__(self, name):
+        def stub(*args):
+            raise AssertionError("called outside _launch")
+        stub.__name__ = name
+        return stub
+
+
+@pytest.fixture
+def dry_launch(monkeypatch):
+    """Route CPU tensors to the kernel wrappers and record each launch
+    as (entry point, arguments without the stream)."""
+    calls = []
+
+    def launch(fn, *args, device):
+        assert isinstance(device, torch.device)
+        calls.append((fn.__name__, args))
+
+    for mod in (K, P):
+        monkeypatch.setattr(mod, "_route", lambda *t: True)
+        monkeypatch.setattr(mod, "_launch", launch)
+    monkeypatch.setattr(_build, "load", lambda: _Lib())
+    return calls
+
+
+def _graph():
+    g = gtt.io.rmat(scale=8, edge_factor=4, seed=3, undirected=True)
+    g.random_edge_values(seed=3)
+    return gtt.to_device(g, with_csc=True, with_edge_values=True,
+                         with_edge_src=True, device="cpu")
+
+
+def _wrapper_calls(name, g):
+    f32 = torch.rand(g.v_pad)
+    i32 = torch.arange(100, dtype=torch.int32)
+    words = K.pack_bitmask(f32 > 0.5)
+    return {
+        "pull_reached_words": lambda: K.pull_reached_words(words, g),
+        "bitmask_gather": lambda: K.bitmask_gather(words, i32),
+        "bitmask_gather_cumsum": lambda: K.bitmask_gather_cumsum(words, i32),
+        "pull_reduce2": lambda: P.pull_reduce2(f32, g, op="min",
+                                               wmode="add", init=f32),
+        "pull_reduce2_wpr": lambda: P.pull_reduce2(f32, g, wmode="mul",
+                                                   weights="wpr"),
+        "pull_power_iters": lambda: P.pull_power_iters(
+            g, f32, iters=3, damping=0.85, reset=0.1),
+        "pull_min_sweeps": lambda: P.pull_min_sweeps(g, f32, sweeps=2),
+        "brandes_fwd_levels": lambda: P.brandes_fwd_levels(g, f32, f32,
+                                                           d0=1, levels=2),
+        "brandes_bwd_levels": lambda: P.brandes_bwd_levels(
+            g, f32, f32, f32, t0=3, levels=2),
+        "sample_sorted": lambda: K.sample_sorted(f32, i32),
+        "sample_sorted2": lambda: K.sample_sorted2(i32, i32, i32.long()),
+        "reduce_by_dst_sorted": lambda: K.reduce_by_dst_sorted(
+            i32, torch.rand(100), out_lanes=50),
+        "scatter_sorted": lambda: K.scatter_sorted(
+            f32, i32, torch.rand(100),
+            count=torch.tensor(7, dtype=torch.int32)),
+    }[name]
+
+
+# wrapper -> (entry point, LAUNCHES key)
+WRAPPERS = {
+    "pull_reached_words": ("gr_pull_reached_words", "pull_reached_words"),
+    "bitmask_gather": ("gr_bitmask_gather", "bitmask_gather"),
+    "bitmask_gather_cumsum": ("gr_bitmask_gather_cumsum",
+                              "bitmask_gather_cumsum"),
+    "pull_reduce2": ("gr_pull_reduce", "pull_reduce2"),
+    "pull_reduce2_wpr": ("gr_pull_reduce", "pull_reduce2"),
+    "pull_power_iters": ("gr_pull_power_iters", "pull_power_iters"),
+    "pull_min_sweeps": ("gr_pull_min_sweeps", "pull_min_sweeps"),
+    "brandes_fwd_levels": ("gr_brandes_levels", "brandes_levels"),
+    "brandes_bwd_levels": ("gr_brandes_levels", "brandes_levels"),
+    "sample_sorted": ("gr_sample_sorted", "sample_sorted"),
+    "sample_sorted2": ("gr_sample_sorted", "sample_sorted2"),
+    "reduce_by_dst_sorted": ("gr_reduce_by_dst_sorted",
+                             "reduce_by_dst_sorted"),
+    "scatter_sorted": ("gr_scatter_sorted", "scatter_sorted"),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(WRAPPERS))
+def test_wrapper_passes_its_c_signature(wrapper, dry_launch):
+    entry, key = WRAPPERS[wrapper]
+    before = K.LAUNCHES[key]
+    _wrapper_calls(wrapper, _graph())()
+    assert K.LAUNCHES[key] == before + 1
+    assert [c[0] for c in dry_launch] == [entry]
+    args = dry_launch[0][1]
+    sig = _build.SIGNATURES[entry][:-1]          # the stream comes last
+    assert len(args) == len(sig)
+    for i, (kind, arg) in enumerate(zip(sig, args)):
+        want = float if kind == "f" else int
+        assert type(arg) is want, (i, kind, arg)
+
+
+def test_pull_scratch_fits_the_tiles():
+    """K3's scratch: one tile row a tile and one past the last, per-row
+    totals and value table of v_pad, head and tail partials a tile, 4
+    bytes a slot, back to back in one buffer."""
+    g = _graph()
+    ntiles = -(-g.num_edges // P.PULL_TILE)
+    buf, ptrs = P._scratch(g, torch.device("cpu"))
+    sizes = [ntiles + 1, g.v_pad, ntiles, ntiles, g.v_pad]
+    assert buf.element_size() == 4 and buf.numel() == sum(sizes)
+    assert ptrs == [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(5)]
+    empty = gtt.to_device(gtt.from_coo(300, np.zeros(0, np.int64),
+                                       np.zeros(0, np.int64)),
+                          with_csc=True, device="cpu")
+    assert P._scratch(empty, torch.device("cpu"))[0].numel() == \
+        1 + 2 * empty.v_pad
+
+
+def test_profile_pull_tool_runs_on_cpu(capsys):
+    """The profiling script's code path at a tiny size; on the CPU the
+    profiler records no device events, and it says so."""
+    from gunrock_tpu_torch.tools import profile_pull
+    assert profile_pull.main(["--scale=8", "--edge-factor=4",
+                              "--winners=50", "--reps=2",
+                              "--device=cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 6 and "|E|=" in lines[0]
+    for line in lines[1:]:
+        assert "(host " in line and "device not measured" in line, line
+    assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
