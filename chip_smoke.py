@@ -64,9 +64,11 @@ script exits non-zero:
     non-DO BFS on the flagship (the sweep route converges), labels equal
     phase 3's.
 14. K5-K8 against their plain versions at the shapes of the path's
-    largest push round (K6 at 6 sweeps from the source): exact, K7's sum
-    within rtol 1e-6 and bitwise over two launches. Median times; for K8
-    and ``index_reduce_`` also the device time a call.
+    largest push round (K6 at 6 sweeps from the source, add, incr and
+    none): exact, K7's sum within rtol 1e-6 and bitwise over two
+    launches. Median times; for K8 and ``index_reduce_`` also the device
+    time a call. K6's tiles reduced and active edges a sweep, by its skip
+    rule, and its bound over those edges beside the full-sweep one.
 15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
     near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
 
@@ -84,8 +86,11 @@ script exits non-zero:
     printed. Then ``GUNROCK_CC_SWEEPS=1`` (K6), components equal.
 19. K9 against its plain version at the flagship's shapes: every forward
     level in calls of 8, then every backward ring; labels and counts
-    exact, sigma and delta within rtol 1e-4 of the float64-summing plain
-    version and bitwise equal over two launches. Median times.
+    exact, sigma and delta within rtol 1e-5 of the float64-summing plain
+    version, bitwise equal over two launches and to K9's composition from
+    K3 (``pull_reduce2`` over the gated values, the epilogue in torch).
+    Each level's tiles pass 1 reduces and active edges by K9's skip rules
+    (csrc/pull_kernels.cu). Median times.
 20. Timing, best of 5 after a warm-up: BC (kernel C, hybrid, fused), CC
     (hooking, sweeps) on the flagship; ms and MTEPS in ``bench_all.py``'s
     accounting (BC 2E, CC E, per ms).
@@ -148,11 +153,11 @@ def bound(nbytes: float, flops: float = 0.0) -> dict:
     """``bound_ms`` and ``bound_by`` of a kernel: the larger of its bytes
     (each input read once, each output written once) over the memory rate
     and its float32 operations over the peak rate. A kernel whose rounds
-    each read the whole graph (K4, K6) is counted a round at a time, as
-    its plain version and a library call would run them; K9's levels
-    only need the edges of one depth each, so a phase counts the
-    reached edges once. Integer and bit operations are left out (at
-    most one per 4 bytes moved)."""
+    each read the whole graph (K4) is counted a round at a time, as its
+    plain version and a library call would run them; K6's sweeps only
+    need the edges of their active sources, and K9's levels those of one
+    depth each, so a K9 phase counts the reached edges once. Integer and
+    bit operations are left out (at most one per 4 bytes moved)."""
     b_ms = nbytes / HBM_RATE * 1e3
     o_ms = flops / FP32_RATE * 1e3
     return {"bound_ms": max(b_ms, o_ms),
@@ -167,6 +172,46 @@ def pull_bytes(num_edges: int, v_pad: int, vectors: int,
     (v_pad,) arrays read or written (the values, the offsets, the
     output, ...)."""
     return 4 * edge_streams * num_edges + 4 * vectors * v_pad
+
+
+def num_tiles(dg) -> int:
+    from gunrock_tpu_torch.ops.pull2 import PULL_TILE
+    return -(-dg.num_edges // PULL_TILE)
+
+
+def tile_activity(dg, active, live_rows=None) -> tuple[int, int, int]:
+    """(tiles pass 1 reduces, live tiles, active edges) of a gated pull,
+    by the rules of csrc/pull_kernels.cu: an edge is active when its
+    source's group (``group_size(v_pad)`` consecutive vertices) holds a
+    vertex of ``active``; with ``live_rows`` (K9) a tile is live when it
+    holds an edge into one of them (else it is skipped before its loads),
+    without every tile is; a live tile is reduced when it holds an active
+    edge; the active edges counted lie in live tiles."""
+    import torch
+    from gunrock_tpu_torch.ops.pull2 import PULL_TILE, group_size
+    e, n = dg.num_edges, num_tiles(dg)
+    group = torch.arange(dg.v_pad, device=active.device) // group_size(
+        dg.v_pad)
+    hit = torch.zeros(int(group[-1]) + 1, dtype=torch.bool,
+                      device=active.device)
+    hit[group[active]] = True
+    active = hit[group]
+
+    def per_tile(edge_flags):
+        padded = torch.zeros(n * PULL_TILE, dtype=torch.bool,
+                             device=edge_flags.device)
+        padded[:e] = edge_flags
+        return padded.view(n, PULL_TILE).any(1)
+
+    on = active[dg.csc_indices[:e].long()]
+    live = n
+    if live_rows is not None:
+        deg = dg.csc_offsets[1:] - dg.csc_offsets[:-1]
+        tile_live = per_tile(torch.repeat_interleave(live_rows, deg,
+                                                     output_size=e))
+        live = int(tile_live.sum())
+        on &= tile_live.repeat_interleave(PULL_TILE)[:e]
+    return int(per_tile(on).sum()), live, int(on.sum())
 
 
 def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
@@ -840,27 +885,50 @@ def phase_sssp_kernels(dg, src, dist, dev):
           f"index_reduce_ "
           f"{_fmt_ms(out['scatter_sorted']['library_device_ms'])}")
 
-    # K6: SWEEPS sweeps from the source, add/val and incr.
+    # K6: SWEEPS sweeps from the source, add/val and incr; none from
+    # every vertex's own id (CC's labels).
     init = torch.full((dg.v_pad,), float("inf"), device=dev)
     init[src] = 0.0
-    for wmode in ("add", "incr"):
-        got, chg = P.pull_min_sweeps(dg, init, sweeps=SWEEPS, wmode=wmode)
-        want, wchg = P.pull_min_sweeps_plain(dg, init, sweeps=SWEEPS,
+    ids = torch.arange(dg.v_pad, device=dev, dtype=torch.float32)
+    for wmode, start in (("add", init), ("incr", init), ("none", ids)):
+        got, chg = P.pull_min_sweeps(dg, start, sweeps=SWEEPS, wmode=wmode)
+        want, wchg = P.pull_min_sweeps_plain(dg, start, sweeps=SWEEPS,
                                              wmode=wmode)
         torch.cuda.synchronize()
         if not (torch.equal(got, want) and torch.equal(chg, wchg)):
             raise AssertionError(f"K6 {wmode} differs from its plain version")
         print(f"[kernels] K6 {wmode}: distances and change counts equal "
               f"{chg.tolist()}")
+    # The active sources of each sweep (not +inf at the call's start, then
+    # lowered by the previous sweep), from the plain sweeps: the edges the
+    # kernel reads by its group rule, and those of the sources alone.
+    source_edges = []
+    d = init
+    active = d != float("inf")
+    srcs = dg.csc_indices[:dg.num_edges].long()
+    for r in range(SWEEPS):
+        tiles, _, edges = tile_activity(dg, active)
+        source_edges.append(int(active[srcs].sum()))
+        fresh, _ = P.pull_min_sweeps_plain(dg, d, sweeps=1)
+        print(f"[kernels] K6 add sweep {r}: pass 1 reduced {tiles} of "
+              f"{num_tiles(dg)} tiles; {edges} active edges of "
+              f"{dg.num_edges} ({source_edges[-1]} of active sources)")
+        active, d = fresh < d, fresh
+    full = bound(SWEEPS * pull_bytes(dg.num_edges, dg.v_pad, 3, 2),
+                 SWEEPS * 2 * dg.num_edges)
+    # a sweep: index and weight of each active source's edge; values,
+    # offsets and output vectors; an add and a min an edge
+    work = bound(sum(8 * e + 12 * dg.v_pad for e in source_edges),
+                 sum(2 * e for e in source_edges))
+    print(f"[kernels] K6 bound over the active edges "
+          f"{work['bound_ms']:.4f} ms; every edge every sweep "
+          f"{full['bound_ms']:.4f} ms")
     report("pull_min_sweeps", 0.0,
            _median_ms(lambda: P.pull_min_sweeps(dg, init, sweeps=SWEEPS)),
            _median_ms(lambda: P.pull_min_sweeps_plain(dg, init,
                                                       sweeps=SWEEPS), reps=5),
            f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)",
-           # a sweep: indices and weights an edge; values, offsets and
-           # output vectors; an add and a min an edge
-           bound(SWEEPS * pull_bytes(dg.num_edges, dg.v_pad, 3, 2),
-                 SWEEPS * 2 * dg.num_edges))
+           work)
     return out
 
 
@@ -1034,11 +1102,15 @@ def phase_cc(gtt, g, dev):
 def phase_bc_kernels(dg, src, dev):
     """Phase 19: K9 against its plain version at the flagship's shapes,
     one whole BC source as the kernel-C route runs it: every forward
-    level in calls of BC_LEVELS, then every backward ring. Returns K9's
-    JSON fields."""
+    level in calls of BC_LEVELS, then every backward ring; and against
+    its composition from K3 (``pull_reduce2`` sum/none over the gated
+    values, then the epilogue in torch), which it equals bit for bit.
+    Prints each level's tiles and active edges by K9's rules. Returns
+    K9's JSON fields."""
     import torch
     from gunrock_tpu_torch.ops import pull2 as P
-    lab0 = torch.full((dg.v_pad,), float("inf"), device=dev)
+    inf = float("inf")
+    lab0 = torch.full((dg.v_pad,), inf, device=dev)
     lab0[src] = 0.0
     sig0 = torch.zeros(dg.v_pad, device=dev)
     sig0[src] = 1.0
@@ -1060,31 +1132,65 @@ def phase_bc_kernels(dg, src, dev):
             counts.append(ring)
         return lab, sig, delta, torch.cat(counts)
 
+    levels_seen = []
+
+    def k3_fwd(g, lab, sig, *, d0, levels):
+        counts = []
+        for d in range(d0, d0 + levels):
+            gated = torch.where(lab == float(d - 1), sig, 0.0)
+            open_ = lab == inf
+            levels_seen.append((f"forward {d}",
+                                tile_activity(g, gated != 0, open_)))
+            acc = P.pull_reduce2(gated, g)
+            sig = torch.where(open_, sig + acc, sig)
+            new = open_ & (sig > 0)
+            lab = torch.where(new, float(d), lab)
+            counts.append(new.sum())
+        return lab, sig, torch.stack(counts).to(torch.int32)
+
+    def k3_bwd(g, lab, sig, delta, *, t0, levels):
+        counts = []
+        for t in range(t0, t0 - levels, -1):
+            gated = torch.where(lab == float(t + 1),
+                                (1.0 + delta) / sig.clamp(min=1e-30), 0.0)
+            ring = lab == float(t)
+            levels_seen.append((f"backward {t}",
+                                tile_activity(g, gated != 0, ring)))
+            acc = P.pull_reduce2(gated, g)
+            delta = torch.where(ring, sig * (delta + acc), delta)
+            counts.append(ring.sum())
+        return delta, torch.stack(counts).to(torch.int32)
+
     got = brandes(P.brandes_fwd_levels, P.brandes_bwd_levels)
     again = brandes(P.brandes_fwd_levels, P.brandes_bwd_levels)
+    composed = brandes(k3_fwd, k3_bwd)
     want = brandes(P.brandes_fwd_levels_plain, P.brandes_bwd_levels_plain)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("K9: two launches differ")
+    if not all(torch.equal(a, b) for a, b in zip(got, composed)):
+        raise AssertionError("K9 differs from its composition from K3")
     if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
         raise AssertionError("K9 labels or counts differ from the plain "
                              "version's")
+    for name, (tiles, live, edges) in levels_seen:
+        print(f"[kernels] K9 {name}: pass 1 reduced {tiles} of "
+              f"{num_tiles(dg)} tiles ({live} live); {edges} active edges")
     errs = []
     for name, i in (("sigma", 1), ("delta", 2)):
         abs_err, rel_err = _errs(got[i], want[i])
         errs.append(abs_err)
         bad = int(((got[i] - want[i]).abs()
-                   > 1e-4 * want[i].abs() + 1e-6).sum())
+                   > 1e-5 * want[i].abs() + 1e-6).sum())
         print(f"[kernels] K9 {name}: max abs err {abs_err:.3e}, max rel err "
-              f"{rel_err:.3e} (rtol 1e-4, atol 1e-6), {bad} outside")
+              f"{rel_err:.3e} (rtol 1e-5, atol 1e-6), {bad} outside")
         if bad:
             raise AssertionError(f"K9 {name} differs from its plain version")
     levels = got[3].shape[0]
     # What this source needs: each phase reads the in-edges of the reached
     # vertices once (an index and an add each) and lab, sig and delta in
-    # and out once; K9 streams every edge on every level it runs.
-    reached = int(torch.where(got[0] < float("inf"), dg.out_degrees(),
-                              0).sum())
+    # and out once.
+    reached = int(torch.where(got[0] < inf, dg.out_degrees(), 0).sum())
     work = bound(2 * (4 * reached + 16 * dg.v_pad), 2 * reached)
     ms = _median_ms(lambda: brandes(P.brandes_fwd_levels,
                                     P.brandes_bwd_levels))
@@ -1092,9 +1198,9 @@ def phase_bc_kernels(dg, src, dev):
                                        P.brandes_bwd_levels_plain), reps=3)
     print(f"[kernels] K9 brandes_levels: {levels} levels (counts "
           f"{got[3].tolist()}), labels and counts exact, bitwise over two "
-          f"launches; one source {ms:.4f} ms vs plain {plain:.4f} ms; "
-          f"bound {work['bound_ms']:.4f} ms ({reached} reached edges a "
-          f"phase)")
+          f"launches and equal to K3's composition; one source {ms:.4f} ms "
+          f"vs plain {plain:.4f} ms; bound {work['bound_ms']:.4f} ms "
+          f"({reached} reached edges a phase)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
             "library_ms": None, **work}
 

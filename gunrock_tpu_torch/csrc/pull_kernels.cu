@@ -84,20 +84,85 @@
 //
 // K9 runs `levels` Brandes levels from one host call, three kernels a
 // level on one stream. Forward level d: a V-wide gate writes gated[u] =
-// sig[u] where lab[u] == d - 1, else 0; K3's pass 1 sums gated over the
-// CSC; the finish adds each undiscovered row's total into sig and labels
-// it d where sig > 0. Backward ring t: the gate writes (1 + delta[v]) /
+// sig[u] where lab[u] == d - 1, else 0; pass 1 sums gated over the CSC;
+// the finish adds each undiscovered row's total into sig and labels it d
+// where sig > 0. Backward ring t: the gate writes (1 + delta[v]) /
 // max(sig[v], 1e-30) where lab[v] == t + 1; the finish sets delta[u] =
 // sig[u] * (delta[u] + total) where lab[u] == t. Pulls reduce over
 // in-edges, so the backward ring needs a symmetric edge set, as on the
 // TPU. lab is float32 depth (+inf unreached): exact below 2^24 levels.
-// The TPU kernel keeps lab, sig and delta in VMEM across levels and skips
-// vertex groups with no nonzero gated entry; here they stay in HBM (12 MB
-// at 2^20 vertices, mostly L2-resident) and every level streams every
-// edge. Bound on the H100: a level streams csc_indices (243 MB at rmat
-// n20 e32, 0.072 ms at 3.35 TB/s) plus V-wide passes of about 20 MB.
-// Skipping quiet tiles, as the TPU kernel does, is the next lever: a
-// scale-free traversal's tail levels gate almost nothing.
+// lab, sig and delta stay in HBM (12 MB at 2^20 vertices, mostly
+// L2-resident), where the TPU kernel keeps them in VMEM.
+//
+// Activity gating (K6 and K9; the TPU kernels skip the vertex groups
+// whose sources did not change, gunrock_tpu/ops/pull2.py:312-313, :384-389
+// and :886-889). A round marks which groups of 2^gshift consecutive
+// source vertices are active, one bit a group in kGroupWords words (1024
+// groups, of 1024 vertices at 2^20), and every warp of pass 1 holds them
+// in its registers, word i in lane i. After its index load and the
+// starts walk, an edge's test is a shuffle and a shift; an edge whose
+// group is inactive gathers nothing and contributes the identity. Why
+// groups and not a bit a vertex: measured on the H100 (PERF.md), a bit a
+// vertex in L1 (128 KB at 2^20) costs each edge a random L1 access, as
+// much as the gather it saves: a dense K6 sweep took 0.51 ms against the
+// ungated pass's 0.35, and with the bits read from L2 three times that.
+// The shuffle costs a dense sweep about 1.5%. Reading a whole group when
+// one of its vertices is active keeps every rule below exact: the extra
+// edges add only terms the ungated pass takes too. The writers (K6's seed
+// pass and finish, K9's gate) set a group's bit with one atomicOr a warp
+// whose rows hold an active vertex; round r reads one half of a two-round
+// buffer while block 0 of its pass 1 clears the other half for round
+// r + 1.
+//
+// A block-wide vote at the barrier before the scan finds the tiles with
+// no active edge ("quiet"): such a tile has issued no gather and skips
+// the scan and the emits, writes the identity to its head and tail
+// partials and marks itself quiet in tmark, and pass 2 reads the identity
+// for a row that lies in one quiet tile (its rowval is stale: the scratch
+// is reused across rounds and never cleared). The test comes after the
+// starts walk and the vote after the gathers: a vote before the walk,
+// which also skipped a quiet tile's walk, put the index and bit loads
+// ahead of the walk's loads in every tile and made a dense K6 sweep 23%
+// slower. tmark is zeroed once a host call; round r marks a live tile
+// 2r + 2 and a quiet one 2r + 3, so no mark of an earlier round or call
+// is read as this round's. The gate state is a kernel argument of its
+// own and the gating a template parameter, so K3's and K4's pass
+// compiles as before (its instructions differ only in order).
+//
+// K6's rule. Sweep r maps d_r to d_{r+1}[v] = min(d_r[v], min over (u, v)
+// of f(d_r[u], w)), f one of none, add, incr (weights finite). Source u
+// is active in sweep 0 of a call when d_0[u] != +inf (the seed pass), and
+// in sweep r > 0 when sweep r - 1 lowered it (the finish sets the groups
+// of the rows that moved). Claim: for an inactive u and every edge
+// (u, v), f(d_r[u], w) >= d_r[v], so dropping the edge leaves
+// min(d_r[v], ...) and the change count equal bit for bit (values and
+// weights carry no -0.0). By induction over r: in sweep 0, f(+inf, w) =
+// +inf. In sweep r > 0, u was not lowered, so d_r[u] = d_{r-1}[u]; if u
+// was read in sweep r - 1, that sweep took f(d_{r-1}[u], w) into d_r[v];
+// if not, it was inactive, and the claim for r - 1 gives f(d_{r-1}[u], w)
+// >= d_{r-1}[v] >= d_r[v]. The first sweep from one seed gathers only its
+// group's edges.
+//
+// K9's rules. (1) A group is active when one of its vertices has gated
+// != 0. Every other gated value is exactly +0.0 and every partial is a
+// sum of non-negative floats, so leaving an addend out and adding the
+// identity +0.0 are the same bits: the sums equal the ungated pass's,
+// i.e. K3 sum/none over gated. (2) Only live rows read a total: forward
+// the open rows (lab == +inf), backward the ring rows (lab == t). The gate
+// marks the tiles of every live row with in-edges live; pass 1 leaves
+// every other tile at once, before loading an index. Every tile a live
+// row spans is live, so no total it reads comes from a skipped tile.
+// Levels past the frontier and the deep and shallow rings then cost
+// their two V-wide passes.
+//
+// Bound on the H100, gated: the indices and weights of the active
+// sources' edges and the V-wide passes (gate or seed, finish: about 20
+// MB at 2^20 vertices). What holds it: every live tile still streams its
+// indices and walks its starts (K3's pass with every gather hitting L1
+// takes 0.23 ms at rmat n20 e32), one source's out-edges reach most
+// tiles of a scale-free graph, and in a sweep that lowered most vertices
+// every group is active, so it costs a full pass. Only the live-tile
+// skip (K9) removes whole tiles.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (or
@@ -105,6 +170,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
@@ -116,6 +182,10 @@ constexpr int kTile = kThreads * kItems;    // edges a block in pass 1
 constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxBlocks = 1 << 16;
 constexpr unsigned kFull = 0xffffffffu;
+// The gated passes' source groups: kGroupWords words of bits, one word a
+// lane of a warp, each bit 2^gshift consecutive vertices.
+constexpr int kGroupWords = 32;
+constexpr int64_t kGroups = 32 * kGroupWords;
 
 // Reduction and edge function codes, shared with ops/pull2.py.
 enum Op : int { kSum = 0, kMin = 1 };
@@ -123,6 +193,9 @@ enum Fn : int { kNone = 0, kAdd = 1, kMul = 2, kIncr = 3 };
 // Weight streams: none, one per CSC edge ("val"), one per source
 // vertex gathered by csc_indices ("wpr", 1/out-degree).
 enum Weights : int { kNoWeights = 0, kPerEdge = 1, kPerSource = 2 };
+// Gating of pass 1 and pass 2 (see the file comment): none (K3, K4),
+// source bits (K6), source bits and live tiles (K9).
+enum Gate : int { kUngated = 0, kSources = 1, kLiveTiles = 2 };
 
 struct PullArgs {
   const float* values;
@@ -138,6 +211,15 @@ struct PullArgs {
   float* head;              // (ntiles,) scratch
   float* tail;              // (ntiles,) scratch
   float* vscratch;          // (rows,) scratch: folded per-source values
+};
+
+// A round of a gated pass (K6, K9).
+struct GateArgs {
+  uint32_t* groups;         // (kGroupWords,) this round's active groups
+  uint32_t* next_groups;    // (kGroupWords,) the next round's
+  int gshift;               // a group is 2^gshift vertices
+  int32_t* tmark;           // (ntiles,) live and quiet marks
+  int32_t live_mark, quiet_mark;  // this round's
 };
 
 __host__ __device__ __forceinline__ int64_t num_tiles(int64_t num_edges) {
@@ -196,9 +278,21 @@ __device__ __forceinline__ void emit(const PullArgs& a, int64_t t,
   if (last) a.tail[t] = val;
 }
 
+// Whether edge k of a thread reads its source: always ungated, else when
+// bit k of the thread's activity word is set.
+template <int G>
+__device__ __forceinline__ bool on(unsigned act, int k) {
+  if constexpr (G == kUngated) {
+    return true;
+  } else {
+    return (act >> k) & 1u;
+  }
+}
+
 // Pass 1: per-tile segmented reduction (see the file comment).
-__global__ void __launch_bounds__(kThreads)
-pull_tiles_kernel(PullArgs a) {
+template <int G>
+__device__ __forceinline__ void pull_tiles(const PullArgs& a,
+                                           const GateArgs& g) {
   __shared__ __align__(16) int32_t starts[kTile];  // row starting here, or -1
   __shared__ float warp_val[kWarps];
   __shared__ int32_t warp_flag[kWarps];
@@ -213,16 +307,27 @@ pull_tiles_kernel(PullArgs a) {
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(a.indices) |
         (per_edge ? reinterpret_cast<uintptr_t>(a.weights) : 0)) & 15) == 0;
+  // Gated: lane i holds word i of this round's group bits; block 0 clears
+  // the next round's, which nothing reads in this round.
+  uint32_t gword = 0;
+  if constexpr (G != kUngated) {
+    gword = __ldg(g.groups + lane);
+    if (blockIdx.x == 0 && tid < kGroupWords) g.next_groups[tid] = 0u;
+  }
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    if constexpr (G == kLiveTiles) {
+      if (g.tmark[t] != g.live_mark) continue;  // no live row reads it
+    }
     const int64_t lo = t * kTile;
     const int len = (int)(a.num_edges - lo < kTile ? a.num_edges - lo : kTile);
     const int n = len - p0 < 0 ? 0 : (len - p0 < kItems ? len - p0 : kItems);
+    const bool whole = n == kItems && aligned;
     // This thread's sources and weights, 16 bytes a load.
     int32_t src[kItems];
     float w[kItems];
 #pragma unroll
     for (int k = 0; k < kItems; ++k) w[k] = 0.0f;
-    if (n == kItems && aligned) {
+    if (whole) {
       const int4* ip = reinterpret_cast<const int4*>(a.indices + lo + p0);
       const float4* wp = reinterpret_cast<const float4*>(a.weights + lo + p0);
 #pragma unroll
@@ -263,13 +368,40 @@ pull_tiles_kernel(PullArgs a) {
         starts[s - lo] = (int32_t)r;
       }
     }
+    // Gated: bit k set when edge k's source is active. Tested after the
+    // starts walk, so that the walk's loads go out with the index loads
+    // as in the ungated pass (a warp issues in order, and a bit's address
+    // waits for its index).
+    unsigned act = 0;
+    if constexpr (G != kUngated) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int grp = src[k] >> g.gshift;
+        const uint32_t word = __shfl_sync(kFull, gword, grp >> 5);
+        act |= (k < n ? (word >> (grp & 31)) & 1u : 0u) << k;
+      }
+    }
     // All gathers in flight before any is used.
     float x[kItems];
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      x[k] = k < n ? __ldg(a.values + src[k]) : ident;
+      x[k] = k < n && on<G>(act, k) ? __ldg(a.values + src[k]) : ident;
     }
-    __syncthreads();
+    if constexpr (G == kUngated) {
+      __syncthreads();
+    } else {
+      // The vote, at the barrier the scan needs anyway: a quiet tile
+      // leaves identity head and tail partials and its mark, and skips
+      // the scan and the emits.
+      if (!__syncthreads_or(act != 0)) {
+        if (tid == 0) {
+          a.head[t] = ident;
+          a.tail[t] = ident;
+          g.tmark[t] = g.quiet_mark;
+        }
+        continue;
+      }
+    }
     int32_t st[kItems];
 #pragma unroll
     for (int q = 0; q < kItems / 4; ++q) {
@@ -288,7 +420,7 @@ pull_tiles_kernel(PullArgs a) {
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       if (k < n) {
-        x[k] = apply_fn(a.fn, x[k], w[k]);
+        if (on<G>(act, k)) x[k] = apply_fn(a.fn, x[k], w[k]);
         if (st[k] >= 0) {
           trail = ident;
           flag = true;
@@ -361,6 +493,17 @@ pull_tiles_kernel(PullArgs a) {
   }
 }
 
+// K3's and K4's pass 1, and the gated one of K6 and K9.
+__global__ void __launch_bounds__(kThreads) pull_tiles_kernel(PullArgs a) {
+  pull_tiles<kUngated>(a, GateArgs{});
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+gated_tiles_kernel(PullArgs a, GateArgs g) {
+  pull_tiles<G>(a, g);
+}
+
 // Pass 2: per-row totals, then K3's out[v] = init[v] (+) total or K4's
 // epilogue; K4 and K6 also count the rows that changed.
 struct FinishArgs {
@@ -375,30 +518,65 @@ struct FinishArgs {
   int32_t* changed;
 };
 
-__device__ __forceinline__ float row_total(const PullArgs& a, int64_t v) {
+// The bits, in their word (group_word), of the groups of 2^gshift rows
+// among base .. base + 31 (base a multiple of 32) that hold a row set in
+// m: the groups of 32 rows lie in one word.
+__device__ __forceinline__ uint32_t group_bits(int gshift, int64_t base,
+                                               unsigned m) {
+  if (m == 0) return 0u;
+  const int64_t g0 = base >> gshift;
+  unsigned bits = 1u;
+  if (gshift < 5) {
+    const int span = 1 << gshift;
+    bits = 0u;
+    for (int j = 0; j < 32 / span; ++j) {
+      if ((m >> (j * span)) & ((1u << span) - 1u)) bits |= 1u << j;
+    }
+  }
+  return bits << (g0 & 31);
+}
+
+__device__ __forceinline__ int64_t group_word(int gshift, int64_t base) {
+  return (base >> gshift) >> 5;
+}
+
+// Gated, a quiet tile left identity head and tail partials but no rowval,
+// so a row inside one quiet tile reads the identity.
+template <int G>
+__device__ __forceinline__ float row_total(const PullArgs& a,
+                                           const GateArgs& g, int64_t v) {
   const int32_t lo = __ldg(a.offsets + v);
   const int32_t hi = __ldg(a.offsets + v + 1);
   if (hi <= lo) return identity(a.op);
   const int64_t c0 = lo / kTile;
   const int64_t c1 = (hi - 1) / kTile;
-  if (c0 == c1) return a.rowval[v];
+  if (c0 == c1) {
+    if constexpr (G != kUngated) {
+      if (g.tmark[c0] == g.quiet_mark) return identity(a.op);
+    }
+    return a.rowval[v];
+  }
   float acc = a.tail[c0];
 #pragma unroll 8
   for (int64_t c = c0 + 1; c < c1; ++c) acc = combine(a.op, acc, a.head[c]);
   return combine(a.op, acc, a.head[c1]);
 }
 
-__global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
+template <int G>
+__device__ __forceinline__ void pull_finish(const PullArgs& a,
+                                            const FinishArgs& f,
+                                            const GateArgs& g) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  // The loop runs per warp (base is warp-uniform), so every lane reaches
-  // the ballot below.
+  // The loop runs per warp (base is warp-uniform and a multiple of 32),
+  // so every lane reaches the ballot below, and a warp's rows are one
+  // word of the source bits.
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < a.rows; base += stride) {
     const int64_t v = base + lane;
     bool moved = false;
     if (v < a.rows) {
-      float acc = row_total(a, v);
+      float acc = row_total<G>(a, g, v);
       if (f.rank_in == nullptr) {
         if (f.init != nullptr) {
           const float old = __ldg(f.init + v);
@@ -414,11 +592,45 @@ __global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
         f.out[v] = fresh;
       }
     }
-    if (f.changed != nullptr) {
-      // Integer counts are exact whatever the order of the atomics: one
-      // per warp, of the warp's changed lanes.
-      const unsigned m = __ballot_sync(0xffffffffu, moved);
+    // Integer counts are exact whatever the order of the atomics: one per
+    // warp, of the warp's changed lanes. K6's rows that moved make their
+    // groups the next sweep's active ones.
+    if constexpr (G == kSources) {
+      const unsigned m = __ballot_sync(kFull, moved);
+      if (lane == 0 && m != 0) {
+        atomicAdd(f.changed, (int)__popc(m));
+        atomicOr(g.next_groups + group_word(g.gshift, base),
+                 group_bits(g.gshift, base, m));
+      }
+    } else if (f.changed != nullptr) {
+      const unsigned m = __ballot_sync(kFull, moved);
       if (lane == 0 && m != 0) atomicAdd(f.changed, (int)__popc(m));
+    }
+  }
+}
+
+__global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
+  pull_finish<kUngated>(a, f, GateArgs{});
+}
+
+__global__ void gated_finish_kernel(PullArgs a, FinishArgs f, GateArgs g) {
+  pull_finish<kSources>(a, f, g);
+}
+
+// K6's first sweep of a call: a group is active when one of its vertices
+// is not +inf in init (a superset of the finite entries, as the JAX act0).
+__global__ void seed_groups_kernel(PullArgs a, GateArgs g,
+                                   const float* init) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < a.rows; base += stride) {
+    const int64_t v = base + lane;
+    const bool seeded = v < a.rows && init[v] != __int_as_float(0x7f800000);
+    const unsigned m = __ballot_sync(kFull, seeded);
+    if (lane == 0 && m != 0) {
+      atomicOr(g.groups + group_word(g.gshift, base),
+               group_bits(g.gshift, base, m));
     }
   }
 }
@@ -443,62 +655,124 @@ bool valid_args(const PullArgs& a, int tile) {
 constexpr int kCarveout = 14;
 
 // Once per host call: the tile rows, which do not change between rounds,
-// and, once a device, the carveout.
+// and, once a device, the carveout of every variant of pass 1.
 void launch_tile_rows(const PullArgs& a, cudaStream_t s) {
   static bool carved[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < 64 &&
       !carved[dev]) {
-    cudaFuncSetAttribute(pull_tiles_kernel,
-                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                         kCarveout);
+    for (const void* k : {(const void*)pull_tiles_kernel,
+                          (const void*)gated_tiles_kernel<kSources>,
+                          (const void*)gated_tiles_kernel<kLiveTiles>}) {
+      cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           kCarveout);
+    }
     carved[dev] = true;
   }
   tile_rows_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a);
 }
 
-void launch_pass1(const PullArgs& a, cudaStream_t s) {
-  if (a.num_edges > 0) {
-    const int64_t ntiles = num_tiles(a.num_edges);
-    pull_tiles_kernel<<<(unsigned int)(ntiles < kMaxBlocks ? ntiles
-                                                            : kMaxBlocks),
-                        kThreads, 0, s>>>(a);
-  }
+// The group size of a gated call: the least 2^gshift that puts every
+// vertex in one of kGroups groups.
+int group_shift(int64_t rows) {
+  int s = 0;
+  while (((rows - 1) >> s) >= kGroups) ++s;
+  return s;
 }
 
-void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
+// A gated host call: no tile carries a mark of its rounds yet, round 0
+// has no active group, and the groups cover the rows. tmark: (ntiles,);
+// gbuf: (2, kGroupWords), round r reading half r % 2 and clearing the
+// other half for round r + 1.
+GateArgs gate_call(const PullArgs& a, void* tmark, void* gbuf,
+                   cudaStream_t s) {
+  GateArgs g = {};
+  g.tmark = (int32_t*)tmark;
+  g.groups = (uint32_t*)gbuf;
+  g.gshift = group_shift(a.rows);
+  const int64_t ntiles = num_tiles(a.num_edges);
+  if (ntiles > 0) cudaMemsetAsync(g.tmark, 0, ntiles * sizeof(int32_t), s);
+  cudaMemsetAsync(g.groups, 0, kGroupWords * sizeof(uint32_t), s);
+  return g;
+}
+
+// Round r of a gated call: its marks and its half of the group bits.
+GateArgs gate_round(const GateArgs& call, int r) {
+  GateArgs g = call;
+  g.live_mark = 2 * r + 2;
+  g.quiet_mark = 2 * r + 3;
+  g.groups = call.groups + (r % 2) * kGroupWords;
+  g.next_groups = call.groups + ((r + 1) % 2) * kGroupWords;
+  return g;
+}
+
+unsigned int tile_blocks(int64_t num_edges) {
+  const int64_t ntiles = num_tiles(num_edges);
+  return (unsigned int)(ntiles < kMaxBlocks ? ntiles : kMaxBlocks);
+}
+
+// Per-source weights: fold them into vscratch and pull that with f = none.
+void fold_weights(PullArgs& a, cudaStream_t s) {
   if (a.wkind == kPerSource) {
     fold_per_source_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a);
     a.values = a.vscratch;
     a.fn = kNone;
     a.wkind = kNoWeights;
   }
-  launch_pass1(a, s);
+}
+
+void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
+  fold_weights(a, s);
+  if (a.num_edges > 0) {
+    pull_tiles_kernel<<<tile_blocks(a.num_edges), kThreads, 0, s>>>(a);
+  }
   pull_finish_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a, f);
 }
 
-// K9's gate: gated[v] for the level (see the file comment). want is d - 1
-// forward, t + 1 backward.
-__global__ void brandes_gate_kernel(int64_t rows, const float* lab,
+// K9's gate (see the file comment): gated[v] for the level, the source
+// bits (gated != 0) and the live marks of the tiles of every live row.
+// want is d - 1 forward, t + 1 backward; level is d or t.
+__global__ void brandes_gate_kernel(PullArgs a, GateArgs g, const float* lab,
                                     const float* sig, const float* delta,
-                                    float* gated, float want, bool fwd) {
+                                    float* gated, float want, float level,
+                                    bool fwd) {
+  const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < rows;
-       v += stride) {
-    float g = 0.0f;
-    if (lab[v] == want) {
-      g = fwd ? sig[v]
-              : __fdiv_rn(__fadd_rn(1.0f, delta[v]), fmaxf(sig[v], 1e-30f));
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < a.rows; base += stride) {
+    const int64_t v = base + lane;
+    float x = 0.0f;
+    if (v < a.rows) {
+      const float l = lab[v];
+      if (l == want) {
+        x = fwd ? sig[v]
+                : __fdiv_rn(__fadd_rn(1.0f, delta[v]), fmaxf(sig[v], 1e-30f));
+      }
+      gated[v] = x;
+      if (fwd ? l == __int_as_float(0x7f800000) : l == level) {
+        const int32_t lo = __ldg(a.offsets + v);
+        const int32_t hi = __ldg(a.offsets + v + 1);
+        if (hi > lo) {
+          for (int64_t c = lo / kTile; c <= (hi - 1) / kTile; ++c) {
+            g.tmark[c] = g.live_mark;
+          }
+        }
+      }
     }
-    gated[v] = g;
+    const unsigned m = __ballot_sync(kFull, x != 0.0f);
+    if (lane == 0 && m != 0) {
+      atomicOr(g.groups + group_word(g.gshift, base),
+               group_bits(g.gshift, base, m));
+    }
   }
 }
 
 // K9's finish: the level's epilogue over the row totals of pass 1, and
-// the count of rows it labelled (forward) or updated (backward).
-__global__ void brandes_finish_kernel(PullArgs a, float* lab, float* sig,
-                                      float* delta, float level, bool fwd,
-                                      int32_t* count) {
+// the count of rows it labelled (forward) or updated (backward). Only
+// the live rows read a total.
+__global__ void brandes_finish_kernel(PullArgs a, GateArgs g, float* lab,
+                                      float* sig, float* delta, float level,
+                                      bool fwd, int32_t* count) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
@@ -508,18 +782,19 @@ __global__ void brandes_finish_kernel(PullArgs a, float* lab, float* sig,
     if (v < a.rows) {
       const float l = lab[v];
       if (fwd && l == __int_as_float(0x7f800000)) {
-        const float s = __fadd_rn(sig[v], row_total(a, v));
+        const float s = __fadd_rn(sig[v], row_total<kLiveTiles>(a, g, v));
         sig[v] = s;
         if (s > 0.0f) {
           lab[v] = level;
           hit = true;
         }
       } else if (!fwd && l == level) {
-        delta[v] = __fmul_rn(sig[v], __fadd_rn(delta[v], row_total(a, v)));
+        delta[v] = __fmul_rn(
+            sig[v], __fadd_rn(delta[v], row_total<kLiveTiles>(a, g, v)));
         hit = true;
       }
     }
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    const unsigned m = __ballot_sync(kFull, hit);
     if (lane == 0 && m != 0) atomicAdd(count, (int)__popc(m));
   }
 }
@@ -529,7 +804,7 @@ PullArgs make_args(const void* values, const void* indices,
                    const void* weights, int wkind, int op, int fn,
                    void* tile_rows, void* rowval, void* head, void* tail,
                    void* vscratch) {
-  PullArgs a;
+  PullArgs a = {};
   a.values = (const float*)values;
   a.indices = (const int32_t*)indices;
   a.offsets = (const int32_t*)offsets;
@@ -615,28 +890,43 @@ int gr_pull_power_iters(const void* init, void* ping, void* pong,
 // writes ping (r even) or pong (r odd), so the last sweep lands in ping
 // when sweeps is odd and in pong when it is even. fn: none, add or incr
 // (with the matching weights). changed: (sweeps,) int32, zeroed by the
-// caller. Scratch as for gr_pull_reduce.
+// caller. Scratch as for gr_pull_reduce, and tmark (ntiles,) int32 and
+// active (ceil(rows / 32),) uint32. Pass 1 is gated by the sources that
+// are not +inf in init (sweep 0) or that the previous sweep lowered.
 int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
                        const void* indices, const void* offsets,
                        int64_t num_edges, int64_t rows, const void* weights,
                        int wkind, int fn, int sweeps, int tile,
                        void* tile_rows, void* rowval, void* head, void* tail,
-                       void* vscratch, void* changed, void* stream) {
+                       void* vscratch, void* tmark, void* groups,
+                       void* changed, void* stream) {
   PullArgs a = make_args(init, indices, offsets, num_edges, rows, weights,
                          wkind, kMin, fn, tile_rows, rowval, head, tail,
                          vscratch);
-  if (!valid_args(a, tile) || sweeps < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_args(a, tile) || sweeps < 1 || fn == kMul) {
+    return (int)cudaErrorInvalidValue;
+  }
   FinishArgs f = {};
   const cudaStream_t s = (cudaStream_t)stream;
   launch_tile_rows(a, s);
+  const GateArgs call = gate_call(a, tmark, groups, s);
+  seed_groups_kernel<<<blocks_for(rows), kThreads, 0, s>>>(
+      a, gate_round(call, 0), (const float*)init);
   const float* in = (const float*)init;
   for (int r = 0; r < sweeps; ++r) {
     float* out = (float*)(r % 2 == 0 ? ping : pong);
-    a.values = in;
+    const GateArgs g = gate_round(call, r);
+    PullArgs b = a;
+    b.values = in;
+    fold_weights(b, s);
     f.init = in;
     f.out = out;
     f.changed = (int32_t*)changed + r;
-    launch_pull(a, f, s);
+    if (num_edges > 0) {
+      gated_tiles_kernel<kSources><<<tile_blocks(num_edges), kThreads, 0,
+                                     s>>>(b, g);
+    }
+    gated_finish_kernel<<<blocks_for(rows), kThreads, 0, s>>>(b, f, g);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     in = out;
@@ -648,30 +938,38 @@ int gr_pull_min_sweeps(const void* init, void* ping, void* pong,
 // sig in place (delta may be null). fwd == 0: rings t = level0 down to
 // level0 - levels + 1 update delta in place, reading lab and sig.
 // counts: (levels,) int32, zeroed by the caller. Scratch: gated as
-// vscratch, the rest as for gr_pull_reduce.
+// vscratch, tmark and active as for gr_pull_min_sweeps, the rest as for
+// gr_pull_reduce.
 int gr_brandes_levels(void* lab, void* sig, void* delta, const void* indices,
                       const void* offsets, int64_t num_edges, int64_t rows,
                       int fwd, int level0, int levels, int tile,
                       void* tile_rows, void* gated, void* rowval, void* head,
-                      void* tail, void* counts, void* stream) {
-  const PullArgs a = make_args(gated, indices, offsets, num_edges, rows,
-                               nullptr, kNoWeights, kSum, kNone, tile_rows,
-                               rowval, head, tail, nullptr);
+                      void* tail, void* tmark, void* groups, void* counts,
+                      void* stream) {
+  PullArgs a = make_args(gated, indices, offsets, num_edges, rows, nullptr,
+                         kNoWeights, kSum, kNone, tile_rows, rowval, head,
+                         tail, nullptr);
   if (!valid_args(a, tile) || levels < 1 || (!fwd && delta == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   launch_tile_rows(a, s);
+  const GateArgs call = gate_call(a, tmark, groups, s);
   const unsigned int vblocks = blocks_for(rows);
   for (int r = 0; r < levels; ++r) {
     const int level = fwd ? level0 + r : level0 - r;
+    const GateArgs g = gate_round(call, r);
     brandes_gate_kernel<<<vblocks, kThreads, 0, s>>>(
-        rows, (const float*)lab, (const float*)sig, (const float*)delta,
-        (float*)gated, (float)(fwd ? level - 1 : level + 1), fwd != 0);
-    launch_pass1(a, s);
+        a, g, (const float*)lab, (const float*)sig, (const float*)delta,
+        (float*)gated, (float)(fwd ? level - 1 : level + 1), (float)level,
+        fwd != 0);
+    if (num_edges > 0) {
+      gated_tiles_kernel<kLiveTiles><<<tile_blocks(num_edges), kThreads, 0,
+                                       s>>>(a, g);
+    }
     brandes_finish_kernel<<<vblocks, kThreads, 0, s>>>(
-        a, (float*)lab, (float*)sig, (float*)delta, (float)level, fwd != 0,
-        (int32_t*)counts + r);
+        a, g, (float*)lab, (float*)sig, (float*)delta, (float)level,
+        fwd != 0, (int32_t*)counts + r);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }

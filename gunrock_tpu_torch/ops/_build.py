@@ -44,8 +44,8 @@ SIGNATURES = {
     "gr_bitmask_gather_cumsum": "pqpqpqpp",
     "gr_pull_reduce": "pppqqpiiipippppppp",
     "gr_pull_power_iters": "pppppqqqpifffiippppppp",
-    "gr_pull_min_sweeps": "pppppqqpiiiippppppp",
-    "gr_brandes_levels": "pppppqqiiiippppppp",
+    "gr_pull_min_sweeps": "pppppqqpiiiippppppppp",
+    "gr_brandes_levels": "pppppqqiiiippppppppp",
     "gr_sample_sorted": "ppqpiqppp",
     "gr_reduce_by_dst_sorted": "pppqiiqppppppppp",
     "gr_scatter_sorted": "pqppqpqiip",

@@ -46,6 +46,22 @@ __all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
 # bit.
 PULL_TILE = 2048
 
+# The activity gate of K6 and K9 (kGroupWords in csrc/pull_kernels.cu): a
+# round marks which groups of source vertices are active in this many
+# 32-bit words, one bit a group of group_size(v_pad) consecutive vertices.
+GROUP_WORDS = 32
+
+
+def group_size(v_pad: int) -> int:
+    """Vertices in one source group of the K6/K9 gate: the least power of
+    two that puts every vertex of ``v_pad`` in one of 32 * GROUP_WORDS
+    groups."""
+    size = 1
+    while (v_pad - 1) // size >= 32 * GROUP_WORDS:
+        size *= 2
+    return size
+
+
 _OPS = {"sum": 0, "min": 1}
 _FNS = {"none": 0, "add": 1, "mul": 2, "incr": 3}
 _NO_WEIGHTS, _PER_EDGE, _PER_SOURCE = 0, 1, 2
@@ -104,16 +120,21 @@ def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
     return init + out if op == "sum" else torch.minimum(init, out)
 
 
-def _scratch(graph, device) -> tuple[torch.Tensor, list[int]]:
+def _scratch(graph, device, *, gated: bool = False
+             ) -> tuple[torch.Tensor, list[int]]:
     """K3/K4/K6/K9 scratch as one buffer of 4-byte slots, and the
     addresses the kernels take, in their order: the first row of each
     tile and one past the last (int32), per-row totals, per-tile head and
     tail partials, and a (v_pad,) value table (the per-source values
-    folded with the ``wpr`` weights; K9's gated values), all float32.
-    One allocation a call; the caller holds the buffer until the launch
-    is enqueued."""
+    folded with the ``wpr`` weights; K9's gated values), all float32;
+    ``gated`` (K6, K9) adds a mark a tile (int32) and two rounds' source
+    group bits (``GROUP_WORDS`` words each). One allocation a call, never
+    cleared (the kernels read no slot they did not write in the same
+    call); the caller holds the buffer until the launch is enqueued."""
     ntiles = -(-graph.num_edges // PULL_TILE)
     sizes = (ntiles + 1, graph.v_pad, ntiles, ntiles, graph.v_pad)
+    if gated:
+        sizes += (ntiles, 2 * GROUP_WORDS)
     buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
     ptrs, at = [], buf.data_ptr()
     for n in sizes:
@@ -249,13 +270,20 @@ def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
     return (ping if iters % 2 else pong), changed
 
 
+def _check_sweeps(sweeps: int, wmode: str) -> None:
+    if sweeps < 1:
+        raise ValueError("sweeps must be at least 1")
+    if wmode not in ("none", "add", "incr"):
+        raise ValueError(f"min sweeps take wmode none, add or incr, not "
+                         f"{wmode!r}")
+
+
 def pull_min_sweeps_plain(graph, init: torch.Tensor, *, sweeps: int,
                           wmode: str = "add", weights: str = "val"):
     """``sweeps`` rounds of :func:`pull_reduce2_plain` with ``op="min"``
     and ``init`` the current distances (Jacobi: each sweep reads the
     previous one's result), and the count of ``d'[v] < d[v]`` a sweep."""
-    if sweeps < 1:
-        raise ValueError("sweeps must be at least 1")
+    _check_sweeps(sweeps, wmode)
     d = init.float()
     changed = []
     for _ in range(sweeps):
@@ -280,19 +308,32 @@ def pull_min_sweeps(graph, init: torch.Tensor, *, sweeps: int,
     result and count equal the plain version's and a zero count on any
     sweep is a fixpoint; callers that test even sweeps stay sound. The
     fixpoint is the one the TPU kernel reaches: the least distances over
-    walks, each step rounded as float32 ``d[u] + w``."""
+    walks, each step rounded as float32 ``d[u] + w``.
+
+    As the TPU kernel skips the groups whose sources did not change, a
+    sweep gathers only from the active groups of ``group_size(v_pad)``
+    consecutive sources: those holding a vertex not +inf in ``init`` on
+    the call's first sweep, then one the previous sweep lowered; a tile
+    of edges with none costs its index loads. This is exact: an inactive
+    source u last entered the min for each of its out-neighbours v when
+    it last changed (or is +inf, and f(+inf, w) = +inf for ``none``,
+    ``add`` and ``incr``, the only modes taken), and d[v] only fell
+    since, so f(d[u], w) >= d[v] (the proof is in
+    ``csrc/pull_kernels.cu``); reading more sources than the active ones
+    adds only terms the plain version takes too. So the first sweep from
+    one seed gathers little, and a sweep in which most groups changed
+    costs about a full pull."""
+    _check_sweeps(sweeps, wmode)
     if not _route(init, graph.csc_indices):
         return pull_min_sweeps_plain(graph, init, sweeps=sweeps,
                                      wmode=wmode, weights=weights)
-    if sweeps < 1:
-        raise ValueError("sweeps must be at least 1")
     _validate(graph, "min", init)
     w, kind = _weights(graph, wmode, weights)
     dev = graph.csc_indices.device
     init = init.to(torch.float32).contiguous()
     _check_float("init", init, graph.v_pad, dev)
     _check_graph(graph, w, kind, dev)
-    buf, scratch = _scratch(graph, dev)
+    buf, scratch = _scratch(graph, dev, gated=True)
     ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     pong = torch.empty_like(ping)
     changed = torch.zeros(sweeps, dtype=torch.int32, device=dev)
@@ -361,14 +402,15 @@ def _brandes(graph, lab, sig, delta, *, fwd: bool, level0: int,
         _check_float(name, t, graph.v_pad, dev)
         state.append(t)
     _check_graph(graph, None, _NO_WEIGHTS, dev)
-    buf, (tile_rows, rowval, head, tail, gated) = _scratch(graph, dev)
+    buf, (tile_rows, rowval, head, tail, gated, tmark,
+          active) = _scratch(graph, dev, gated=True)
     counts = torch.zeros(levels, dtype=torch.int32, device=dev)
     lab, sig, delta = state
     _launch(_build.load().gr_brandes_levels, lab.data_ptr(), sig.data_ptr(),
             0 if delta is None else delta.data_ptr(),
             graph.csc_indices.data_ptr(), graph.csc_offsets.data_ptr(),
             graph.num_edges, graph.v_pad, int(fwd), int(level0), levels,
-            PULL_TILE, tile_rows, gated, rowval, head, tail,
+            PULL_TILE, tile_rows, gated, rowval, head, tail, tmark, active,
             counts.data_ptr(), device=dev)
     LAUNCHES["brandes_levels"] += 1
     return lab, sig, delta, counts
@@ -387,7 +429,17 @@ def brandes_fwd_levels(graph, lab: torch.Tensor, sig: torch.Tensor, *,
     Kernel K9 (replaces the Pallas ``_brandes_kernel``,
     ``gunrock_tpu/ops/pull2.py:895``): every level is enqueued from one
     host call with no host read. Two launches on the same input agree
-    bit for bit."""
+    bit for bit, and with K3's sum over the gated values followed by the
+    epilogue (:func:`pull_reduce2` then torch).
+
+    As the TPU kernel skips quiet groups, a level reads only what can
+    change its result: the tiles of edges into the rows that read a
+    total (forward the undiscovered rows, backward the ring), and in
+    them the values of the source groups that hold a gated source
+    (depth d - 1). Both are exact: every other source's gated value is
+    +0.0, and adding +0.0 to a non-negative partial leaves its bits as
+    they are. So the levels past the frontier, and the deep and shallow
+    rings, cost their V-wide passes and little else."""
     if not _route(lab, sig, graph.csc_indices):
         return brandes_fwd_levels_plain(graph, lab, sig, d0=d0,
                                         levels=levels)
@@ -408,7 +460,9 @@ def brandes_bwd_levels(graph, lab: torch.Tensor, sig: torch.Tensor,
     a ring updated; the inputs are not changed.
 
     Kernel K9 (replaces the Pallas ``_brandes_kernel``,
-    ``gunrock_tpu/ops/pull2.py:895``), as :func:`brandes_fwd_levels`."""
+    ``gunrock_tpu/ops/pull2.py:895``), as :func:`brandes_fwd_levels`:
+    ring t reads only the tiles of edges into the ring's rows, and in
+    them the sources at depth t + 1."""
     if not _route(lab, sig, delta, graph.csc_indices):
         return brandes_bwd_levels_plain(graph, lab, sig, delta, t0=t0,
                                         levels=levels)

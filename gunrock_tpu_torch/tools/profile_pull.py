@@ -1,11 +1,14 @@
 """Where K3's time goes, and K8's: the device time of a call against the
-host's, and K3's edge stream against its gathers.
+host's, and K3's edge stream against its gathers; and the device time of
+K4, which runs K3's pass, and of the activity-gated pulls K6 and K9 at
+the shapes of ``chip_smoke.py``.
 
     python -m gunrock_tpu_torch.tools.profile_pull [--scale 20]
         [--edge-factor 32] [--winners 135241] [--reps 20] [--device cuda]
 
 Builds R-MAT (``--scale``, ``--edge-factor``, seed 1, undirected), the
-graph of ``chip_smoke.py``, uploads it ``with_csc`` and profiles, as
+graph of ``chip_smoke.py``, with ``random_edge_values(seed=7)``, uploads
+it ``with_csc`` and ``with_edge_values`` and profiles, as
 :mod:`gunrock_tpu_torch.tools.profile_value` does (one warm-up call,
 then ``--reps`` calls under ``torch.profiler``):
 
@@ -18,7 +21,16 @@ then ``--reps`` calls under ``torch.profiler``):
     cost;
   * K8 ``scatter_sorted`` min of ``--winners`` sorted unique ids with the
     count on the device, in a buffer of v_pad lanes (the shapes of
-    ``chip_smoke.py`` phase 14), and ``index_reduce_`` amin of the same.
+    ``chip_smoke.py`` phase 14), and ``index_reduce_`` amin of the same;
+  * K4 ``pull_power_iters``: 20 PageRank rounds from 1/n (phase 9's
+    shape), the pass K3 shares;
+  * K6 ``pull_min_sweeps``: 6 sweeps add/val from the largest-degree
+    vertex (phase 14), its first sweep alone, and 3 sweeps continuing
+    from the distances of 3 plain sweeps (every finite source active
+    at the call's start);
+  * K9 ``brandes_fwd_levels`` / ``brandes_bwd_levels``: one BC source
+    from that vertex, forward levels in calls of 8 until one labels
+    nobody, then the backward rings (phase 19; a host read a call).
 
 Each prints wall and device time a call and the device events, and
 ``host``: the median time until a call returns unfenced, over ``--reps``
@@ -68,6 +80,31 @@ def host_ms(fn, reps: int, device: torch.device) -> float:
     return float(np.median(times))
 
 
+def brandes_source(dg, src: int, levels: int = 8):
+    """One BC source through K9 as the kernel-C route runs it: forward
+    levels in calls of ``levels`` until one labels nobody, then every
+    backward ring; returns the final delta."""
+    dev = dg.csc_indices.device
+    lab = torch.full((dg.v_pad,), float("inf"), device=dev)
+    lab[src] = 0.0
+    sig = torch.zeros(dg.v_pad, device=dev)
+    sig[src] = 1.0
+    d = 1
+    while True:
+        lab, sig, chg = P.brandes_fwd_levels(dg, lab, sig, d0=d,
+                                             levels=levels)
+        chg = chg.tolist()
+        if 0 in chg:
+            depth = d + chg.index(0) - 1
+            break
+        d += levels
+    delta = torch.zeros(dg.v_pad, device=dev)
+    for t in range(depth - 1, -1, -levels):
+        delta, _ = P.brandes_bwd_levels(dg, lab, sig, delta, t0=t,
+                                        levels=min(levels, t + 1))
+    return delta
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -78,7 +115,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     g = rmat(scale=args.scale, edge_factor=args.edge_factor, seed=1,
              undirected=True)
-    dg = to_device(g, with_csc=True, device=args.device)
+    g.random_edge_values(seed=7)
+    dg = to_device(g, with_csc=True, with_edge_values=True,
+                   device=args.device)
     dev = dg.device
     print(f"[profile_pull] rmat n{args.scale} e{args.edge_factor} seed 1, "
           f"|V|={dg.num_nodes} |E|={dg.num_edges}, on {_card(dev)}")
@@ -100,6 +139,13 @@ def main(argv=None) -> int:
     count = torch.tensor(ids.shape[0], dtype=torch.int32, device=dev)
     dense = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
     ids_k, wins_k = buf[:ids.shape[0]].long(), wins[:ids.shape[0]]
+    hub = g.largest_degree_vertex()
+    seed = torch.full((dg.v_pad,), float("inf"), device=dev)
+    seed[hub] = 0.0
+    mid, _ = P.pull_min_sweeps_plain(dg, seed, sweeps=3)
+    n = dg.num_nodes
+    rank0 = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
+                        0.0)
     cases = (
         ("K3 pull_reduce2 sum/none", lambda: P.pull_reduce2(vals, dg)),
         ("torch.mv (sparse CSR)", lambda: torch.mv(csr, vals)),
@@ -109,6 +155,17 @@ def main(argv=None) -> int:
          lambda: K.scatter_sorted(dense, buf, wins, count=count, op="min")),
         ("index_reduce_ amin, the same winners",
          lambda: dense.index_reduce_(0, ids_k, wins_k, "amin")),
+        ("K4 pull_power_iters, 20 rounds",
+         lambda: P.pull_power_iters(dg, rank0, iters=20, damping=0.85,
+                                    reset=0.15 / n)),
+        ("K6 pull_min_sweeps, 6 sweeps add/val from the hub",
+         lambda: P.pull_min_sweeps(dg, seed, sweeps=6)),
+        ("K6 pull_min_sweeps, the first sweep from the hub",
+         lambda: P.pull_min_sweeps(dg, seed, sweeps=1)),
+        ("K6 pull_min_sweeps, 3 sweeps after 3 plain ones",
+         lambda: P.pull_min_sweeps(dg, mid, sweeps=3)),
+        ("K9 brandes_levels, one source from the hub",
+         lambda: brandes_source(dg, hub)),
     )
     for name, fn in cases:
         host = host_ms(fn, args.reps, dev)

@@ -406,25 +406,223 @@ def test_scatter_sorted_kernel_equals_plain(cuda, op, dtype, offset):
         assert torch.equal(got, want)
 
 
+def _sweeps_equal(g, init, sweeps, wmode):
+    """K6 against its plain version, distances and counts bit for bit;
+    returns the distances."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    got, chg = P.pull_min_sweeps(g, init, sweeps=sweeps, wmode=wmode)
+    want, wchg = P.pull_min_sweeps_plain(g, init, sweeps=sweeps, wmode=wmode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(chg, wchg), chg.tolist()
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wmode", ["add", "incr", "none"])
 def test_pull_min_sweeps_kernel_equals_plain(cuda, wmode):
-    """Jacobi sweeps: distances and change counts equal."""
+    """Jacobi sweeps: distances and change counts equal, from a single
+    finite seed (the first sweep gathers one source's edges), from every
+    vertex finite (CC's labels), and in a continuation call from a state
+    that is not a fixpoint (every finite source active again)."""
     from gunrock_tpu_torch.ops import pull2 as P
     _, g = _value_graph(cuda)
+    seed = torch.full((g.v_pad,), float("inf"), device=cuda)
+    seed[0] = 0.0
+    inits = [seed]
     if wmode == "none":
-        init = torch.arange(g.v_pad, device=cuda, dtype=torch.float32)
-    else:
-        init = torch.full((g.v_pad,), float("inf"), device=cuda)
-        init[0] = 0.0
+        inits.append(torch.arange(g.v_pad, device=cuda, dtype=torch.float32))
     before = K.LAUNCHES["pull_min_sweeps"]
-    for sweeps in (1, 6):
-        got, chg = P.pull_min_sweeps(g, init, sweeps=sweeps, wmode=wmode)
-        want, wchg = P.pull_min_sweeps_plain(g, init, sweeps=sweeps,
-                                             wmode=wmode)
+    for init in inits:
+        for sweeps in (1, 6):
+            _sweeps_equal(g, init, sweeps, wmode)
+        mid, _ = P.pull_min_sweeps_plain(g, init, sweeps=2, wmode=wmode)
+        _sweeps_equal(g, mid, 3, wmode)
+    assert K.LAUNCHES["pull_min_sweeps"] == before + 3 * len(inits)
+
+
+def _hub_graph(cuda):
+    """A directed graph for K6's quiet tiles: row 0 holds half a tile,
+    row 1 (the hub) the next three tiles, so it spans tiles 0-3 (head,
+    two middle, tail); the sources of the hub's edges in tile c come from
+    range c of HUB_RANGES alone; then rows of 0-3 edges from the upper
+    vertices, a twentieth of them from the hub itself. Weights uniform in
+    [0, 64) with a tenth zero; sources repeat. Returns (graph, ranges)."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    tile = P.PULL_TILE
+    rng = np.random.default_rng(5)
+    n = 16 * tile
+    ranges = [(4096 * (c + 1), 4096 * (c + 2)) for c in range(4)]
+    hub_pos = np.arange(tile // 2, tile // 2 + 3 * tile)
+    hub_src = np.empty(hub_pos.shape[0], np.int64)
+    for c, (lo, hi) in enumerate(ranges):
+        at = hub_pos // tile == c
+        hub_src[at] = rng.integers(lo, hi, int(at.sum()))
+    deg = np.zeros(n, np.int64)
+    deg[0], deg[1] = tile // 2, 3 * tile
+    deg[2:] = rng.integers(0, 4, n - 2)
+    dst = np.repeat(np.arange(n), deg)
+    src = np.empty(dst.shape[0], np.int64)
+    src[:tile // 2] = rng.integers(*ranges[0], tile // 2)
+    src[tile // 2:tile // 2 + 3 * tile] = hub_src
+    rest = dst.shape[0] - 7 * tile // 2
+    src[7 * tile // 2:] = np.where(rng.random(rest) < 0.05, 1,
+                                   rng.integers(ranges[3][1], n, rest))
+    vals = rng.uniform(0.0, 64.0, dst.shape[0]).astype(np.float32)
+    vals[rng.random(dst.shape[0]) < 0.1] = 0.0
+    g = gtt.from_coo(n, src, dst, vals, remove_self_loops=False, dedup=False)
+    dg = gtt.to_device(g, with_csc=True, with_edge_values=True,
+                       with_blocked_values=True, device=cuda)
+    offs = dg.csc_offsets.cpu().numpy()
+    assert offs[1] == tile // 2 and offs[2] == 7 * tile // 2
+    return dg, ranges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", ["head", "middle", "tail"])
+@pytest.mark.parametrize("wmode", ["add", "incr", "none"])
+def test_pull_min_sweeps_kernel_skips_tiles(cuda, wmode, skip):
+    """K6 with the hub row's head (tile 0, also row 0's only tile), middle
+    (tiles 1-2) or tail tile (3, also the first small rows' only tile)
+    quiet in the first sweep: only the sources of the other hub tiles are
+    finite. Later sweeps find every hub tile quiet, over the partials the
+    first sweep left. Distances and counts equal the plain version's."""
+    g, ranges = _hub_graph(cuda)
+    quiet = {"head": [0], "middle": [1, 2], "tail": [3]}[skip]
+    rng = np.random.default_rng(len(skip))
+    init = np.full(g.v_pad, np.inf, np.float32)
+    for c, (lo, hi) in enumerate(ranges):
+        if c not in quiet:
+            init[lo:hi] = rng.uniform(0.0, 100.0, hi - lo).astype(np.float32)
+    init = torch.from_numpy(init).to(cuda)
+    _sweeps_equal(g, init, 4, wmode)
+    _sweeps_equal(g, init, 1, wmode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["below_tile", 1, 2, 3])
+@pytest.mark.parametrize("wmode", ["add", "incr", "none"])
+def test_pull_min_sweeps_kernel_small_and_ragged(cuda, wmode, size):
+    """K6 on fewer edges than one tile, and on the tile edge-case graph at
+    1, 2 and 3 edges mod 4 (the 16-byte loads' ragged end): eight seeds,
+    then a continuation call."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    if size == "below_tile":
+        rng = np.random.default_rng(9)
+        m = P.PULL_TILE - 3
+        src, dst = rng.integers(0, 700, m), rng.integers(0, 700, m)
+        vals = rng.uniform(0.0, 8.0, m).astype(np.float32)
+        g = gtt.to_device(gtt.from_coo(700, src, dst, vals, dedup=False,
+                                       remove_self_loops=False),
+                          with_csc=True, with_edge_values=True,
+                          with_blocked_values=True, device=cuda)
+        assert g.num_edges < P.PULL_TILE
+    else:
+        g = _tile_graph(cuda, size)
+    init = torch.full((g.v_pad,), float("inf"), device=cuda)
+    init[:8] = torch.arange(8, device=cuda, dtype=torch.float32)
+    first = _sweeps_equal(g, init, 1, wmode)
+    _sweeps_equal(g, first, 5, wmode)
+
+
+def _brandes_k3(g, lab, sig, delta, *, fwd, level0, levels):
+    """K9's levels composed from K3: pull_reduce2 sum/none over the gated
+    values, then the epilogue in torch (float32, as the plain version)."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    counts = []
+    for r in range(levels):
+        if fwd:
+            d = level0 + r
+            acc = P.pull_reduce2(torch.where(lab == float(d - 1), sig, 0.0), g)
+            open_ = lab == float("inf")
+            sig = torch.where(open_, sig + acc, sig)
+            new = open_ & (sig > 0)
+            lab = torch.where(new, float(d), lab)
+            counts.append(new.sum())
+        else:
+            t = level0 - r
+            gated = torch.where(lab == float(t + 1),
+                                (1.0 + delta) / sig.clamp(min=1e-30), 0.0)
+            acc = P.pull_reduce2(gated, g)
+            ring = lab == float(t)
+            delta = torch.where(ring, sig * (delta + acc), delta)
+            counts.append(ring.sum())
+    return lab, sig, delta, torch.stack(counts).to(torch.int32)
+
+
+def _grid_device(cuda, n):
+    idx = np.arange(n * n).reshape(n, n)
+    src = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    g = gtt.from_coo(n * n, src, dst, undirected=True)
+    return g, gtt.to_device(g, with_edge_src=True, with_blocked_values=True,
+                            device=cuda)
+
+
+def _brandes_graph(cuda, name):
+    if name == "grid":
+        return _grid_device(cuda, 64)
+    return _value_graph(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat", "grid"])
+def test_brandes_levels_kernel_equals_k3_composition(cuda, name):
+    """K9 in calls of 3 levels, every level of both phases, bitwise equal
+    to its composition from K3 (the gated sources and live rows change
+    nothing): labels, sigma, delta and counts. On the R-MAT graph hub
+    rows span tiles; the grid's phases run 126 levels."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g, dg = _brandes_graph(cuda, name)
+    src = g.largest_degree_vertex() if name == "rmat" else 0
+    lab = torch.full((dg.v_pad,), float("inf"), device=cuda)
+    lab[src] = 0.0
+    sig = torch.zeros(dg.v_pad, device=cuda)
+    sig[src] = 1.0
+    d, depth = 1, None
+    while depth is None:
+        got = P.brandes_fwd_levels(dg, lab, sig, d0=d, levels=3)
+        want = _brandes_k3(dg, lab, sig, None, fwd=True, level0=d, levels=3)
         torch.cuda.synchronize()
-        assert torch.equal(got, want) and torch.equal(chg, wchg)
-    assert K.LAUNCHES["pull_min_sweeps"] == before + 2
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2], want[3])
+        lab, sig, chg = got
+        if 0 in chg.tolist():
+            depth = d + chg.tolist().index(0) - 1
+        d += 3
+    delta = torch.zeros(dg.v_pad, device=cuda)
+    for t in range(depth - 1, -1, -3):
+        n = min(3, t + 1)
+        got = P.brandes_bwd_levels(dg, lab, sig, delta, t0=t, levels=n)
+        want = _brandes_k3(dg, lab, sig, delta, fwd=False, level0=t, levels=n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[2]) and torch.equal(got[1], want[3])
+        delta = got[0]
+    assert depth > (100 if name == "grid" else 3)
+
+
+@pytest.mark.cuda
+def test_brandes_levels_kernel_past_the_depth(cuda):
+    """K9 at levels past the last: forward levels and backward rings with
+    nobody to gate or update count 0 and leave the state bit for bit."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g, dg = _value_graph(cuda)
+    src = g.largest_degree_vertex()
+    lab = torch.full((dg.v_pad,), float("inf"), device=cuda)
+    lab[src] = 0.0
+    sig = torch.zeros(dg.v_pad, device=cuda)
+    sig[src] = 1.0
+    lab, sig, chg = P.brandes_fwd_levels(dg, lab, sig, d0=1, levels=16)
+    depth = chg.tolist().index(0)
+    assert 0 < depth and not any(chg.tolist()[depth:])
+    lab2, sig2, chg2 = P.brandes_fwd_levels(dg, lab, sig, d0=depth + 2,
+                                            levels=3)
+    delta = torch.rand(dg.v_pad, device=cuda)
+    delta2, ring = P.brandes_bwd_levels(dg, lab, sig, delta, t0=depth + 4,
+                                        levels=2)
+    torch.cuda.synchronize()
+    assert chg2.tolist() == [0, 0, 0] and ring.tolist() == [0, 0]
+    assert torch.equal(lab2, lab) and torch.equal(sig2, sig)
+    assert torch.equal(delta2, delta)
 
 
 @pytest.mark.cuda

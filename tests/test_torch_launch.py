@@ -145,13 +145,17 @@ def test_wrapper_passes_its_c_signature(wrapper, dry_launch):
 def test_pull_scratch_fits_the_tiles():
     """K3's scratch: one tile row a tile and one past the last, per-row
     totals and value table of v_pad, head and tail partials a tile, 4
-    bytes a slot, back to back in one buffer."""
+    bytes a slot, back to back in one buffer; the gated passes' (K6, K9)
+    add a mark a tile and two rounds' source-group bits."""
     g = _graph()
     ntiles = -(-g.num_edges // P.PULL_TILE)
-    buf, ptrs = P._scratch(g, torch.device("cpu"))
     sizes = [ntiles + 1, g.v_pad, ntiles, ntiles, g.v_pad]
-    assert buf.element_size() == 4 and buf.numel() == sum(sizes)
-    assert ptrs == [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(5)]
+    for gated, extra in ((False, []), (True, [ntiles, 2 * P.GROUP_WORDS])):
+        buf, ptrs = P._scratch(g, torch.device("cpu"), gated=gated)
+        want = sizes + extra
+        assert buf.element_size() == 4 and buf.numel() == sum(want)
+        assert ptrs == [buf.data_ptr() + 4 * sum(want[:i])
+                        for i in range(len(want))]
     empty = gtt.to_device(gtt.from_coo(300, np.zeros(0, np.int64),
                                        np.zeros(0, np.int64)),
                           with_csc=True, device="cpu")
@@ -167,7 +171,9 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
                               "--winners=50", "--reps=2",
                               "--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 6 and "|E|=" in lines[0]
+    assert len(lines) == 11 and "|E|=" in lines[0]
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
+    assert "K4" in lines[6] and "K9" in lines[10]
+    assert all("K6 pull_min_sweeps" in line for line in lines[7:10])
