@@ -37,9 +37,13 @@ script exits non-zero:
    float64 numpy oracles.
 9. K3 in four modes and K4 at 1 and 20 rounds against their plain
    PyTorch versions at the flagship's shapes: ``min`` exactly, sums
-   within a relative tolerance; K3 bitwise equal over two launches; K4's
-   change counts equal. Median times from CUDA events; for K3 sum/none
-   and ``torch.mv`` also the device time a call from ``torch.profiler``.
+   within a relative tolerance; K3 bitwise equal over two launches; K4
+   bitwise equal over two launches and to its composition from K3 (sum,
+   ``mul``, ``wpr``, then the epilogue in torch), its change counts
+   equal. Median times from CUDA events; for K3 sum/none, ``torch.mv``
+   and K4 also the device time a call from ``torch.profiler``, K4's
+   split into its tile rows (built once a call before its rounds), pass
+   1 a round and the rest of a round.
 10. Timing: best of 5 PageRank (both routes) and HITS runs after a
     warm-up: ms per iteration and MTEPS (num_edges x iterations, twice
     that for HITS, per ms).
@@ -122,7 +126,8 @@ K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
 The ``ms`` of every kernel is the CUDA-event time of a call, host path
 included where the card waits on it; K3 and K8 also carry ``device_ms``
 and ``library_device_ms``, the device time of a call of the kernel and
-of its library call (:func:`_device_ms`).
+of its library call (:func:`_device_ms`), and K4 its ``device_ms`` and
+``build_device_ms``, the device time of its tile rows a call.
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -438,12 +443,14 @@ def phase_link_analysis(gtt, g):
 
 def phase_value_kernels(dg, dev):
     """Phase 9: K3 in four modes and K4 at 1 and PR_ITERS rounds against
-    their plain versions at the flagship's shapes. Returns the JSON
-    fields of both."""
+    their plain versions at the flagship's shapes, K4 also against its
+    composition from K3. Returns the JSON fields of both."""
     import dataclasses
     import numpy as np
     import torch
     from gunrock_tpu_torch.ops import pull2 as P
+    from gunrock_tpu_torch.tools.profile_pull import power_split
+    from gunrock_tpu_torch.tools.profile_value import profile_run
     rng = np.random.default_rng(SEED)
     vals = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
     init = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
@@ -504,12 +511,36 @@ def phase_value_kernels(dg, dev):
     start = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
                         0.0).float()
     kw = dict(damping=0.85, reset=0.15 / n, threshold=1e-6)
+    vmask = torch.arange(dg.v_pad, device=dev) < n
+    d32 = torch.tensor(kw["damping"], dtype=torch.float32, device=dev)
+    r32 = torch.tensor(kw["reset"], dtype=torch.float32, device=dev)
+
+    def k3_rounds(rank, iters):
+        """K4's rounds composed from K3 sum/mul/wpr and the epilogue in
+        torch, which K4 equals bit for bit."""
+        chg = []
+        for _ in range(iters):
+            acc = P.pull_reduce2(rank, dg, op="sum", wmode="mul",
+                                 weights="wpr")
+            fresh = torch.where(vmask, r32 + d32 * acc, 0.0)
+            chg.append(((fresh - rank).abs() > kw["threshold"]).sum())
+            rank = fresh
+        return rank, torch.stack(chg).to(torch.int32)
+
     k4 = {}
     for iters, rtol in ((1, 1e-5), (PR_ITERS, 1e-3)):
         rank, chg = P.pull_power_iters(dg, start, iters=iters, **kw)
+        again, again_chg = P.pull_power_iters(dg, start, iters=iters, **kw)
+        composed, composed_chg = k3_rounds(start, iters)
         want, want_chg = P.pull_power_iters_plain(dg, start, iters=iters,
                                                   **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(rank, again) and torch.equal(chg, again_chg)):
+            raise AssertionError(f"K4 {iters} rounds: two launches differ")
+        if not (torch.equal(rank, composed)
+                and torch.equal(chg, composed_chg)):
+            raise AssertionError(f"K4 {iters} rounds differ from their "
+                                 f"composition from K3")
         abs_err, rel_err = _errs(rank, want)
         if rel_err > rtol:
             raise AssertionError(f"K4 {iters} rounds: max rel err "
@@ -521,13 +552,22 @@ def phase_value_kernels(dg, dev):
                                                    **kw))
         plain = _median_ms(lambda: P.pull_power_iters_plain(
             dg, start, iters=iters, **kw), reps=3)
-        print(f"[kernels] K4 pull_power_iters {iters} rounds: max abs err "
+        prof = profile_run(lambda: P.pull_power_iters(
+            dg, start, iters=iters, **kw), TIMED_LAUNCHES, dev)
+        device = prof["device_ms"] or None
+        split = power_split(prof, iters)
+        print(f"[kernels] K4 pull_power_iters {iters} rounds: bitwise equal "
+              f"over two launches and to K3's composition; max abs err "
               f"{abs_err:.3e}, max rel err {rel_err:.3e} (rtol {rtol}); "
               f"change counts equal {chg.tolist()}; {ms:.4f} ms vs plain "
-              f"{plain:.4f} ms")
+              f"{plain:.4f} ms; device {_fmt_ms(device)}: tile rows "
+              f"{split['build']:.4f} ms a call apart from the rounds, pass 1 "
+              f"{split['pass1']:.4f} and the rest {split['rest']:.4f} ms a "
+              f"round")
         k4 = {"max_abs_err": max(k4.get("max_abs_err", 0.0), abs_err),
               "max_rel_err": max(k4.get("max_rel_err", 0.0), rel_err),
-              "ms": ms, "plain_ms": plain, "library_ms": None,
+              "ms": ms, "plain_ms": plain, "device_ms": device,
+              "build_device_ms": split["build"], "library_ms": None,
               # a round: rank, 1/out-degree, offsets and output vectors
               **bound(iters * pull_bytes(dg.num_edges, dg.v_pad, 4),
                       iters * (dg.num_edges + 3 * dg.v_pad))}

@@ -73,6 +73,16 @@
 // without the shared array that found each thread's row by a binary
 // search of csc_offsets.
 //
+// K4 runs K3's pass 1 a round, so its rounds equal K3 sum/mul/wpr
+// followed by the epilogue, bit for bit. Its finish is its own: the
+// epilogue, the count of changed rows a block at a time (an atomic a
+// warp on one counter queues when most rows move, as at threshold 0),
+// and the next round's folded values rank' * 1/out-degree, so only the
+// first round has a fold pass. A round of its own, with the rows'
+// structure built once a call and a persistent pass 1 fed by bulk
+// copies, was measured and dropped: its pass 1 was no faster than K3's
+// (PERF.md, section 6).
+//
 // K6 is K3's min pull with init = d, a sweep at a time, the change count
 // fused into pass 2. The TPU kernel is Gauss-Seidel: its blocks run in
 // order and update the distances in place, odd sweeps backward. Here a
@@ -504,17 +514,12 @@ gated_tiles_kernel(PullArgs a, GateArgs g) {
   pull_tiles<G>(a, g);
 }
 
-// Pass 2: per-row totals, then K3's out[v] = init[v] (+) total or K4's
-// epilogue; K4 and K6 also count the rows that changed.
+// Pass 2: per-row totals, then out[v] = init[v] (+) total; K6 also
+// counts the rows that changed.
 struct FinishArgs {
   const float* init;        // may be null
   float* out;
-  // K4 epilogue (used when rank_in is not null).
-  const float* rank_in;
-  int64_t num_nodes;
-  float damping, reset, threshold;
-  // One counter for this round or sweep (may be null): K4 counts
-  // |rank' - rank| > threshold, K6 the rows where out < init.
+  // One counter for this sweep (may be null): the rows where out < init.
   int32_t* changed;
 };
 
@@ -577,20 +582,12 @@ __device__ __forceinline__ void pull_finish(const PullArgs& a,
     bool moved = false;
     if (v < a.rows) {
       float acc = row_total<G>(a, g, v);
-      if (f.rank_in == nullptr) {
-        if (f.init != nullptr) {
-          const float old = __ldg(f.init + v);
-          acc = combine(a.op, old, acc);
-          moved = acc < old;
-        }
-        f.out[v] = acc;
-      } else {
-        const float fresh =
-            v < f.num_nodes ? __fadd_rn(f.reset, __fmul_rn(f.damping, acc))
-                            : 0.0f;
-        moved = fabsf(__fsub_rn(fresh, __ldg(f.rank_in + v))) > f.threshold;
-        f.out[v] = fresh;
+      if (f.init != nullptr) {
+        const float old = __ldg(f.init + v);
+        acc = combine(a.op, old, acc);
+        moved = acc < old;
       }
+      f.out[v] = acc;
     }
     // Integer counts are exact whatever the order of the atomics: one per
     // warp, of the warp's changed lanes. K6's rows that moved make their
@@ -615,6 +612,50 @@ __global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
 
 __global__ void gated_finish_kernel(PullArgs a, FinishArgs f, GateArgs g) {
   pull_finish<kSources>(a, f, g);
+}
+
+// K4's pass 2, a round: rank' = v < num_nodes ? reset + damping * total
+// : 0, the count of |rank' - rank| > threshold, and, where folded is not
+// null, the next round's folded values rank' * weights (fold_per_source's
+// product).
+struct PowerFinish {
+  const float* rank_in;
+  float* out;
+  float* folded;
+  int32_t* changed;
+  int64_t num_nodes;
+  float damping, reset, threshold;
+};
+
+__global__ void power_finish_kernel(PullArgs a, PowerFinish f) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int32_t moves = 0;  // lane 0's: the warp's
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < a.rows; base += stride) {
+    const int64_t v = base + lane;
+    bool moved = false;
+    if (v < a.rows) {
+      const float acc = row_total<kUngated>(a, GateArgs{}, v);
+      const float fresh =
+          v < f.num_nodes ? __fadd_rn(f.reset, __fmul_rn(f.damping, acc))
+                          : 0.0f;
+      moved = fabsf(__fsub_rn(fresh, __ldg(f.rank_in + v))) > f.threshold;
+      f.out[v] = fresh;
+      if (f.folded != nullptr) {
+        f.folded[v] = __fmul_rn(fresh, __ldg(a.weights + v));
+      }
+    }
+    moves += __popc(__ballot_sync(kFull, moved));
+  }
+  // Integer counts are exact in any order: a warp's, then the block's,
+  // then one atomic a block.
+  __shared__ int32_t block_moves;
+  if (threadIdx.x == 0) block_moves = 0;
+  __syncthreads();
+  if (lane == 0 && moves != 0) atomicAdd(&block_moves, moves);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_moves != 0) atomicAdd(f.changed, block_moves);
 }
 
 // K6's first sweep of a call: a group is active when one of its vertices
@@ -852,7 +893,9 @@ int gr_pull_reduce(const void* values, const void* indices,
 // K4. Round r reads init (r = 0) or the previous round's buffer and
 // writes ping (r even) or pong (r odd), so the last round lands in ping
 // when iters is odd and in pong when it is even. changed: (iters,) int32,
-// zeroed by the caller. Scratch as for gr_pull_reduce.
+// zeroed by the caller. Scratch as for gr_pull_reduce. Per-source
+// weights are folded into vscratch once; each round's finish but the
+// last folds the next round's.
 int gr_pull_power_iters(const void* init, void* ping, void* pong,
                         const void* indices, const void* offsets,
                         int64_t num_edges, int64_t rows, int64_t num_nodes,
@@ -864,21 +907,27 @@ int gr_pull_power_iters(const void* init, void* ping, void* pong,
                          wkind, kSum, kMul, tile_rows, rowval, head, tail,
                          vscratch);
   if (!valid_args(a, tile) || iters < 1) return (int)cudaErrorInvalidValue;
-  FinishArgs f = {};
+  PowerFinish f = {};
   f.num_nodes = num_nodes;
   f.damping = damping;
   f.reset = reset;
   f.threshold = threshold;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool per_source = wkind == kPerSource;
   launch_tile_rows(a, s);
+  fold_weights(a, s);  // per-source: a now pulls vscratch with f = none
   const float* in = (const float*)init;
   for (int r = 0; r < iters; ++r) {
     float* out = (float*)(r % 2 == 0 ? ping : pong);
-    a.values = in;
+    if (!per_source) a.values = in;
     f.rank_in = in;
     f.out = out;
+    f.folded = per_source && r + 1 < iters ? a.vscratch : nullptr;
     f.changed = (int32_t*)changed + r;
-    launch_pull(a, f, s);
+    if (num_edges > 0) {
+      pull_tiles_kernel<<<tile_blocks(num_edges), kThreads, 0, s>>>(a);
+    }
+    power_finish_kernel<<<blocks_for(rows), kThreads, 0, s>>>(a, f);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     in = out;

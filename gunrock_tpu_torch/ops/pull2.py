@@ -240,10 +240,13 @@ def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
     ``|rank' - rank| > threshold`` per round.
 
     Kernel K4 (replaces the Pallas ``pull_power_iters``,
-    ``gunrock_tpu/ops/pull2.py:842``): each round is K3's sum pull with
-    the epilogue fused (the ``wpr`` weights folded into the rank once a
-    vertex first), enqueued on the current stream with no host read; two
-    rank buffers ping-pong, and the last round's is returned."""
+    ``gunrock_tpu/ops/pull2.py:842``): each round is K3's pass 1 (sum,
+    the ``wpr`` weights folded into the rank once a vertex first) and a
+    finish of K4's own, the epilogue, the change count and the next
+    round's fold fused, enqueued on the current stream with no host read;
+    each round equals :func:`pull_reduce2` (sum, ``mul``) followed by the
+    epilogue bit for bit. Two rank buffers ping-pong, and the last
+    round's is returned."""
     if not _route(init, graph.csc_indices):
         return pull_power_iters_plain(graph, init, iters=iters,
                                       damping=damping, reset=reset,

@@ -23,7 +23,13 @@ then ``--reps`` calls under ``torch.profiler``):
     count on the device, in a buffer of v_pad lanes (the shapes of
     ``chip_smoke.py`` phase 14), and ``index_reduce_`` amin of the same;
   * K4 ``pull_power_iters``: 20 PageRank rounds from 1/n (phase 9's
-    shape), the pass K3 shares;
+    shape) at threshold 0 and at 1e-6, each split on the card into the
+    tile rows (once a call), K3's pass 1 a round and the rest of a round
+    (the folds, the finish and the counts' fill);
+  * the PageRank power route as a user calls it: ``pagerank`` with its
+    defaults (threshold 1e-6, at most 50 rounds, K4 calls of 10 rounds
+    with a host read after each) on the graph uploaded
+    ``with_blocked_values``;
   * K6 ``pull_min_sweeps``: 6 sweeps add/val from the largest-degree
     vertex (phase 14), its first sweep alone, and 3 sweeps continuing
     from the distances of 3 plain sweeps (every finite source active
@@ -52,6 +58,7 @@ import torch
 
 from ..graph.device import sync, to_device
 from ..io import rmat
+from ..models.pr import pagerank
 from ..ops import kernels as K
 from ..ops import pull2 as P
 from .profile_value import print_profile, profile_run
@@ -105,6 +112,20 @@ def brandes_source(dg, src: int, levels: int = 8):
     return delta
 
 
+def power_split(r: dict, rounds: int) -> dict:
+    """K4's device time from a :func:`profile_run` of one call, by part:
+    ``build`` the tile rows a call (``tile_rows_kernel``), ``pass1`` K3's
+    pass 1 a round (``pull_tiles_kernel``) and ``rest`` everything else a
+    round (the folds, the finish, the counts' fill). The launches run one
+    after another on one stream, so the parts add up to the device
+    time."""
+    def part(key):
+        return sum(ms for ev, _, ms in r["events"] if key in ev)
+    build, pass1 = part("tile_rows"), part("pull_tiles")
+    return {"build": build, "pass1": pass1 / rounds,
+            "rest": (r["device_ms"] - build - pass1) / rounds}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -144,6 +165,8 @@ def main(argv=None) -> int:
     seed[hub] = 0.0
     mid, _ = P.pull_min_sweeps_plain(dg, seed, sweeps=3)
     n = dg.num_nodes
+    dg_pr = to_device(g, with_csc=True, with_blocked_values=True,
+                      device=args.device)
     rank0 = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
                         0.0)
     cases = (
@@ -158,6 +181,11 @@ def main(argv=None) -> int:
         ("K4 pull_power_iters, 20 rounds",
          lambda: P.pull_power_iters(dg, rank0, iters=20, damping=0.85,
                                     reset=0.15 / n)),
+        ("K4 pull_power_iters, 20 rounds at threshold 1e-6",
+         lambda: P.pull_power_iters(dg, rank0, iters=20, damping=0.85,
+                                    reset=0.15 / n, threshold=1e-6)),
+        ("PageRank power route, pagerank's defaults",
+         lambda: pagerank(dg_pr)),
         ("K6 pull_min_sweeps, 6 sweeps add/val from the hub",
          lambda: P.pull_min_sweeps(dg, seed, sweeps=6)),
         ("K6 pull_min_sweeps, the first sweep from the hub",
@@ -169,8 +197,14 @@ def main(argv=None) -> int:
     )
     for name, fn in cases:
         host = host_ms(fn, args.reps, dev)
+        r = profile_run(fn, args.reps, dev)
         print_profile("profile_pull", f"{name} (host {host:.4f} ms a call)",
-                      profile_run(fn, args.reps, dev))
+                      r)
+        if name.startswith("K4 pull_power_iters") and r["device_ms"] > 0:
+            split = power_split(r, 20)
+            print(f"[profile_pull]   K4 split: tile rows {split['build']:.4f}"
+                  f" ms a call; pass 1 {split['pass1']:.4f} ms a round; the "
+                  f"rest {split['rest']:.4f} ms a round")
     if dev.type == "cuda":
         # K8's host path in three cuts: the wrapper, its launch helper
         # with the arguments ready, and the C entry point alone.

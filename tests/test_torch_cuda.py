@@ -268,6 +268,97 @@ def test_pull_power_iters_kernel_equals_plain(cuda, iters):
     assert torch.equal(chg, want_chg)
 
 
+def _boundary_graph(cuda):
+    """Empty rows at tile boundaries: rows 0-4 empty before the first
+    edge, rows ending exactly at the first three tile ends with empty
+    rows after them, a row holding a tile's last edge alone, two whole
+    tiles in one row."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    tile = P.PULL_TILE
+    deg = np.zeros(64, np.int64)
+    deg[5], deg[12], deg[13] = tile, tile - 3, 3
+    deg[20], deg[21], deg[22] = tile - 1, 1, 2 * tile
+    rng = np.random.default_rng(11)
+    dst = np.repeat(np.arange(64), deg)
+    src = rng.integers(0, 64, dst.shape[0])
+    vals = rng.uniform(0.0, 64.0, dst.shape[0]).astype(np.float32)
+    return gtt.to_device(gtt.from_coo(64, src, dst, vals, dedup=False,
+                                      remove_self_loops=False),
+                         with_csc=True, with_edge_values=True,
+                         with_blocked_values=True, device=cuda)
+
+
+def _below_tile_graph(cuda):
+    from gunrock_tpu_torch.ops import pull2 as P
+    rng = np.random.default_rng(9)
+    m = P.PULL_TILE - 3
+    src, dst = rng.integers(0, 700, m), rng.integers(0, 700, m)
+    vals = rng.uniform(0.0, 8.0, m).astype(np.float32)
+    return gtt.to_device(gtt.from_coo(700, src, dst, vals, dedup=False,
+                                      remove_self_loops=False),
+                         with_csc=True, with_edge_values=True,
+                         with_blocked_values=True, device=cuda)
+
+
+def _power_graph(cuda, name):
+    if name == "rmat":
+        return _value_graph(cuda)[1]
+    if name.startswith("tile"):
+        return _tile_graph(cuda, int(name[4:]))
+    return {"below_tile": _below_tile_graph,
+            "boundaries": _boundary_graph}[name](cuda)
+
+
+POWER_GRAPHS = ["rmat", "tile1", "tile3", "below_tile", "boundaries"]
+
+
+def _power_k3(g, rank, *, iters, damping, reset, threshold, weights):
+    """K4's rounds composed from K3: pull_reduce2 sum/mul, then the
+    epilogue and the change count in torch (float32, one rounding an
+    operation, as the kernel's _rn intrinsics)."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    vmask = torch.arange(g.v_pad, device=rank.device) < g.num_nodes
+    d32 = torch.tensor(damping, dtype=torch.float32, device=rank.device)
+    r32 = torch.tensor(reset, dtype=torch.float32, device=rank.device)
+    changed = []
+    for _ in range(iters):
+        acc = P.pull_reduce2(rank, g, op="sum", wmode="mul", weights=weights)
+        fresh = torch.where(vmask, r32 + d32 * acc, 0.0)
+        changed.append(((fresh - rank).abs() > threshold).sum())
+        rank = fresh
+    return rank, torch.stack(changed).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["wpr", "val"])
+@pytest.mark.parametrize("iters", [1, 4, 7, 20])
+@pytest.mark.parametrize("name", POWER_GRAPHS)
+def test_pull_power_iters_kernel_equals_k3_composition(cuda, name, iters,
+                                                       weights):
+    """K4 bitwise equal to its composition from K3 and to a second launch,
+    with equal change counts, on R-MAT and the tile edge-case graphs: a
+    hub row over three tiles and more at 1 and 3 edges mod 4, fewer edges
+    than one tile, empty rows at tile boundaries."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    g = _power_graph(cuda, name)
+    n = g.num_nodes
+    rng = np.random.default_rng(iters)
+    init = torch.from_numpy(np.where(
+        np.arange(g.v_pad) < n, rng.uniform(0.5, 1.5, g.v_pad) / n,
+        0.0).astype(np.float32)).to(cuda)
+    kw = dict(iters=iters, damping=0.85, reset=0.15 / n, threshold=1e-7,
+              weights=weights)
+    before = K.LAUNCHES["pull_power_iters"]
+    rank, chg = P.pull_power_iters(g, init, **kw)
+    again, again_chg = P.pull_power_iters(g, init, **kw)
+    want, want_chg = _power_k3(g, init, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_power_iters"] == before + 2
+    assert torch.equal(rank, again) and torch.equal(chg, again_chg)
+    assert torch.equal(rank, want)
+    assert torch.equal(chg, want_chg)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prim", ["pagerank", "hits", "salsa"])
 def test_value_primitives_on_cuda_equal_cpu(cuda, prim):

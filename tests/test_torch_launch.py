@@ -92,6 +92,8 @@ def _wrapper_calls(name, g):
                                                    weights="wpr"),
         "pull_power_iters": lambda: P.pull_power_iters(
             g, f32, iters=3, damping=0.85, reset=0.1),
+        "pull_power_iters_val": lambda: P.pull_power_iters(
+            g, f32, iters=2, damping=0.85, reset=0.1, weights="val"),
         "pull_min_sweeps": lambda: P.pull_min_sweeps(g, f32, sweeps=2),
         "brandes_fwd_levels": lambda: P.brandes_fwd_levels(g, f32, f32,
                                                            d0=1, levels=2),
@@ -116,6 +118,7 @@ WRAPPERS = {
     "pull_reduce2": ("gr_pull_reduce", "pull_reduce2"),
     "pull_reduce2_wpr": ("gr_pull_reduce", "pull_reduce2"),
     "pull_power_iters": ("gr_pull_power_iters", "pull_power_iters"),
+    "pull_power_iters_val": ("gr_pull_power_iters", "pull_power_iters"),
     "pull_min_sweeps": ("gr_pull_min_sweeps", "pull_min_sweeps"),
     "brandes_fwd_levels": ("gr_brandes_levels", "brandes_levels"),
     "brandes_bwd_levels": ("gr_brandes_levels", "brandes_levels"),
@@ -171,9 +174,11 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
                               "--winners=50", "--reps=2",
                               "--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 11 and "|E|=" in lines[0]
+    assert len(lines) == 13 and "|E|=" in lines[0]
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
-    assert "K4" in lines[6] and "K9" in lines[10]
-    assert all("K6 pull_min_sweeps" in line for line in lines[7:10])
+    assert all("K4 pull_power_iters" in line for line in lines[6:8])
+    assert "threshold 1e-6" in lines[7] and "PageRank power" in lines[8]
+    assert all("K6 pull_min_sweeps" in line for line in lines[9:12])
+    assert "K9" in lines[12]
