@@ -69,9 +69,11 @@ script exits non-zero:
     phase 3's.
 14. K5-K8 against their plain versions at the shapes of the path's
     largest push round (K6 at 6 sweeps from the source, add, incr and
-    none): exact, K7's sum within rtol 1e-6 and bitwise over two
-    launches. Median times; for K8 and ``index_reduce_`` also the device
-    time a call. K6's tiles reduced and active edges a sweep, by its skip
+    none): exact, K7's sums within rtol 1e-6 and bitwise over two
+    launches, also BC's backward sum by source over that frontier with
+    the source vertex added, whose run spans many of K7's tiles. Median
+    times; for K5, K7, K8 and ``index_reduce_`` also the device time a
+    call. K6's tiles reduced and active edges a sweep, by its skip
     rule, and its bound over those edges beside the full-sweep one.
 15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
     near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
@@ -126,8 +128,10 @@ K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
 The ``ms`` of every kernel is the CUDA-event time of a call, host path
 included where the card waits on it; K3 and K8 also carry ``device_ms``
 and ``library_device_ms``, the device time of a call of the kernel and
-of its library call (:func:`_device_ms`), and K4 its ``device_ms`` and
-``build_device_ms``, the device time of its tile rows a call.
+of its library call (:func:`_device_ms`), K4 its ``device_ms`` and
+``build_device_ms``, the device time of its tile rows a call, K5 the
+device time of a round's pair and K7 that of its min with aux and
+(``ring_device_ms``) of BC's ring sum.
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -850,7 +854,15 @@ def phase_sssp_kernels(dg, src, dist, dev):
            + _median_ms(lambda: dg.edge_values.index_select(0, ex.eid))
            + _median_ms(lambda: half.index_select(0, ex.src)))
 
-    # K7: the fused round's min with aux, and a sum, on the sorted lanes.
+    out["sample_sorted"]["device_ms"] = _device_ms(
+        lambda: (K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid),
+                 K.sample_sorted(half, ex.src)))
+    print(f"[kernels] sample_sorted device time (torch.profiler): "
+          f"{_fmt_ms(out['sample_sorted']['device_ms'])} a round's pair")
+
+    # K7: the fused round's min with aux, and a sum, on the sorted lanes;
+    # then BC's backward sum by source over the frontier with the source
+    # vertex (the largest degree) added, whose run spans many tiles.
     dst, w = two
     sd, order = torch.sort(dst, stable=True)
     cand = (one + w)[order]
@@ -858,35 +870,70 @@ def phase_sssp_kernels(dg, src, dist, dev):
     kw_min = dict(op="min", out_lanes=min(dg.e_pad, dg.v_pad), aux=aux)
     kw_sum = dict(op="sum", out_lanes=dg.v_pad)
     finite = torch.where(torch.isfinite(cand), cand, 0.0)
+    ring = expand(dg, torch.unique(torch.cat([frontier, torch.tensor(
+        [src], dtype=torch.int32, device=dev)])), with_dst=False)
+    add = torch.from_numpy(rng.random(ring.total, dtype=np.float32)).to(dev)
+    kw_ring = dict(op="sum", out_lanes=min(ring.total, dg.v_pad) + 128)
+    at = torch.nonzero(ring.src == src).flatten()
+    hub_lanes = at.shape[0]
+    hub_tiles = int(at[-1]) // K.REDUCE_TILE - int(at[0]) // K.REDUCE_TILE + 1
     ids, vals, cnt = K.reduce_by_dst_sorted(sd, cand, **kw_min)
     again = K.reduce_by_dst_sorted(sd, cand, **kw_min)
     want = K.reduce_by_dst_sorted_plain(sd, cand, **kw_min)
-    sids, svals, scnt = K.reduce_by_dst_sorted(sd, finite, **kw_sum)
-    sagain = K.reduce_by_dst_sorted(sd, finite, **kw_sum)
-    swant = K.reduce_by_dst_sorted_plain(sd, finite, **kw_sum)
+    sums = {}
+    for label, keys, x, kw in (("sum", sd, finite, kw_sum),
+                               ("ring", ring.src, add, kw_ring)):
+        sums[label] = (K.reduce_by_dst_sorted(keys, x, **kw),
+                       K.reduce_by_dst_sorted(keys, x, **kw),
+                       K.reduce_by_dst_sorted_plain(keys, x, **kw))
     torch.cuda.synchronize()
-    k, ks = int(cnt), int(scnt)
-    if k != int(want[2]) or ks != int(swant[2]) or k == 0:
-        raise AssertionError(f"K7 counts {k}, {ks} vs {int(want[2])}, "
-                             f"{int(swant[2])}")
+    k = int(cnt)
+    if k != int(want[2]) or k == 0:
+        raise AssertionError(f"K7 count {k} vs {int(want[2])}")
     if not (torch.equal(ids[:k], want[0][:k]) and
-            torch.equal(vals[:k], want[1][:k]) and
-            torch.equal(sids[:ks], swant[0][:ks])):
+            torch.equal(vals[:k], want[1][:k])):
         raise AssertionError("K7 ids or min values differ")
-    if not (torch.equal(vals[:k], again[1][:k]) and
-            torch.equal(svals[:ks], sagain[1][:ks])):
+    if not torch.equal(vals[:k], again[1][:k]):
         raise AssertionError("K7: two launches differ")
-    serr, srel = _errs(svals[:ks], swant[1][:ks])
-    if srel > 1e-6:
-        raise AssertionError(f"K7 sum: max rel err {srel:.3e}")
-    report("reduce_by_dst_sorted", serr,
+    rel = {}
+    for label, (got, got2, swant) in sums.items():
+        ks = int(got[2])
+        if ks != int(swant[2]) or ks != int(got2[2]) or \
+                not torch.equal(got[0][:ks], swant[0][:ks]):
+            raise AssertionError(f"K7 {label}: ids or count differ")
+        if not torch.equal(got[1][:ks], got2[1][:ks]):
+            raise AssertionError(f"K7 {label}: two launches differ")
+        rel[label] = _errs(got[1][:ks], swant[1][:ks])
+        if rel[label][1] > 1e-6:
+            raise AssertionError(f"K7 {label}: max rel err "
+                                 f"{rel[label][1]:.3e}")
+    m = sd.shape[0]
+    runs = int((sd[1:] != sd[:-1]).sum()) + 1
+    # keys and values once, aux at the run tails, the kept runs written
+    work = bound(8 * m + 4 * runs + 8 * k + 4, m)
+    every_lane = bound(12 * m + 8 * k + 4, m)
+    report("reduce_by_dst_sorted", rel["sum"][0],
            _median_ms(lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min)),
            _median_ms(lambda: K.reduce_by_dst_sorted_plain(sd, cand,
                                                            **kw_min), reps=5),
-           f"{sd.shape[0]} lanes, {k} improving runs of {ks}; min exact, "
-           f"sum max rel err {srel:.3e}, bitwise over two launches "
-           f"(time: min with aux)",
-           bound(12 * sd.shape[0] + 8 * k + 4, sd.shape[0]))
+           f"{m} lanes, {k} improving runs of {runs}; min exact, sum max "
+           f"rel err {rel['sum'][1]:.3e}, bitwise over two launches; BC's "
+           f"ring by source, {ring.total} lanes, the source's run "
+           f"{hub_lanes} lanes over {hub_tiles} tiles, max rel err "
+           f"{rel['ring'][1]:.3e}, bitwise over two launches (time: min "
+           f"with aux)", work)
+    print(f"[kernels] reduce_by_dst_sorted bound: {work['bound_ms']:.4f} ms "
+          f"for 8 m + 4 runs + 8 k + 4 bytes; {every_lane['bound_ms']:.4f} "
+          f"ms for 12 m + 8 k + 4 (aux at every lane)")
+    out["reduce_by_dst_sorted"]["device_ms"] = _device_ms(
+        lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min))
+    out["reduce_by_dst_sorted"]["ring_device_ms"] = _device_ms(
+        lambda: K.reduce_by_dst_sorted(ring.src, add, **kw_ring))
+    print(f"[kernels] reduce_by_dst_sorted device time (torch.profiler): "
+          f"{_fmt_ms(out['reduce_by_dst_sorted']['device_ms'])} a call, min "
+          f"with aux; "
+          f"{_fmt_ms(out['reduce_by_dst_sorted']['ring_device_ms'])} BC's "
+          f"ring sum")
 
     # K8: the fused round's min, and add; float32 and int32.
     ints = torch.from_numpy(rng.integers(-1000, 1000, dg.v_pad,

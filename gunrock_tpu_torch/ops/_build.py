@@ -47,7 +47,7 @@ SIGNATURES = {
     "gr_pull_min_sweeps": "pppppqqpiiiippppppppp",
     "gr_brandes_levels": "pppppqqiiiippppppppp",
     "gr_sample_sorted": "ppqpiqppp",
-    "gr_reduce_by_dst_sorted": "pppqiiqppppppppp",
+    "gr_reduce_by_dst_sorted": "pppqiiqppppp",
     "gr_scatter_sorted": "pqppqpqiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int,

@@ -37,7 +37,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "sample_sorted", "sample_sorted_plain", "sample_sorted2",
            "sample_sorted2_plain", "reduce_by_dst_sorted",
            "reduce_by_dst_sorted_plain", "scatter_sorted",
-           "scatter_sorted_plain", "REDUCE_CHUNK"]
+           "scatter_sorted_plain", "REDUCE_TILE"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
 # every CUDA kernel of the port: K1, K2, K10, K5 (both wrappers), K7 and
@@ -49,10 +49,10 @@ LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
             "reduce_by_dst_sorted": 0, "scatter_sorted": 0,
             "brandes_levels": 0}
 
-# Stream lanes per warp chunk in K7 (a multiple of 32). It fixes the
-# order of every sum, so two launches on the same input agree bit for
-# bit.
-REDUCE_CHUNK = 1024
+# Stream lanes a block of K7 reduces (kReduceTile in
+# csrc/sssp_kernels.cu, which refuses any other). It fixes the order of
+# every sum, so two launches on the same input agree bit for bit.
+REDUCE_TILE = 2048
 
 # Ids a block of K10 scans (kTile in csrc/bfs_kernels.cu): the wrapper
 # allocates one tile-offset slot for each; the kernel refuses fewer.
@@ -353,6 +353,14 @@ def reduce_by_dst_sorted_plain(sd: torch.Tensor, vals: torch.Tensor, *,
                                     device=dev)
 
 
+def _reduce_state(m: int, device: torch.device) -> torch.Tensor:
+    """K7's tile states for ``m`` lanes: the tile counter, then a head
+    partial, a tail partial and a count a tile, 64-bit words that the
+    entry point zeroes before its launch."""
+    return torch.empty(1 + 3 * -(-m // REDUCE_TILE), dtype=torch.int64,
+                       device=device)
+
+
 def reduce_by_dst_sorted(sd: torch.Tensor, vals: torch.Tensor, *,
                          op: str = "min", out_lanes: int,
                          aux: Optional[torch.Tensor] = None):
@@ -384,21 +392,14 @@ def reduce_by_dst_sorted(sd: torch.Tensor, vals: torch.Tensor, *,
             raise ValueError(f"{name} must be a contiguous float32 tensor "
                              f"on {dev}; got {t.dtype} on {t.device}")
     m = sd.shape[0]
-    nchunks = max(1, -(-m // REDUCE_CHUNK))
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    part = torch.empty(max(m, 1), **f32)
-    headp, tailp = torch.empty(nchunks, **f32), torch.empty(nchunks, **f32)
-    cnt, offs = torch.empty(nchunks, **i32), torch.empty(nchunks, **i32)
-    ids = torch.empty(out_lanes, **i32)
-    rvals = torch.empty(out_lanes, **f32)
-    count = torch.empty((), **i32)
+    state = _reduce_state(m, dev)
+    ids = torch.empty(out_lanes, dtype=torch.int32, device=dev)
+    rvals = torch.empty(out_lanes, dtype=torch.float32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
     _launch(_build.load().gr_reduce_by_dst_sorted, sd.data_ptr(),
             vals.data_ptr(), 0 if aux is None else aux.data_ptr(), m,
-            _REDUCE_OPS[op], REDUCE_CHUNK, out_lanes, part.data_ptr(),
-            headp.data_ptr(), tailp.data_ptr(), cnt.data_ptr(),
-            offs.data_ptr(), ids.data_ptr(), rvals.data_ptr(),
-            count.data_ptr(), device=dev)
+            _REDUCE_OPS[op], REDUCE_TILE, out_lanes, state.data_ptr(),
+            ids.data_ptr(), rvals.data_ptr(), count.data_ptr(), device=dev)
     LAUNCHES["reduce_by_dst_sorted"] += 1
     return ids, rvals, count
 

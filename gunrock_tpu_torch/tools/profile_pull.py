@@ -36,11 +36,24 @@ then ``--reps`` calls under ``torch.profiler``):
     at the call's start);
   * K9 ``brandes_fwd_levels`` / ``brandes_bwd_levels``: one BC source
     from that vertex, forward levels in calls of 8 until one labels
-    nobody, then the backward rings (phase 19; a host read a call).
+    nobody, then the backward rings (phase 19; a host read a call);
+  * K5 and K7 at the push round of ``chip_smoke.py`` phase 14 (the same
+    frontier: vertices taken in a seeded random order while their degree
+    sum stays under E / 16, sorted; half of the SSSP distances from that
+    vertex set to +inf): K5's pair (``sample_sorted2`` of the columns and
+    weights at the edge ids, ``sample_sorted`` of the distances at the
+    sources), K7's min with aux on the lanes sorted by destination, and
+    K7's sum by source (BC's backward ring) over that frontier with the
+    largest-degree vertex added, whose run spans many of K7's tiles.
 
-Each prints wall and device time a call and the device events, and
+``--only`` keeps the cases whose name holds one of its words (``K5``,
+``K7``, ...).
+
+Each prints wall and device time a call and the device events,
 ``host``: the median time until a call returns unfenced, over ``--reps``
-calls (the host path alone, the device work being asynchronous). On the
+calls (the host path alone, the device work being asynchronous), and
+``call``: the median time of a call between two CUDA events, the host
+path included where the card waits on it (``chip_smoke.py``'s ``ms``). On the
 card it then splits K8's host path: the wrapper, ``_launch`` with the
 arguments ready, and the C entry point alone. On the CPU the profiler
 records no device events, and device prints as "not measured".
@@ -61,6 +74,7 @@ from ..io import rmat
 from ..models.pr import pagerank
 from ..ops import kernels as K
 from ..ops import pull2 as P
+from ..ops.advance import expand
 from .profile_value import print_profile, profile_run
 
 
@@ -84,6 +98,25 @@ def host_ms(fn, reps: int, device: torch.device) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
         sync(device)
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int, device: torch.device):
+    """Median time of a call on the card's clock (a CUDA event before and
+    after, the host path included where the card waits on it), after a
+    warm-up, as ``chip_smoke.py`` times a kernel; None off the card."""
+    if device.type != "cuda":
+        return None
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return float(np.median(times))
 
 
@@ -126,6 +159,43 @@ def power_split(r: dict, rounds: int) -> dict:
             "rest": (r["device_ms"] - build - pass1) / rounds}
 
 
+def sssp_distances(dg, src: int) -> torch.Tensor:
+    """SSSP distances from ``src`` by K6 sweeps to their fixpoint."""
+    d = torch.full((dg.v_pad,), float("inf"), device=dg.device)
+    d[src] = 0.0
+    while True:
+        d, chg = P.pull_min_sweeps(dg, d, sweeps=6)
+        if int(chg[-1]) == 0:
+            return d
+
+
+def push_round(dg, hub: int) -> dict:
+    """The inputs of K5 and K7 at ``chip_smoke.py`` phase 14's push round,
+    and a BC-like sum by source over the same frontier with ``hub``
+    added."""
+    rng = np.random.default_rng(1)
+    dev = dg.device
+    deg = (dg.row_offsets[1:] - dg.row_offsets[:-1]).long()
+    perm = torch.from_numpy(rng.permutation(dg.num_nodes)).to(dev)
+    take = torch.cumsum(deg[perm], 0) <= dg.num_edges // 16
+    frontier = torch.sort(perm[take]).values.to(torch.int32)
+    ex = expand(dg, frontier, with_dst=False)
+    dist = sssp_distances(dg, hub)
+    half = torch.where(torch.from_numpy(rng.random(dg.v_pad) < 0.5).to(dev),
+                       float("inf"), dist)
+    dst, w = K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid)
+    sd, order = torch.sort(dst, stable=True)
+    cand = (K.sample_sorted(half, ex.src) + w)[order]
+    with_hub = torch.unique(torch.cat([frontier, torch.tensor(
+        [hub], dtype=torch.int32, device=dev)]))
+    exh = expand(dg, with_hub, with_dst=False)
+    add = torch.from_numpy(rng.random(exh.total, dtype=np.float32)).to(dev)
+    return {"ex": ex, "half": half, "sd": sd, "cand": cand,
+            "aux": half[sd.long()], "out_min": min(dg.e_pad, dg.v_pad),
+            "src": exh.src, "add": add,
+            "out_sum": min(exh.total, dg.v_pad) + 128}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -133,6 +203,7 @@ def main(argv=None) -> int:
     p.add_argument("--winners", type=int, default=135_241)
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--only", nargs="*", default=None)
     args = p.parse_args(argv)
     g = rmat(scale=args.scale, edge_factor=args.edge_factor, seed=1,
              undirected=True)
@@ -195,17 +266,38 @@ def main(argv=None) -> int:
         ("K9 brandes_levels, one source from the hub",
          lambda: brandes_source(dg, hub)),
     )
+    pr = push_round(dg, hub)
+    ex = pr["ex"]
+    cases += (
+        (f"K5 sample_sorted2 + sample_sorted, a push round's payload, "
+         f"{ex.total} lanes",
+         lambda: (K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid),
+                  K.sample_sorted(pr["half"], ex.src))),
+        (f"K7 reduce_by_dst_sorted min with aux, {pr['sd'].shape[0]} lanes",
+         lambda: K.reduce_by_dst_sorted(pr["sd"], pr["cand"], op="min",
+                                        out_lanes=pr["out_min"],
+                                        aux=pr["aux"])),
+        (f"K7 reduce_by_dst_sorted sum by source with the hub, "
+         f"{pr['src'].shape[0]} lanes",
+         lambda: K.reduce_by_dst_sorted(pr["src"], pr["add"], op="sum",
+                                        out_lanes=pr["out_sum"])),
+    )
+    if args.only:
+        cases = tuple(c for c in cases
+                      if any(word in c[0] for word in args.only))
     for name, fn in cases:
         host = host_ms(fn, args.reps, dev)
+        call = call_ms(fn, args.reps, dev)
+        call = "not measured" if call is None else f"{call:.4f} ms"
         r = profile_run(fn, args.reps, dev)
-        print_profile("profile_pull", f"{name} (host {host:.4f} ms a call)",
-                      r)
+        print_profile("profile_pull", f"{name} (host {host:.4f} ms a call, "
+                      f"call {call})", r)
         if name.startswith("K4 pull_power_iters") and r["device_ms"] > 0:
             split = power_split(r, 20)
             print(f"[profile_pull]   K4 split: tile rows {split['build']:.4f}"
                   f" ms a call; pass 1 {split['pass1']:.4f} ms a round; the "
                   f"rest {split['rest']:.4f} ms a round")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not args.only:
         # K8's host path in three cuts: the wrapper, its launch helper
         # with the arguments ready, and the C entry point alone.
         from ..ops import _build

@@ -3,6 +3,7 @@ card, and how long the card idles.
 
     python -m gunrock_tpu_torch.tools.profile_sssp [--scale 20]
         [--edge-factor 32] [--grid-side 1024] [--runs 3] [--device cuda]
+        [--only WORD ...]
 
 Builds the graphs of ``chip_smoke.py`` phases 11-13: R-MAT (``--scale``,
 ``--edge-factor``, seed 1, undirected) with ``random_edge_values(seed=7)``,
@@ -20,22 +21,30 @@ then ``--runs`` runs under ``torch.profiler``; one run on the grid):
   * DO-BFS on the R-MAT from the same vertex, pulling through kernel K10
     (the graph above has no blocked CSC) and through K1 (the R-MAT
     uploaded ``with_blocked_csc``), and DO-BFS on the grid from 0 (the
-    deep micro-loop).
+    deep micro-loop);
+  * BC (``bc_device``) on the R-MAT from the same vertex, the hybrid
+    route and the hybrid fused (kernels K5, K7, K8 on its push levels),
+    as ``chip_smoke.py`` phase 20 times them (``GUNROCK_BC_PULL2=0``).
 
-Each prints wall, device time and busy share (device / wall) a run, and
-the largest device events. The unprofiled times are ``chip_smoke.py``
-phases 15 and 23.
+Each prints ``best``, the best of ``--runs`` unprofiled runs fenced by a
+device synchronize, then wall, device time and busy share (device /
+wall) a profiled run, and the largest device events. ``--only`` keeps
+the cases whose name holds one of its words.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
+from unittest.mock import patch
 
 import numpy as np
 
 from ..graph.csr import from_coo
-from ..graph.device import to_device
+from ..graph.device import sync, to_device
 from ..io import rmat
+from ..models.bc import bc_device
 from ..models.bfs import bfs_device
 from ..models.sssp import sssp_device
 from .profile_value import print_profile, profile_run
@@ -51,6 +60,27 @@ def grid(n: int):
     return from_coo(n * n, src, dst, undirected=True)
 
 
+def with_env(fn, **env):
+    """``fn`` run with the environment variables ``env`` set."""
+    def run():
+        with patch.dict(os.environ, env):
+            return fn()
+    return run
+
+
+def best_ms(fn, runs: int, device) -> float:
+    """Best of ``runs`` fenced runs of ``fn`` after a warm-up run."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -58,6 +88,7 @@ def main(argv=None) -> int:
     p.add_argument("--grid-side", type=int, default=1024)
     p.add_argument("--runs", type=int, default=3)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--only", nargs="*", default=None)
     args = p.parse_args(argv)
     g = rmat(scale=args.scale, edge_factor=args.edge_factor, seed=1,
              undirected=True)
@@ -92,10 +123,19 @@ def main(argv=None) -> int:
          lambda: bfs_device(dgb, src, direction_optimized=True)),
         ("DO-bfs grid", 1,
          lambda: bfs_device(dgw, 0, direction_optimized=True)),
+        ("bc hybrid", args.runs,
+         with_env(lambda: bc_device(dg, src), GUNROCK_BC_PULL2="0")),
+        ("bc hybrid fused", args.runs,
+         with_env(lambda: bc_device(dg, src, fused=True),
+                  GUNROCK_BC_PULL2="0")),
     )
+    if args.only:
+        cases = tuple(c for c in cases
+                      if any(word in c[0] for word in args.only))
     for name, runs, fn in cases:
-        print_profile(name, f"{runs} profiled runs",
-                      profile_run(fn, runs, dev), top=TOP_EVENTS)
+        best = best_ms(fn, runs, dev)
+        print_profile(name, f"best {best:.3f} ms of {runs}; {runs} profiled "
+                      f"runs", profile_run(fn, runs, dev), top=TOP_EVENTS)
     return 0
 
 

@@ -417,25 +417,55 @@ def test_sample_sorted_kernel_equals_plain(cuda, two, pos64):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("pos64", [False, True])
+@pytest.mark.parametrize("n", range(1, 10))
+def test_sample_sorted_kernel_small_and_unaligned(cuda, n, pos64, two):
+    """K5 at 1-9 positions (the quads and the last n % 4 positions), with
+    the positions and the arrays 0-3 elements (4-12 bytes) off a 16-byte
+    boundary, positions out of range on both sides, one and two arrays."""
+    rng = np.random.default_rng(n)
+    length = 50
+    for off in range(4):
+        a = torch.from_numpy(rng.random(length + off).astype(np.float32))
+        b = torch.from_numpy(rng.integers(-9, 9, length + off,
+                                          dtype=np.int32))
+        a, b = a.to(cuda)[off:], b.to(cuda)[off:]
+        p = np.sort(rng.integers(-3, length + 3, n + off))
+        pos = torch.from_numpy(p.astype(np.int64 if pos64 else np.int32))
+        pos = pos.to(cuda)[off:]
+        assert pos.data_ptr() % 16 == (off * pos.element_size()) % 16
+        if two:
+            got = K.sample_sorted2(b, a, pos)
+            want = K.sample_sorted2_plain(b, a, pos)
+        else:
+            got = (K.sample_sorted(a, pos),)
+            want = (K.sample_sorted_plain(a, pos),)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (off, x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["min", "sum", "filtered", "overflow",
                                   "giant", "aligned", "empty"])
 def test_reduce_by_dst_sorted_kernel_equals_plain(cuda, case):
     """ids and count exact, min exact, sum within rtol 1e-6 of the float64
     plain version, bitwise equal over two launches. ``aligned``: runs
-    that begin exactly at a chunk's first lane and span several chunks."""
+    that begin exactly at a tile's first lane and span several tiles."""
     g = torch.Generator(device=cuda).manual_seed(3)
     m, nv, out_lanes = {"min": (3_000_000, 200_000, 200_000),
                         "sum": (3_000_000, 200_000, 200_000),
                         "filtered": (3_000_000, 200_000, 200_000),
                         "overflow": (500_000, 400_000, 1000),
                         "giant": (300_000, 3, 16),
-                        "aligned": (40 * K.REDUCE_CHUNK, 10, 16),
+                        "aligned": (40 * K.REDUCE_TILE, 10, 16),
                         "empty": (0, 1, 16)}[case]
     sd = torch.sort(torch.randint(0, nv, (m,), generator=g, device=cuda,
                                   dtype=torch.int32)).values
-    if case == "aligned":     # run i covers chunks 4i..4i+3
+    if case == "aligned":     # run i covers tiles 4i..4i+3
         sd = torch.arange(m, device=cuda, dtype=torch.int32) // (
-            4 * K.REDUCE_CHUNK)
+            4 * K.REDUCE_TILE)
     vals = torch.rand(m, generator=g, device=cuda) * 10
     aux = None
     if case == "filtered":
@@ -457,6 +487,113 @@ def test_reduce_by_dst_sorted_kernel_equals_plain(cuda, case):
         assert torch.equal(rv[:k], wrv[:k])
     else:
         torch.testing.assert_close(rv[:k], wrv[:k], rtol=1e-6, atol=0)
+
+
+# The K7 edge cases, shared with tests/test_torch_reduce_tiles.py, which
+# runs them through a numpy model of the kernel on the CPU.
+REDUCE_CASES = ["span2", "span3", "span40", "aligned", "m0", "m1",
+                "tile_minus_1", "tile", "tile_plus_1", "one_key",
+                "overflow", "aux_rejects_all", "aux_keeps_all", "inf"]
+
+
+def _runs(lengths, rng, m):
+    """Sorted keys made of runs of the given lengths, then runs of 1-12
+    lanes up to ``m``; ids rise by 1-3 from run to run."""
+    lengths = list(lengths)
+    while sum(lengths) < m:
+        lengths.append(int(rng.integers(1, 13)))
+    ids = np.cumsum(rng.integers(1, 4, len(lengths)))
+    return np.repeat(ids, lengths)[:m].astype(np.int32)
+
+
+def reduce_case(name, op, seed=0):
+    """(sd, vals, aux, out_lanes) of a K7 edge case, in numpy: runs over
+    2, 3 and 40 tiles; runs that begin at a tile's first lane; lengths 0,
+    1 and about a tile; every lane one key; ``out_lanes`` crossed inside
+    the second tile; aux that rejects every run and none; +-inf values
+    with BC's +-inf aux."""
+    rng = np.random.default_rng(seed)
+    t = K.REDUCE_TILE
+    aux = None
+    if name.startswith("span"):
+        tiles = int(name[4:])
+        m = (tiles + 2) * t
+        sd = _runs([t - 300, (tiles - 2) * t + 300 + 500], rng, m)
+    elif name == "aligned":   # runs start at tiles 1, 2 and 5 exactly
+        m = 7 * t + 11
+        sd = _runs([t, t, 3 * t, 5, t - 5], rng, m)
+    elif name in ("m0", "m1", "tile_minus_1", "tile", "tile_plus_1"):
+        m = {"m0": 0, "m1": 1, "tile_minus_1": t - 1, "tile": t,
+             "tile_plus_1": t + 1}[name]
+        sd = _runs([], rng, m)
+    elif name == "one_key":
+        m = 5 * t + 7
+        sd = np.full(m, 7, np.int32)
+    else:
+        m = 3 * t + 5
+        sd = _runs([], rng, m)
+    vals = (rng.random(m) * 10).astype(np.float32)
+    ids, first = np.unique(sd, return_index=True)
+    runs = ids.shape[0]
+    out_lanes = runs + 64
+    if name == "overflow":    # runs of tile 0, and 100 more
+        out_lanes = int(np.searchsorted(first, t)) + 100
+    elif name in ("aux_rejects_all", "aux_keeps_all"):
+        bound = -np.inf if name == "aux_rejects_all" else np.inf
+        aux = np.full(m, bound, np.float32)
+    elif name == "inf":
+        vals[rng.random(m) < 0.05] = -np.inf if op == "sum" else np.inf
+        vals[rng.random(m) < 0.02] = -np.inf
+        if op == "sum":       # one sign of infinity a run: no NaN
+            vals[(sd % 2 == 1) & np.isinf(vals)] = 0.0
+        per_run = np.where(rng.random(runs) < 0.5, np.inf, -np.inf)
+        aux = per_run[np.searchsorted(ids, sd)].astype(np.float32)
+    return sd, vals, aux, out_lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "sum"])
+@pytest.mark.parametrize("name", REDUCE_CASES)
+def test_reduce_by_dst_sorted_kernel_edge_cases(cuda, name, op):
+    """K7 on its edge cases against the plain version (ids, count and min
+    exact, sum within rtol 1e-6) and bitwise over two launches."""
+    sd, vals, aux, out_lanes = reduce_case(name, op)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(cuda)
+    kw = dict(op=op, out_lanes=out_lanes, aux=t(aux))
+    ids, rv, cnt = K.reduce_by_dst_sorted(t(sd), t(vals), **kw)
+    ids2, rv2, cnt2 = K.reduce_by_dst_sorted(t(sd), t(vals), **kw)
+    wid, wrv, wcnt = K.reduce_by_dst_sorted_plain(t(sd), t(vals), **kw)
+    torch.cuda.synchronize()
+    assert int(cnt) == int(wcnt) == int(cnt2)
+    k = min(int(cnt), out_lanes)
+    assert (int(cnt) > out_lanes) == (name == "overflow")
+    if name == "aux_rejects_all":
+        assert int(cnt) == 0
+    assert torch.equal(ids[:k], wid[:k]) and torch.equal(ids[:k], ids2[:k])
+    assert torch.equal(rv[:k], rv2[:k])
+    if op == "min":
+        assert torch.equal(rv[:k], wrv[:k])
+    else:
+        torch.testing.assert_close(rv[:k], wrv[:k], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_reduce_by_dst_sorted_kernel_on_a_side_stream(cuda):
+    """K7 launched on a non-default stream equals its launch on the
+    default one, and waits for nothing else."""
+    sd, vals, _, out_lanes = reduce_case("span3", "sum", seed=5)
+    sd, vals = torch.from_numpy(sd).to(cuda), torch.from_numpy(vals).to(cuda)
+    want = K.reduce_by_dst_sorted(sd, vals, op="sum", out_lanes=out_lanes)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = K.reduce_by_dst_sorted(sd, vals, op="sum", out_lanes=out_lanes)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    k = int(want[2])
+    assert int(got[2]) == k
+    assert torch.equal(got[0][:k], want[0][:k])
+    assert torch.equal(got[1][:k], want[1][:k])
 
 
 @pytest.mark.cuda

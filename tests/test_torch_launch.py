@@ -166,6 +166,23 @@ def test_pull_scratch_fits_the_tiles():
         1 + 2 * empty.v_pad
 
 
+@pytest.mark.parametrize("m", [1, K.REDUCE_TILE - 1, K.REDUCE_TILE,
+                               K.REDUCE_TILE + 1, 40 * K.REDUCE_TILE])
+def test_reduce_state_fits_the_tiles(m, dry_launch):
+    """K7's one scratch buffer: the tile counter and three 64-bit words a
+    tile of ``REDUCE_TILE`` lanes, handed to the entry point with that
+    tile size; no other scratch."""
+    tiles = -(-m // K.REDUCE_TILE)
+    state = K._reduce_state(m, torch.device("cpu"))
+    assert state.dtype == torch.int64 and state.numel() == 1 + 3 * tiles
+    sd = torch.zeros(m, dtype=torch.int32)
+    K.reduce_by_dst_sorted(sd, torch.zeros(m), out_lanes=8)
+    # sd, vals, aux, m, op, tile, out_lanes, state, ids, rvals, count
+    args = dry_launch[0][1]
+    assert len(args) == 11
+    assert args[3] == m and args[5] == K.REDUCE_TILE
+
+
 def test_profile_pull_tool_runs_on_cpu(capsys):
     """The profiling script's code path at a tiny size; on the CPU the
     profiler records no device events, and it says so."""
@@ -174,7 +191,7 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
                               "--winners=50", "--reps=2",
                               "--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 13 and "|E|=" in lines[0]
+    assert len(lines) == 16 and "|E|=" in lines[0]
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
@@ -182,3 +199,6 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
     assert "threshold 1e-6" in lines[7] and "PageRank power" in lines[8]
     assert all("K6 pull_min_sweeps" in line for line in lines[9:12])
     assert "K9" in lines[12]
+    assert "K5 sample_sorted2 + sample_sorted" in lines[13]
+    assert "K7 reduce_by_dst_sorted min" in lines[14]
+    assert "K7 reduce_by_dst_sorted sum" in lines[15]

@@ -432,6 +432,6 @@ def test_profile_sssp_tool_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     for name in ("sssp sweep route", "sssp near-far", "sssp near-far fused",
                  "sssp grid", "non-DO bfs grid", "DO-bfs, K10", "DO-bfs, K1",
-                 "DO-bfs grid"):
+                 "DO-bfs grid", "bc hybrid", "bc hybrid fused"):
         assert f"[{name}]" in out
     assert "device not measured" in out
