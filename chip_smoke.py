@@ -116,6 +116,13 @@ script exits non-zero:
     tail level is a push) and without (K10); DO and non-DO BFS on the
     grid with the deep micro-loop and with ``GUNROCK_BFS_DEEP=0``.
 
+24. Above the shared-memory cap: R-MAT scale 21, edge factor 4, whose
+    frontier masks (65,536 words) are larger than K10 holds in shared
+    memory, uploaded with the blocked CSC (K1) and without (K10): DO-BFS
+    labels against scipy's depths, predecessors valid, and both kernels,
+    which then read the mask through L1, exactly equal to their plain
+    versions at every level's frontier.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K4), 7-8 and 17 (K3), 12 and 17 (K5, K7, K8), 11 (K6), 16 (K9) and 21
@@ -128,7 +135,8 @@ K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
 The ``ms`` of every kernel is the CUDA-event time of a call, host path
 included where the card waits on it; K3 and K8 also carry ``device_ms``
 and ``library_device_ms``, the device time of a call of the kernel and
-of its library call (:func:`_device_ms`), K4 its ``device_ms`` and
+of its library call (:func:`_device_ms`), K1 and K10 their ``device_ms``
+summed over the pull levels, K4 its ``device_ms`` and
 ``build_device_ms``, the device time of its tile rows a call, K5 the
 device time of a round's pair and K7 that of its min with aux and
 (``ring_device_ms``) of BC's ring sum.
@@ -1416,6 +1424,9 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
                        K.bitmask_gather_cumsum_plain(words, odd)):
         raise AssertionError("K10 differs from its plain version at "
                              f"{K10_ODD_LENGTH} ids")
+    fronts = [K.pack_bitmask(labels == d) for d in pull_depths]
+    out["device_ms"] = _device_ms(
+        lambda: [K.bitmask_gather_cumsum(w, idx) for w in fronts])
     hits = K.bitmask_gather_plain(words, idx)
     cum_ms = _median_ms(lambda: torch.cumsum(hits, 0, dtype=torch.int32))
     # A level: the ids read and the sums written, 4 bytes each an id, and
@@ -1424,7 +1435,8 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
                                          + 4 * words.shape[0])))
     print(f"[kernels] K10 equal at {K10_ODD_LENGTH} ids too; summed over "
           f"the {len(pull_depths)} pull levels {out['ms']:.4f} ms vs plain "
-          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"{out['plain_ms']:.4f} ms; device {_fmt_ms(out['device_ms'])}; "
+          f"bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}); for a redesign: torch.cumsum over "
           f"precomputed hits {cum_ms:.4f} ms a level (no PyTorch call "
           f"computes K10's function)")
@@ -1464,6 +1476,64 @@ def phase_bfs_timing(src, edges_visited, dgb, dgk, gg, dgw, card):
               f"({', '.join(f'{t:.3f}' for t in times)}); "
               f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
               f"on {card}")
+
+
+def phase_above_cap(gtt, dev):
+    """Phase 24: R-MAT scale 21, edge factor 4, seed 1, undirected
+    (2,097,152 vertices: frontier masks of 65,536 words, above what K10
+    holds in shared memory), uploaded with the blocked CSC (pulls
+    through K1) and ``with_csc`` only (K10). DO-BFS with predecessors
+    from the largest-degree vertex on each: labels equal scipy's depths,
+    predecessors valid, each pull level through its kernel; then K10,
+    which the size rule sends through L1, and K1 (through L1 at every
+    size) exactly equal to their plain versions at the frontier of every
+    level."""
+    import torch
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    g = gtt.io.rmat(scale=21, edge_factor=4, seed=SEED, undirected=True)
+    src = g.largest_degree_vertex()
+    print(f"[cap] rmat n21 e4 seed {SEED}: |V|={g.num_nodes} "
+          f"|E|={g.num_edges}, host build {time.perf_counter() - t0:.3f} s")
+    for kernel, kw in (("pull_reached_words", {"with_blocked_csc": True}),
+                       ("bitmask_gather_cumsum", {"with_csc": True})):
+        dgx = gtt.to_device(g, device=dev, **kw)
+        K.reset_launch_counts()
+        records = []
+        labels, preds, _ = bfs_device(dgx, src, mark_preds=True,
+                                      direction_optimized=True,
+                                      instrument=records)
+        torch.cuda.synchronize()
+        pulls = [r["phase"] for r in records].count("pull")
+        if K.LAUNCHES[kernel] != pulls:
+            raise AssertionError(f"{kernel} launched {K.LAUNCHES[kernel]} "
+                                 f"times over {pulls} pull levels")
+        lab = labels[:g.num_nodes].cpu().numpy()
+        check_labels(g, src, lab)
+        check_preds(g, src, lab, preds[:g.num_nodes].cpu().numpy())
+        ms = 0.0
+        depth = int(labels.max())
+        for d in range(depth + 1):
+            words = K.pack_bitmask(labels == d)
+            if words.shape[0] <= K.SHARED_MASK_WORDS:
+                raise AssertionError("the mask fits K10's shared variant")
+            if kernel == "pull_reached_words":
+                run = lambda: K.pull_reached_words(words, dgx)
+                want = K.pull_reached_words_plain(words, dgx)
+            else:
+                run = lambda: K.bitmask_gather_cumsum(words, dgx.csc_indices)
+                want = K.bitmask_gather_cumsum_plain(words, dgx.csc_indices)
+            if not torch.equal(run(), want):
+                raise AssertionError(f"{kernel} differs from its plain "
+                                     f"version above the cap at level {d}")
+            ms += _median_ms(run, reps=5)
+        print(f"[cap] {kernel}: DO-BFS labels equal scipy's depths, preds "
+              f"valid, {pulls} pull levels through it; at masks of "
+              f"{words.shape[0]} words (through L1), equal to the plain "
+              f"version at all {depth + 1} levels ({ms:.4f} ms summed)")
+        del dgx
 
 
 def main() -> int:
@@ -1586,13 +1656,17 @@ def main() -> int:
     k2_plain_ms = _median_ms(lambda: K.bitmask_gather_plain(words, idx))
     print(f"[kernels] K2 bitmask_gather 2^22 random ids: equal, "
           f"{k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms")
-    # K1 a pull level: the CSC's two edge streams, the frontier and reach
-    # words; K2: the ids, the words and the output.
-    k1_work = bound(len(pull_levels) * (8 * dg.num_edges + dg.v_pad // 4))
+    # K1 a pull level: csc_indices, csc_offsets, the frontier and reach
+    # words (csc_edge_dst is not needed: the rows follow from the
+    # offsets); K2: the ids, the words and the output.
+    k1_work = bound(len(pull_levels) * (4 * dg.num_edges + 4 * (dg.v_pad + 1)
+                                        + dg.v_pad // 4))
+    k1_old = bound(len(pull_levels) * (8 * dg.num_edges + dg.v_pad // 4))
     k2_work = bound(8 * idx.shape[0] + dg.v_pad // 8)
     print(f"[kernels] K1 summed over the main path's pull levels "
           f"{sorted(pull_levels)}: {k1_ms:.4f} ms vs plain "
-          f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms")
+          f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms (the "
+          f"two edge streams counted before: {k1_old['bound_ms']:.4f})")
     print(f"[kernels] K2 bound {k2_work['bound_ms']:.4f} ms")
 
     # 5. Timing, as bench.py times the flagship: bfs_device on the
@@ -1624,6 +1698,12 @@ def main() -> int:
         f"{r['iteration']}:{r['phase']} {r['ms']:.3f} ms"
         for r in per_level))
     print(f"[timing] card: {card}")
+    # K1's device time, profiled after the timed traversals.
+    pull_words = [K.pack_bitmask(masks[name]) for name in sorted(pull_levels)]
+    k1_device = _device_ms(
+        lambda: [K.pull_reached_words(w, dg) for w in pull_words])
+    print(f"[kernels] K1 device time summed over the main path's pull "
+          f"levels: {_fmt_ms(k1_device)}")
 
     # 6-7. PageRank; 8. HITS and SALSA; 9. K3/K4 against their plain
     # versions; 10. timing of the value primitives.
@@ -1653,6 +1733,10 @@ def main() -> int:
                                                     gg, dgw, dev)
     k10 = phase_k10_kernel(dgk, res.labels, pull_depths, dev)
     phase_bfs_timing(src, info["edges_visited"], dgb, dgk, gg, dgw, card)
+    del dgk, dgb, dgw
+
+    # 24. K1 and K10 above the shared-memory cap.
+    phase_above_cap(gtt, dev)
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -1662,7 +1746,7 @@ def main() -> int:
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
          "launches": launches["pull_reached_words"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": None,
-         **k1_work},
+         "device_ms": k1_device, **k1_work},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
          "launches": launches["bitmask_gather"], "max_abs_err": k2_err,

@@ -11,22 +11,108 @@
 // (negative, or at least nbits) reads as 0, as it does in the TPU
 // kernels, whose row loop never matches such an id.
 //
+// K1 and K10 test one frontier bit for every CSC source. The TPU kernels
+// keep the whole mask in VMEM (a constant (R, 128) block); here it is
+// held on chip too. Both run a persistent grid of one block of 32 warps
+// an SM and stream their ids with 16-byte loads and the evict-first
+// hint, the next tile's loads issued before anything waits on the
+// current one. Where the mask is read was measured both ways for each
+// (PERF.md, section 6): K10 reads it from shared memory, copied there
+// once a block, and through L1 only above the 227 KB a block may hold
+// (the wrapper's size rule, ops/kernels.py SHARED_MASK_WORDS); K1 reads
+// it through L1 at every size, which was faster for K1, whose warps also
+// hold their row starts in shared memory.
+//
 // Each entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError() so that a refused
-// launch is reported to the wrapper.
+// does not synchronise, and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it does not take).
 
+#include <climits>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
+
+#include "tiles.cuh"
+
+// K10's dynamic shared memory: the mask, in its shared variant.
+extern __shared__ __align__(16) uint32_t smem[];
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 16;
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int kBlockThreads = 1024;  // K1, K10: one block an SM
+constexpr int kBlockWarps = kBlockThreads / 32;
+// K1: a warp tile, kReachQuads 16-byte loads a lane.
+constexpr int kReachQuads = 2;
+constexpr int kReachItems = 4 * kReachQuads;   // 8 edges a lane
+constexpr int kWarpTile = 32 * kReachItems;    // 256 edges a warp tile
+// K10: a block tile, kCumsumQuads 16-byte loads a thread.
+constexpr int kCumsumQuads = 4;
+constexpr int kCumsumQuad = kBlockThreads * 4;                 // 4096 ids
+constexpr int kCumsumTile = kCumsumQuad * kCumsumQuads;        // 16384 ids
+// The shared memory a block may opt into on the H100 (227 KB), less
+// K10's own: the largest mask K10 holds in shared memory.
+constexpr int64_t kSmemCap = 232448;
+constexpr int64_t kCumsumStatic = 1024;
+constexpr int64_t kCumsumMaskWords = (kSmemCap - kCumsumStatic) / 4;  // 57856
 
 __device__ __forceinline__ uint32_t mask_bit(const uint32_t* __restrict__ words,
                                              uint64_t nbits, uint32_t u) {
   return (uint64_t)u < nbits ? (__ldg(words + (u >> 5)) >> (u & 31u)) & 1u
                              : 0u;
+}
+
+// Bit u of the frontier, from shared memory (kShared, once the block has
+// copied the mask there) or through L1.
+template <bool kShared>
+__device__ __forceinline__ uint32_t frontier_bit(
+    const uint32_t* __restrict__ words, uint64_t nbits, int32_t u) {
+  const uint32_t i = (uint32_t)u;
+  uint32_t w = 0;
+  if ((uint64_t)i < nbits) {
+    if constexpr (kShared) {
+      w = smem[i >> 5];
+    } else {
+      w = __ldg(words + (i >> 5));
+    }
+  }
+  return (w >> (i & 31u)) & 1u;
+}
+
+// The four bits of a quad of ids, as bits 0-3.
+template <bool kShared>
+__device__ __forceinline__ uint32_t quad_bits(const uint32_t* __restrict__ w,
+                                              uint64_t nbits, int4 q) {
+  return frontier_bit<kShared>(w, nbits, q.x) |
+         frontier_bit<kShared>(w, nbits, q.y) << 1 |
+         frontier_bit<kShared>(w, nbits, q.z) << 2 |
+         frontier_bit<kShared>(w, nbits, q.w) << 3;
+}
+
+// Four ids from e: one 16-byte load where vec and whole, else one at a
+// time; past n, -1 (outside any mask).
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ p, int64_t n,
+                                      int64_t e, bool vec) {
+  if (vec && e + 3 < n) return __ldcs(reinterpret_cast<const int4*>(p + e));
+  return make_int4(e < n ? __ldcs(p + e) : -1,
+                   e + 1 < n ? __ldcs(p + e + 1) : -1,
+                   e + 2 < n ? __ldcs(p + e + 2) : -1,
+                   e + 3 < n ? __ldcs(p + e + 3) : -1);
+}
+
+__device__ __forceinline__ void store4(int32_t* __restrict__ p, int64_t n,
+                                       int64_t e, bool vec, int4 v) {
+  if (vec && e + 3 < n) {
+    *reinterpret_cast<int4*>(p + e) = v;
+    return;
+  }
+  if (e < n) p[e] = v.x;
+  if (e + 1 < n) p[e + 1] = v.y;
+  if (e + 2 < n) p[e + 2] = v.z;
+  if (e + 3 < n) p[e + 3] = v.w;
 }
 
 // K1: packed reach words of a full-edge pull over the CSC.
@@ -38,52 +124,223 @@ __device__ __forceinline__ uint32_t mask_bit(const uint32_t* __restrict__ words,
 // has no fast random gather. Here the plain CSC is read directly.
 //
 // Bit v of out[w] (v = 32*w + b) is set iff some in-neighbour u of v has
-// bit u set in `words`. `out` must be zeroed by the caller.
+// bit u set in `words`. The entry point zeroes `out` first.
 //
-// Work is split by edges, not by vertices: each warp takes 32 consecutive
-// CSC edges at a time (grid-stride), so an R-MAT hub's row of 10^5 edges
-// is spread over thousands of warps instead of holding one. Lane l reads
-// edge e = base + l: its source csc_indices[e] and destination
-// csc_edge_dst[e], both coalesced, and tests the source's frontier bit.
-// Destinations are nondecreasing along the CSC, so lanes that share a
-// destination word are contiguous: a 5-step shuffle OR combines them and
-// the first lane of each word issues one atomicOr. OR is idempotent and
-// commutative, so the result does not depend on the order of the atomics.
+// Work is split by edges (an R-MAT hub's row of 10^5 edges spreads over
+// hundreds of tiles): warp tiles of kWarpTile consecutive CSC edges, lane
+// l holding edges 8 l .. 8 l + 7 of one, each warp striding over the
+// tiles on its own with the next tile's edges and rows loaded ahead. The
+// rows come from csc_offsets alone, as in K3's pass
+// (csrc/pull_kernels.cu): csc_tile_rows_kernel (tiles.cuh) gives the row
+// of each tile's first edge. A tile that lies in one row (the middle of a
+// hub's) ORs that row's bit in if any of its edges hits. Otherwise the
+// warp marks in its own 1 KB of shared memory the position of each row
+// that starts inside the tile, reading csc_offsets over the rows
+// tile_rows[t] + 1 .. tile_rows[t + 1]; a lane's first row is the largest
+// start before its edges (a warp max-scan). csc_edge_dst is not read.
 //
-// Bound on the H100: the 8 bytes an edge streamed from HBM (485 MB at
-// rmat n20 e32, 0.145 ms at 3.35 TB/s). The frontier words are 128 KB at
-// V = 2^20, so the random 4-byte reads of them hit L2.
-__global__ void pull_reached_words_kernel(const uint32_t* __restrict__ words,
-                                          uint64_t nbits,
-                                          const int32_t* __restrict__ indices,
-                                          const int32_t* __restrict__ edge_dst,
-                                          int64_t num_edges,
-                                          uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  // base is uniform across the warp, so every lane reaches each shuffle.
-  for (int64_t base = warp * 32; base < num_edges; base += nwarps * 32) {
-    const int64_t e = base + lane;
-    int32_t wid = -1;  // tail lanes: a key no destination word has
-    uint32_t bit = 0;
-    if (e < num_edges) {
-      const int32_t v = __ldg(edge_dst + e);
-      wid = v >> 5;
-      if (mask_bit(words, nbits, (uint32_t)__ldg(indices + e))) {
-        bit = 1u << (v & 31);
+// A lane folds its edges in order into runs of one output word (a lane
+// where no row starts is one run). A word strictly inside the lane's
+// runs has all its edges in the lane: one plain store. Its first and
+// last runs (head and tail) join the other lanes' by a segmented OR over
+// the lanes' tails; the lane after the last tail of a word, if its head
+// is that word, adds its head and stores. Words other than the tile's
+// first and last have all their edges in the tile and get one plain
+// store; those two get atomicOr, as other tiles may hold edges of them.
+// OR is order-free, so no ordering is needed. Zero words are not written.
+//
+// Bound on the H100: csc_indices streamed once (4 bytes an edge, 243 MB
+// at rmat n20 e32), csc_offsets (4 MB) and the two masks: 0.074 ms at
+// 3.35 TB/s. What holds it is each tile's chain of steps (its loads, the
+// walk over csc_offsets, the scans): warp tiles of 256 edges were faster
+// than 512, and a tile in one row skips the chain.
+struct ReachArgs {
+  const uint32_t* words;
+  uint64_t nbits;
+  const int32_t* indices;   // csc_indices
+  const int32_t* offsets;   // csc_offsets, (rows + 1,)
+  int64_t rows;
+  int64_t num_edges;
+  int64_t ntiles;
+  const int32_t* tile_rows; // (ntiles + 1,)
+  uint32_t* out;            // (ceil(rows / 32),), zeroed
+};
+
+// A word's bits: plain store inside the tile, atomicOr on its first and
+// last word.
+__device__ __forceinline__ void put_word(uint32_t* __restrict__ out,
+                                         int32_t w, uint32_t bits,
+                                         int32_t first_w, int32_t last_w) {
+  if (bits == 0) return;
+  if (w == first_w || w == last_w) {
+    atomicOr(out + w, bits);
+  } else {
+    out[w] = bits;
+  }
+}
+
+// A K1 tile in which rows start: this lane's edges k < n hit the
+// frontier where bit k of hits is set; starts is the warp's kWarpTile
+// slots of shared memory.
+__device__ __forceinline__ void reach_tile(const ReachArgs& a,
+                                           int32_t* starts, int lane,
+                                           int64_t lo, int len, int n,
+                                           int32_t row0, int32_t row1,
+                                           uint32_t hits) {
+  int4* const mine = reinterpret_cast<int4*>(starts + kReachItems * lane);
+  // Mark the rows that start inside the tile: row0 holds edge lo, so
+  // every later row starts after lo; row1 holds the next tile's first
+  // edge (or is rows after the last tile).
+#pragma unroll
+  for (int q = 0; q < kReachQuads; ++q) mine[q] = make_int4(-1, -1, -1, -1);
+  __syncwarp();
+  for (int64_t r = (int64_t)row0 + 1 + lane; r <= row1 && r < a.rows;
+       r += 32) {
+    const int32_t s = __ldg(a.offsets + r);
+    if (s < lo + len && __ldg(a.offsets + r + 1) > s) {
+      starts[s - lo] = (int32_t)r;
+    }
+  }
+  __syncwarp();
+  // The row of this lane's first edge: the last start before it.
+  int32_t own = -1;
+#pragma unroll
+  for (int q = 0; q < kReachQuads; ++q) {
+    const int4 s4 = mine[q];
+    own = max(own, max(max(s4.x, s4.y), max(s4.z, s4.w)));
+  }
+  int32_t last = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t o = __shfl_up_sync(kFull, last, d);
+    if (lane >= d) last = max(last, o);
+  }
+  int32_t row = __shfl_up_sync(kFull, last, 1);
+  row = lane > 0 ? max(row, row0) : row0;
+  // Fold the lane's edges into runs of one output word. A lane where no
+  // row starts holds one run: its bits at once.
+  int32_t wcur = row >> 5, wf = -1;
+  uint32_t bcur = hits != 0 ? 1u << (row & 31) : 0u, bf = 0;
+  bool head = false;
+  if (own >= 0) {
+    wcur = -1;
+    bcur = 0;
+#pragma unroll
+    for (int q = 0; q < kReachQuads; ++q) {
+      const int4 s4 = mine[q];
+      const int32_t st[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 4 * q + i;
+        if (k < n) {
+          if (st[i] >= 0) row = st[i];
+          const int32_t w = row >> 5;
+          if (w != wcur) {
+            if (wcur >= 0) {
+              if (!head) {
+                wf = wcur;
+                bf = bcur;
+                head = true;
+              } else if (bcur != 0) {
+                a.out[wcur] = bcur;
+              }
+            }
+            wcur = w;
+            bcur = 0;
+          }
+          bcur |= ((hits >> k) & 1u) << (row & 31);
+        }
       }
     }
-    // Segmented OR toward the first lane of each run of equal wid.
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t other_bit = __shfl_down_sync(0xffffffffu, bit, d);
-      const int32_t other_wid = __shfl_down_sync(0xffffffffu, wid, d);
-      if (lane + d < 32 && other_wid == wid) bit |= other_bit;
+  }
+  // The lane's head (wf, bf) and tail (wl, bl); a lane of one run has
+  // it all in its tail, an empty lane a key past every word.
+  int32_t wl = wcur;
+  const uint32_t bl = bcur;
+  if (!head) {
+    wf = wl;
+    bf = 0;
+  }
+  if (n == 0) wf = wl = INT_MAX;
+  // Segmented OR of the tails over the lanes (keys nondecreasing).
+  uint32_t tail = bl;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t o = __shfl_up_sync(kFull, tail, d);
+    const int32_t ok = __shfl_up_sync(kFull, wl, d);
+    if (lane >= d && ok == wl) tail |= o;
+  }
+  const int32_t prev_wl = __shfl_up_sync(kFull, wl, 1);
+  const uint32_t prev_tail = __shfl_up_sync(kFull, tail, 1);
+  const int32_t next_wf = __shfl_down_sync(kFull, wf, 1);
+  const int32_t first_w = __shfl_sync(kFull, wf, 0);
+  const int32_t last_w = __shfl_sync(kFull, wl, (len - 1) / kReachItems);
+  if (wf != wl) {
+    put_word(a.out, wf, bf | (lane > 0 && prev_wl == wf ? prev_tail : 0u),
+             first_w, last_w);
+  }
+  if (n > 0 && (lane == 31 || next_wf != wl)) {
+    put_word(a.out, wl, tail, first_w, last_w);
+  }
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1)
+pull_reached_words_kernel(ReachArgs a) {
+  __shared__ __align__(16) int32_t block_starts[kBlockWarps * kWarpTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int32_t* const starts = block_starts + warp * kWarpTile;
+  const bool vec = (reinterpret_cast<uintptr_t>(a.indices) & 15) == 0;
+  const int64_t nwarps = (int64_t)gridDim.x * kBlockWarps;
+  int64_t t = (int64_t)blockIdx.x * kBlockWarps + warp;
+  int4 cur[kReachQuads];
+  int32_t row0 = 0, row1 = 0;
+  if (t < a.ntiles) {
+#pragma unroll
+    for (int q = 0; q < kReachQuads; ++q) {
+      cur[q] = load4(a.indices, a.num_edges,
+                     t * kWarpTile + kReachItems * lane + 4 * q, vec);
     }
-    const int32_t prev_wid = __shfl_up_sync(0xffffffffu, wid, 1);
-    if (wid >= 0 && bit != 0 && (lane == 0 || prev_wid != wid)) {
-      atomicOr(out + wid, bit);
+    row0 = __ldg(a.tile_rows + t);
+    row1 = __ldg(a.tile_rows + t + 1);
+  }
+  for (; t < a.ntiles; t += nwarps) {
+    const int64_t lo = t * kWarpTile;
+    const int len = (int)(a.num_edges - lo < kWarpTile ? a.num_edges - lo
+                                                        : kWarpTile);
+    const int rest = len - kReachItems * lane;
+    const int n = rest < 0 ? 0 : (rest < kReachItems ? rest : kReachItems);
+    // The next tile's edges and rows go out first.
+    const int64_t tn = t + nwarps;
+    int4 nxt[kReachQuads];
+    int32_t nrow0 = 0, nrow1 = 0;
+    if (tn < a.ntiles) {
+#pragma unroll
+      for (int q = 0; q < kReachQuads; ++q) {
+        nxt[q] = load4(a.indices, a.num_edges,
+                       tn * kWarpTile + kReachItems * lane + 4 * q, vec);
+      }
+      nrow0 = __ldg(a.tile_rows + tn);
+      nrow1 = __ldg(a.tile_rows + tn + 1);
     }
+    // This lane's frontier bits (edges past the end read -1: 0).
+    uint32_t hits = 0;
+#pragma unroll
+    for (int q = 0; q < kReachQuads; ++q) {
+      hits |= quad_bits<false>(a.words, a.nbits, cur[q]) << (4 * q);
+    }
+    if (row0 == row1) {
+      // The whole tile lies in row0 (the middle of a hub's row): one bit.
+      if (__any_sync(kFull, hits != 0) && lane == 0) {
+        atomicOr(a.out + (row0 >> 5), 1u << (row0 & 31));
+      }
+    } else {
+      reach_tile(a, starts, lane, lo, len, n, row0, row1, hits);
+    }
+#pragma unroll
+    for (int q = 0; q < kReachQuads; ++q) cur[q] = nxt[q];
+    row0 = nrow0;
+    row1 = nrow1;
   }
 }
 
@@ -112,143 +369,159 @@ __global__ void bitmask_gather_kernel(const uint32_t* __restrict__ words,
 // Replaces gunrock_tpu/ops/pallas_kernels.py _gather_cumsum_kernel (:829)
 // behind bitmask_gather_cumsum (:880). That kernel carries the running
 // total from one grid step to the next in SMEM, which only works because a
-// TPU runs its grid in order on one core. Here blocks run in no order, so
-// the carry becomes three launches on one stream:
+// TPU runs its grid in order on one core. Here one launch reads each id
+// once and passes the totals between tiles by a decoupled look-back
+// (tiles.cuh), as K7 does (csrc/sssp_kernels.cu).
 //
-//   1. tile_counts: each block counts the hits of one tile of kTile
-//      consecutive ids;
-//   2. scan_tiles: one block turns the counts into exclusive tile offsets,
-//      in place, looping over them 1024 at a time with a carry (about 15k
-//      tiles at 60M edges);
-//   3. gather_cumsum: each block gathers its tile's bits again, scans them
-//      and adds its tile offset.
+// A tile is kCumsumTile (16384) ids a block: thread t's quad q holds ids
+// lo + 4096 q + 4 t .. + 3, so each of a warp's four 16-byte loads, and
+// each store, is one contiguous 512-byte run. The block takes its tiles
+// from the counter in state[0], one tile ahead: thread 0 asks for the
+// next tile as the current one starts. Four ballots a quad give each
+// lane the hits of the lanes before it and its warp's total; warp 0
+// scans the 128 warp-quad totals in id order and publishes the tile's
+// count; the block issues the next tile's loads; then warp 0 looks back
+// to the nearest inclusive prefix while those loads are in flight,
+// publishes its own, and the block stores its sums 16 bytes at a time.
+// Warp tiles of 512 ids with a look-back each were built first and
+// measured slower (PERF.md, section 6): with 4224 tiles in flight a
+// look-back walks far, 32 tiles a step, before it meets an inclusive
+// prefix; 132 block tiles in flight keep the walks short. Sums are exact
+// in int32: the wrapper's caller refuses graphs of 2^31 - 2 edges or
+// more.
 //
-// Inside a tile, warp w's j-th load covers the 32 consecutive ids of group
-// g = 8j + w (coalesced), and __ballot_sync turns their bits into one word:
-// a lane's prefix within the group is a popcount of the word under its lane
-// mask, and one warp scans the tile's 128 group counts. Sums are exact in
-// int32: the wrapper's caller refuses graphs of 2^31 - 2 edges or more.
-//
-// Bound on the H100: the 4-byte id read and the 4-byte sum written, 8 bytes
-// an id (0.145 ms over the 60.7M CSC sources at rmat n20 e32). This design
-// reads the ids twice, 12 bytes an id; a single pass with a decoupled
-// look-back would read them once.
-constexpr int kScanThreads = 256;
-constexpr int kScanItems = 16;
-constexpr int kTile = kScanThreads * kScanItems;  // 4096 ids a block
-constexpr int kGroups = kTile / 32;               // 128 ballot words a tile
-constexpr int kScanTileThreads = 1024;
+// Bound on the H100: the 4-byte id read and the 4-byte sum written, 8
+// bytes an id (0.145 ms over the 60.7M CSC sources at rmat n20 e32).
+struct CumsumArgs {
+  const uint32_t* words;
+  uint64_t nbits;
+  const int32_t* idx;
+  int64_t n;
+  int64_t ntiles;
+  uint64_t* state;   // (1 + ntiles,) zeroed: the counter, a count a tile
+  int32_t* out;
+};
 
-__global__ void tile_counts_kernel(const uint32_t* __restrict__ words,
-                                   uint64_t nbits,
-                                   const int32_t* __restrict__ idx, int64_t n,
-                                   int32_t* __restrict__ tiles) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  int count = 0;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t e = base + (int64_t)j * kScanThreads + threadIdx.x;
-    if (e < n) count += (int)mask_bit(words, nbits, (uint32_t)__ldg(idx + e));
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    count += __shfl_down_sync(0xffffffffu, count, d);
-  }
-  if (lane == 0) warp_sums[warp] = count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kScanThreads / 32; ++w) total += warp_sums[w];
-    tiles[blockIdx.x] = total;
-  }
-}
-
-__global__ void scan_tiles_kernel(int32_t* __restrict__ tiles,
-                                  int64_t ntiles) {
-  __shared__ int warp_tot[kScanTileThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int carry = 0;  // the same in every thread
-  for (int64_t base = 0; base < ntiles; base += kScanTileThreads) {
-    const int64_t i = base + threadIdx.x;
-    const int v = i < ntiles ? tiles[i] : 0;
-    int x = v;  // inclusive scan within the warp
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
+template <bool kShared>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+gather_cumsum_kernel(CumsumArgs a) {
+  // The warp-quad totals, then their exclusive prefixes, entry
+  // kBlockWarps * q + warp; the next tile; the tile's exclusive prefix.
+  __shared__ int s_count[kCumsumQuads * kBlockWarps];
+  __shared__ int64_t s_next, s_excl;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if constexpr (kShared) {
+    // The mask, once a block (the barrier below ends the copy).
+    const int64_t nwords = (int64_t)(a.nbits >> 5);
+    for (int64_t i = tid; i < nwords; i += kBlockThreads) {
+      smem[i] = __ldg(a.words + i);
     }
-    if (lane == 31) warp_tot[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int t = warp_tot[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, t, d);
-        if (lane >= d) t += y;
+  }
+  const uint32_t below = (1u << lane) - 1u;
+  const bool vec = ((reinterpret_cast<uintptr_t>(a.idx) |
+                     reinterpret_cast<uintptr_t>(a.out)) & 15) == 0;
+  unsigned long long* const counter =
+      reinterpret_cast<unsigned long long*>(a.state);
+  if (tid == 0) s_next = (int64_t)atomicAdd(counter, 1ull);
+  __syncthreads();
+  int64_t c = s_next;
+  int4 cur[kCumsumQuads];
+  if (c < a.ntiles) {
+#pragma unroll
+    for (int q = 0; q < kCumsumQuads; ++q) {
+      cur[q] = load4(a.idx, a.n, c * kCumsumTile + kCumsumQuad * q + 4 * tid,
+                     vec);
+    }
+  }
+  while (c < a.ntiles) {
+    if (tid == 0) s_next = (int64_t)atomicAdd(counter, 1ull);
+    uint32_t hits = 0;
+#pragma unroll
+    for (int q = 0; q < kCumsumQuads; ++q) {
+      hits |= quad_bits<kShared>(a.words, a.nbits, cur[q]) << (4 * q);
+    }
+    int before[kCumsumQuads];
+#pragma unroll
+    for (int q = 0; q < kCumsumQuads; ++q) {
+      int b = 0, total = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned ball = __ballot_sync(kFull, (hits >> (4 * q + i)) & 1u);
+        b += __popc(ball & below);
+        total += __popc(ball);
       }
-      warp_tot[lane] = t;
+      before[q] = b;
+      if (lane == 0) s_count[kBlockWarps * q + warp] = total;
     }
     __syncthreads();
-    const int before = warp > 0 ? warp_tot[warp - 1] : 0;
-    if (i < ntiles) tiles[i] = carry + before + x - v;
-    carry += warp_tot[kScanTileThreads / 32 - 1];
-    __syncthreads();  // warp_tot is written again in the next round
-  }
-}
-
-__global__ void gather_cumsum_kernel(const uint32_t* __restrict__ words,
-                                     uint64_t nbits,
-                                     const int32_t* __restrict__ idx,
-                                     int64_t n,
-                                     const int32_t* __restrict__ tile_offsets,
-                                     int32_t* __restrict__ out) {
-  __shared__ int group_prefix[kGroups];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  uint32_t ballots[kScanItems];
+    uint64_t* const mine = a.state + 1 + c;
+    int tile_total = 0;
+    if (warp == 0) {
+      // Lane l scans entries kCumsumQuads l .. kCumsumQuads (l + 1) - 1,
+      // which follow each other in id order.
+      int v[kCumsumQuads];
+      int sum = 0;
 #pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t e = base + (int64_t)j * kScanThreads + threadIdx.x;
-    const uint32_t hit =
-        e < n ? mask_bit(words, nbits, (uint32_t)__ldg(idx + e)) : 0u;
-    ballots[j] = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) group_prefix[j * (kScanThreads / 32) + warp] =
-        __popc(ballots[j]);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    // Lane l scans groups 4l .. 4l + 3, which follow each other in id order.
-    int c[kGroups / 32];
-    int sum = 0;
+      for (int k = 0; k < kCumsumQuads; ++k) {
+        v[k] = s_count[kCumsumQuads * lane + k];
+        sum += v[k];
+      }
+      int x = sum;
 #pragma unroll
-    for (int k = 0; k < kGroups / 32; ++k) {
-      c[k] = group_prefix[lane * (kGroups / 32) + k];
-      sum += c[k];
-    }
-    int x = sum;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
-    }
-    int run = x - sum;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, d);
+        if (lane >= d) x += y;
+      }
+      int run = x - sum;
 #pragma unroll
-    for (int k = 0; k < kGroups / 32; ++k) {
-      group_prefix[lane * (kGroups / 32) + k] = run;
-      run += c[k];
+      for (int k = 0; k < kCumsumQuads; ++k) {
+        s_count[kCumsumQuads * lane + k] = run;
+        run += v[k];
+      }
+      tile_total = __shfl_sync(kFull, x, 31);
+      if (lane == 0) {
+        store_word(mine, (c == 0 ? kInclusive : kReady) |
+                             (uint32_t)tile_total);
+      }
     }
-  }
-  __syncthreads();
-  const int tile_off = tile_offsets[blockIdx.x];
-  const uint32_t upto_lane = (2u << lane) - 1u;  // lanes 0..lane; all at 31
+    __syncthreads();
+    // The next tile's ids go out before this one waits on its
+    // predecessors.
+    const int64_t next = s_next;
+    int4 nxt[kCumsumQuads];
+    if (next < a.ntiles) {
 #pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t e = base + (int64_t)j * kScanThreads + threadIdx.x;
-    if (e < n) {
-      out[e] = tile_off + group_prefix[j * (kScanThreads / 32) + warp] +
-               __popc(ballots[j] & upto_lane);
+      for (int q = 0; q < kCumsumQuads; ++q) {
+        nxt[q] = load4(a.idx, a.n,
+                       next * kCumsumTile + kCumsumQuad * q + 4 * tid, vec);
+      }
     }
+    if (warp == 0) {
+      int64_t excl = 0;
+      if (c > 0) {
+        excl = warp_lookback(a.state + 1, 1, c, lane);
+        if (lane == 0) {
+          store_word(mine, kInclusive | (uint32_t)(excl + tile_total));
+        }
+      }
+      if (lane == 0) s_excl = excl;
+    }
+    __syncthreads();
+    const int32_t base = (int32_t)s_excl;
+#pragma unroll
+    for (int q = 0; q < kCumsumQuads; ++q) {
+      const uint32_t h = hits >> (4 * q);
+      int4 o;
+      o.x = base + s_count[kBlockWarps * q + warp] + before[q] +
+            (int)(h & 1u);
+      o.y = o.x + (int)((h >> 1) & 1u);
+      o.z = o.y + (int)((h >> 2) & 1u);
+      o.w = o.z + (int)((h >> 3) & 1u);
+      store4(a.out, a.n, c * kCumsumTile + kCumsumQuad * q + 4 * tid, vec, o);
+    }
+#pragma unroll
+    for (int q = 0; q < kCumsumQuads; ++q) cur[q] = nxt[q];
+    c = next;
   }
 }
 
@@ -257,19 +530,69 @@ unsigned int blocks_for(int64_t threads) {
   return (unsigned int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// Once a device: K10's shared variant may take the mask's shared memory
+// and prefers the whole carveout; K1 and K10's L1 variant prefer the
+// least, so that L1 keeps the mask.
+void configure_tiles() {
+  static bool done[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64 ||
+      done[dev]) {
+    return;
+  }
+  cudaFuncSetAttribute((const void*)gather_cumsum_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)(4 * kCumsumMaskWords));
+  cudaFuncSetAttribute((const void*)gather_cumsum_kernel<true>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  for (const void* k : {(const void*)gather_cumsum_kernel<false>,
+                        (const void*)pull_reached_words_kernel}) {
+    cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         0);
+  }
+  done[dev] = true;
+}
+
+// One block an SM, or one a unit of work where there are fewer.
+unsigned int persistent_grid(int64_t blocks) {
+  const int64_t sms = sm_count();
+  return (unsigned int)(blocks < sms ? blocks : sms);
+}
+
 }  // namespace
 
 extern "C" {
 
+// K1. tile_rows: scratch of tile_capacity int32, at least
+// ceil(num_edges / 256) + 1.
 int gr_pull_reached_words(const void* words, int64_t nbits,
-                          const void* indices, const void* edge_dst,
-                          int64_t num_edges, void* out, void* stream) {
-  if (num_edges > 0) {
-    pull_reached_words_kernel<<<blocks_for(num_edges), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (uint64_t)nbits, (const int32_t*)indices,
-        (const int32_t*)edge_dst, num_edges, (uint32_t*)out);
+                          const void* indices, const void* offsets,
+                          int64_t rows, int64_t num_edges, void* tile_rows,
+                          int64_t tile_capacity, void* out, void* stream) {
+  const int64_t ntiles = (num_edges + kWarpTile - 1) / kWarpTile;
+  if (rows < 0 || num_edges < 0 || nbits < 0 ||
+      (num_edges > 0 && rows == 0) || tile_capacity < ntiles + 1) {
+    return (int)cudaErrorInvalidValue;
   }
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(out, 0, (size_t)((rows + 31) / 32) * sizeof(uint32_t), s);
+  if (num_edges == 0) return (int)cudaGetLastError();
+  configure_tiles();
+  csc_tile_rows_kernel<kWarpTile><<<blocks_for(rows), kThreads, 0, s>>>(
+      (const int32_t*)offsets, rows, num_edges, (int32_t*)tile_rows);
+  ReachArgs a;
+  a.words = (const uint32_t*)words;
+  a.nbits = (uint64_t)nbits;
+  a.indices = (const int32_t*)indices;
+  a.offsets = (const int32_t*)offsets;
+  a.rows = rows;
+  a.num_edges = num_edges;
+  a.ntiles = ntiles;
+  a.tile_rows = (const int32_t*)tile_rows;
+  a.out = (uint32_t*)out;
+  pull_reached_words_kernel<<<persistent_grid((ntiles + kBlockWarps - 1) /
+                                              kBlockWarps),
+                              kBlockThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -284,25 +607,37 @@ int gr_bitmask_gather(const void* words, int64_t nbits, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// `tiles` is scratch of `tile_capacity` int32, at least ceil(n / 4096).
+// K10. state: scratch of state_words 64-bit words, at least
+// 1 + ceil(n / 16384), zeroed here. shared: read the mask from shared
+// memory (at most kCumsumMaskWords words), else through L1.
 int gr_bitmask_gather_cumsum(const void* words, int64_t nbits,
-                             const void* idx, int64_t n, void* tiles,
-                             int64_t tile_capacity, void* out, void* stream) {
+                             const void* idx, int64_t n, void* state,
+                             int64_t state_words, int shared, void* out,
+                             void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int64_t ntiles = (n + kTile - 1) / kTile;
-  if (tile_capacity < ntiles) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  tile_counts_kernel<<<(unsigned int)ntiles, kScanThreads, 0, s>>>(
-      (const uint32_t*)words, (uint64_t)nbits, (const int32_t*)idx, n,
-      (int32_t*)tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_tiles_kernel<<<1, kScanTileThreads, 0, s>>>((int32_t*)tiles, ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gather_cumsum_kernel<<<(unsigned int)ntiles, kScanThreads, 0, s>>>(
-      (const uint32_t*)words, (uint64_t)nbits, (const int32_t*)idx, n,
-      (const int32_t*)tiles, (int32_t*)out);
+  const int64_t ntiles = (n + kCumsumTile - 1) / kCumsumTile;
+  if (nbits < 0 || nbits % 32 != 0 || state_words < 1 + ntiles ||
+      (shared && nbits / 32 > kCumsumMaskWords)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(state, 0, (size_t)(1 + ntiles) * sizeof(uint64_t), s);
+  configure_tiles();
+  CumsumArgs a;
+  a.words = (const uint32_t*)words;
+  a.nbits = (uint64_t)nbits;
+  a.idx = (const int32_t*)idx;
+  a.n = n;
+  a.ntiles = ntiles;
+  a.state = (uint64_t*)state;
+  a.out = (int32_t*)out;
+  if (shared) {
+    gather_cumsum_kernel<true><<<persistent_grid(ntiles), kBlockThreads,
+                                 (size_t)(nbits / 32) * 4, s>>>(a);
+  } else {
+    gather_cumsum_kernel<false><<<persistent_grid(ntiles), kBlockThreads, 0,
+                                  s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

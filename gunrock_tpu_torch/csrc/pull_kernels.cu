@@ -183,6 +183,8 @@
 #include <initializer_list>
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -262,21 +264,6 @@ __global__ void fold_per_source_kernel(PullArgs a) {
   for (int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        u < a.rows; u += stride) {
     a.vscratch[u] = apply_fn(a.fn, __ldg(a.values + u), __ldg(a.weights + u));
-  }
-}
-
-// The prologue: tile_rows[t] = the row holding edge t * kTile, written by
-// that row; tile_rows[ntiles] = rows.
-__global__ void tile_rows_kernel(PullArgs a) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       v < a.rows; v += stride) {
-    const int64_t lo = __ldg(a.offsets + v);
-    const int64_t hi = __ldg(a.offsets + v + 1);
-    for (int64_t t = (lo + kTile - 1) / kTile; t * kTile < hi; ++t) {
-      a.tile_rows[t] = (int32_t)v;
-    }
-    if (v == 0) a.tile_rows[num_tiles(a.num_edges)] = (int32_t)a.rows;
   }
 }
 
@@ -710,7 +697,8 @@ void launch_tile_rows(const PullArgs& a, cudaStream_t s) {
     }
     carved[dev] = true;
   }
-  tile_rows_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a);
+  csc_tile_rows_kernel<kTile><<<blocks_for(a.rows), kThreads, 0, s>>>(
+      a.offsets, a.rows, a.num_edges, a.tile_rows);
 }
 
 // The group size of a gated call: the least 2^gshift that puts every

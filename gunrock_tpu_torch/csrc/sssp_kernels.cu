@@ -21,24 +21,13 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
 enum Op : int { kMin = 0, kSum = 1, kMax = 2, kSet = 3 };
-
-// Multiprocessors of the current device, read once a device.
-int sm_count() {
-  static int cache[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cache[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = n > 0 ? n : 132;
-  }
-  return cache[dev];
-}
 
 // K5. Replaces gunrock_tpu/ops/pallas_kernels.py _sample_kernel (:594,
 // sample_sorted :665) and _sample2_kernel (:686, sample_sorted2 :783).
@@ -185,10 +174,10 @@ constexpr int kReduceTile = kReduceWarps * kReduceWarpLanes;  // 2048
 constexpr int kReduceBlocks = 6;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Tile state: word 0 the tile counter; then for tile c, words 1 + 3c
-// (head partial), 2 + 3c (tail partial) and 3 + 3c (count: flag 1 the
-// tile's own, flag 2 the inclusive prefix).
-constexpr uint64_t kReady = 1ull << 32, kInclusive = 2ull << 32;
+// Tile state (kReady, kInclusive and the waits in tiles.cuh): word 0
+// the tile counter; then for tile c, words 1 + 3c (head partial), 2 + 3c
+// (tail partial) and 3 + 3c (count: flag 1 the tile's own, flag 2 the
+// inclusive prefix).
 
 struct ReduceArgs {
   const int32_t* sd;
@@ -212,24 +201,6 @@ __device__ __forceinline__ float identity() {
 template <int kOp>
 __device__ __forceinline__ float combine(float a, float b) {
   return kOp == kSum ? __fadd_rn(a, b) : fminf(a, b);
-}
-
-__device__ __forceinline__ void store_word(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-// A field of an earlier tile, once written. That tile is running, so
-// the wait ends; one that lasts seconds is a fault and traps (the launch
-// then fails) instead of holding the card.
-__device__ __forceinline__ uint64_t wait_word(const uint64_t* p) {
-  uint64_t v;
-  for (uint32_t spins = 0;; ++spins) {
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-                 : "memory");
-    if ((v >> 32) != 0) return v;
-    if (spins == (1u << 24)) __trap();
-  }
 }
 
 __device__ __forceinline__ float word_float(uint64_t w) {
@@ -470,18 +441,7 @@ reduce_tiles_kernel(ReduceArgs a) {
       if (lane == 0) store_word(cnt, kInclusive | (uint32_t)tcount);
     } else {
       if (lane == 0) store_word(cnt, kReady | (uint32_t)tcount);
-      for (int64_t base = c - 1;; base -= 32) {
-        const int64_t j = base - lane;
-        const uint64_t w = j >= 0 ? wait_word(a.state + 3 + 3 * j)
-                                  : kInclusive;
-        const unsigned incl = __ballot_sync(kFull, (w >> 32) == 2);
-        const int stop = incl ? __ffs(incl) - 1 : 31;
-        int64_t v = lane <= stop ? (int64_t)(uint32_t)w : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-        excl += v;
-        if (incl) break;
-      }
+      excl = warp_lookback(a.state + 3, 3, c, lane);
       if (lane == 0) store_word(cnt, kInclusive | (uint32_t)(excl + tcount));
     }
     if (lane == 0) {

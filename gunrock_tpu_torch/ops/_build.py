@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``nvcc`` compiles each ``gunrock_tpu_torch/csrc/*.cu`` for ``sm_90a``
-(one compiler per source, all started together) and links the objects
+(one compiler per source, all started together; ``tiles.cuh`` is a
+header they share) and links the objects
 into one shared library with a plain C interface, loaded with ctypes. The
 library
 is built at first use into ``build/gunrock_tpu_torch/`` beside the
@@ -28,6 +29,7 @@ __all__ = ["library_path", "build", "load"]
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SOURCES = ("bfs_kernels.cu", "pull_kernels.cu", "sssp_kernels.cu")
+_HEADERS = ("tiles.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
           "-v")
@@ -39,9 +41,9 @@ _lib: Optional[ctypes.CDLL] = None
 # p a pointer (the last one the stream), q an int64_t, i an int, f a
 # float. ctypes passes what it is told, so these must match the sources.
 SIGNATURES = {
-    "gr_pull_reached_words": "pqppqpp",
+    "gr_pull_reached_words": "pqppqqpqpp",
     "gr_bitmask_gather": "pqpqpp",
-    "gr_bitmask_gather_cumsum": "pqpqpqpp",
+    "gr_bitmask_gather_cumsum": "pqpqpqipp",
     "gr_pull_reduce": "pppqqpiiipippppppp",
     "gr_pull_power_iters": "pppppqqqpifffiippppppp",
     "gr_pull_min_sweeps": "pppppqqpiiiippppppppp",
@@ -66,7 +68,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return os.path.join(build_dir(),

@@ -37,7 +37,8 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "sample_sorted", "sample_sorted_plain", "sample_sorted2",
            "sample_sorted2_plain", "reduce_by_dst_sorted",
            "reduce_by_dst_sorted_plain", "scatter_sorted",
-           "scatter_sorted_plain", "REDUCE_TILE"]
+           "scatter_sorted_plain", "REDUCE_TILE", "WARP_TILE",
+           "GATHER_CUMSUM_TILE", "SHARED_MASK_WORDS"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
 # every CUDA kernel of the port: K1, K2, K10, K5 (both wrappers), K7 and
@@ -54,9 +55,20 @@ LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
 # every sum, so two launches on the same input agree bit for bit.
 REDUCE_TILE = 2048
 
-# Ids a block of K10 scans (kTile in csrc/bfs_kernels.cu): the wrapper
-# allocates one tile-offset slot for each; the kernel refuses fewer.
-GATHER_CUMSUM_TILE = 4096
+# Edges a warp tile of K1 (kWarpTile in csrc/bfs_kernels.cu) and ids a
+# block tile of K10 (kCumsumTile): K1's wrapper allocates a tile-rows
+# slot for each tile and one past the last, K10's a 64-bit tile state for
+# each and the tile counter; the kernels refuse fewer.
+WARP_TILE = 256
+GATHER_CUMSUM_TILE = 16384
+
+# K10's size rule: a frontier mask of at most this many words (1,851,392
+# bits) is read from shared memory, copied there once a block by a grid
+# of one block an SM; a larger one is read through L1, the variant for
+# masks above the 227 KB a block may hold (kCumsumMaskWords in
+# csrc/bfs_kernels.cu, which refuses larger masks in shared memory). K1
+# reads its mask through L1 at every size.
+SHARED_MASK_WORDS = 57856
 
 
 def reset_launch_counts() -> None:
@@ -176,10 +188,20 @@ def bitmask_gather_cumsum(words: torch.Tensor,
     outside the mask read 0.
 
     Kernel K10 (replaces the Pallas ``bitmask_gather_cumsum``,
-    ``gunrock_tpu/ops/pallas_kernels.py:880``), three launches on the
-    current stream with a tile-offset scratch allocated here. ``idx`` is
-    int32 of any length (the Pallas version takes multiples of 128); the
-    sums are exact below 2^31 ids."""
+    ``gunrock_tpu/ops/pallas_kernels.py:880``): a memset of the tile
+    states and one pass over the ids with a decoupled look-back between
+    tiles, the mask in shared memory up to ``SHARED_MASK_WORDS`` words,
+    else through L1. ``idx`` is int32 of any length (the Pallas version
+    takes multiples of 128); the sums are exact below 2^31 ids."""
+    return _gather_cumsum(words, idx, words.shape[0] <= SHARED_MASK_WORDS)
+
+
+def _gather_cumsum(words: torch.Tensor, idx: torch.Tensor,
+                   shared: bool) -> torch.Tensor:
+    """:func:`bitmask_gather_cumsum` with K10's mask in shared memory
+    (``shared``) or through L1, whatever its size, so that the card's
+    tests and tools can hold both variants against the plain version on
+    one input."""
     if not _route(words, idx):
         return bitmask_gather_cumsum_plain(words, idx)
     _check("words", words, idx.device)
@@ -188,11 +210,12 @@ def bitmask_gather_cumsum(words: torch.Tensor,
     out = torch.empty(n, dtype=torch.int32, device=idx.device)
     if n == 0:
         return out
-    tiles = torch.empty(-(-n // GATHER_CUMSUM_TILE), dtype=torch.int32,
+    # The tile counter, then a count a tile; the entry point zeroes them.
+    state = torch.empty(1 + -(-n // GATHER_CUMSUM_TILE), dtype=torch.int64,
                         device=idx.device)
     _launch(_build.load().gr_bitmask_gather_cumsum, words.data_ptr(),
-            words.shape[0] * 32, idx.data_ptr(), n, tiles.data_ptr(),
-            tiles.shape[0], out.data_ptr(), device=idx.device)
+            words.shape[0] * 32, idx.data_ptr(), n, state.data_ptr(),
+            state.shape[0], int(shared), out.data_ptr(), device=idx.device)
     LAUNCHES["bitmask_gather_cumsum"] += 1
     return out
 
@@ -216,23 +239,28 @@ def pull_reached_words(words: torch.Tensor, graph) -> torch.Tensor:
 
     Kernel K1 (replaces the Pallas ``pull_reached_words``,
     ``gunrock_tpu/ops/pallas_kernels.py:348``, and its blocked and cells
-    kernels). It reads ``csc_indices`` and ``csc_edge_dst``; the plain
-    version reads ``csc_indices`` and ``csc_offsets``."""
+    kernels): a memset of the output, the tile-rows prologue and one
+    launch. Like its plain version it reads ``csc_indices`` and
+    ``csc_offsets``."""
     if not graph.has_csc:
         raise ValueError("pull_reached_words needs to_device(with_csc=True)")
     if not _route(words, graph.csc_indices):
         return pull_reached_words_plain(words, graph)
     dev = graph.csc_indices.device
     for name, t in (("words", words), ("csc_indices", graph.csc_indices),
-                    ("csc_edge_dst", graph.csc_edge_dst)):
+                    ("csc_offsets", graph.csc_offsets)):
         _check(name, t, dev)
-    # The kernel ORs its bits into the output, so it starts zeroed.
-    out = torch.zeros(words_for(graph.v_pad), dtype=torch.int32, device=dev)
     if graph.num_edges == 0:
-        return out
+        return torch.zeros(words_for(graph.v_pad), dtype=torch.int32,
+                           device=dev)
+    # The entry point zeroes the output, which the kernel ORs into.
+    out = torch.empty(words_for(graph.v_pad), dtype=torch.int32, device=dev)
+    tile_rows = torch.empty(-(-graph.num_edges // WARP_TILE) + 1,
+                            dtype=torch.int32, device=dev)
     _launch(_build.load().gr_pull_reached_words, words.data_ptr(),
             words.shape[0] * 32, graph.csc_indices.data_ptr(),
-            graph.csc_edge_dst.data_ptr(), graph.num_edges, out.data_ptr(),
+            graph.csc_offsets.data_ptr(), graph.v_pad, graph.num_edges,
+            tile_rows.data_ptr(), tile_rows.shape[0], out.data_ptr(),
             device=dev)
     LAUNCHES["pull_reached_words"] += 1
     return out

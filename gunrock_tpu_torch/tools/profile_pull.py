@@ -1,7 +1,7 @@
 """Where K3's time goes, and K8's: the device time of a call against the
 host's, and K3's edge stream against its gathers; and the device time of
-K4, which runs K3's pass, and of the activity-gated pulls K6 and K9 at
-the shapes of ``chip_smoke.py``.
+K4, which runs K3's pass, of the activity-gated pulls K6 and K9, and of
+the BFS pulls K1 and K10 at the shapes of ``chip_smoke.py``.
 
     python -m gunrock_tpu_torch.tools.profile_pull [--scale 20]
         [--edge-factor 32] [--winners 135241] [--reps 20] [--device cuda]
@@ -44,10 +44,21 @@ then ``--reps`` calls under ``torch.profiler``):
     weights at the edge ids, ``sample_sorted`` of the distances at the
     sources), K7's min with aux on the lanes sorted by destination, and
     K7's sum by source (BC's backward ring) over that frontier with the
-    largest-degree vertex added, whose run spans many of K7's tiles.
+    largest-degree vertex added, whose run spans many of K7's tiles;
+  * K1 ``pull_reached_words`` and K10 ``bitmask_gather_cumsum`` at the
+    pull levels of DO-BFS from the largest-degree vertex (the frontiers
+    of ``chip_smoke.py`` phases 4 and 22; on a graph too small to pull,
+    the level of the largest frontier): one case runs every level's
+    call, so the device events split by kernel and count the launches;
+    K1 also with every source replaced by vertex 0 (the same edge
+    stream, rows and launches, every mask read one word), and K10 with
+    the mask read through L1 (``K10L1``, the variant for masks above the
+    shared-memory cap) where the size rule would hold it in shared
+    memory.
 
 ``--only`` keeps the cases whose name holds one of its words (``K5``,
-``K7``, ...).
+``K7``, ...; ``K1`` keeps K1, K10 and K10's L1 variant, ``"K1 "
+"K10 "`` the wrappers alone).
 
 Each prints wall and device time a call and the device events,
 ``host``: the median time until a call returns unfenced, over ``--reps``
@@ -71,6 +82,7 @@ import torch
 
 from ..graph.device import sync, to_device
 from ..io import rmat
+from ..models.bfs import bfs_device
 from ..models.pr import pagerank
 from ..ops import kernels as K
 from ..ops import pull2 as P
@@ -196,6 +208,19 @@ def push_round(dg, hub: int) -> dict:
             "out_sum": min(exh.total, dg.v_pad) + 128}
 
 
+def pull_frontiers(dg, hub: int) -> tuple[list, list]:
+    """The depths of DO-BFS's pull levels from ``hub`` (the level of the
+    largest frontier where none pulls) and each one's packed frontier."""
+    records = []
+    labels, _, _ = bfs_device(dg, hub, direction_optimized=True,
+                              instrument=records)
+    depths = [r["iteration"] - 1 for r in records if r["phase"] == "pull"]
+    if not depths:
+        sizes = torch.bincount(labels[labels >= 0].long())
+        depths = [int(torch.argmax(sizes))]
+    return depths, [K.pack_bitmask(labels == d) for d in depths]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -282,6 +307,22 @@ def main(argv=None) -> int:
          lambda: K.reduce_by_dst_sorted(pr["src"], pr["add"], op="sum",
                                         out_lanes=pr["out_sum"])),
     )
+    depths, fronts = pull_frontiers(dg, hub)
+    cases += (
+        (f"K1 pull_reached_words, pull levels {depths}",
+         lambda: [K.pull_reached_words(w, dg) for w in fronts]),
+        (f"K1 pull_reached_words, every source vertex 0, pull levels "
+         f"{depths}",
+         lambda: [K.pull_reached_words(w, one_source) for w in fronts]),
+        (f"K10 bitmask_gather_cumsum, pull levels {depths}, "
+         f"{dg.csc_indices.shape[0]} ids",
+         lambda: [K.bitmask_gather_cumsum(w, dg.csc_indices)
+                  for w in fronts]),
+        (f"K10L1 bitmask_gather_cumsum, the mask through L1, pull levels "
+         f"{depths}",
+         lambda: [K._gather_cumsum(w, dg.csc_indices, False)
+                  for w in fronts]),
+    )
     if args.only:
         cases = tuple(c for c in cases
                       if any(word in c[0] for word in args.only))
@@ -292,6 +333,10 @@ def main(argv=None) -> int:
         r = profile_run(fn, args.reps, dev)
         print_profile("profile_pull", f"{name} (host {host:.4f} ms a call, "
                       f"call {call})", r)
+        if name.startswith("K1") and r["device_ms"] > 0:
+            print("[profile_pull]   a launch: " + "; ".join(
+                f"{ev[:40]} {ms / calls:.4f} ms" for ev, calls, ms in
+                r["events"]))
         if name.startswith("K4 pull_power_iters") and r["device_ms"] > 0:
             split = power_split(r, 20)
             print(f"[profile_pull]   K4 split: tile rows {split['build']:.4f}"

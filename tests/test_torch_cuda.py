@@ -112,6 +112,125 @@ def test_bfs_without_blocked_csc_pulls_through_k10(cuda):
     np.testing.assert_array_equal(preds[:n].cpu().numpy(), want.preds)
 
 
+# Graphs whose CSC puts K1's edges where its warp tiles of
+# K.WARP_TILE edges are hard (also modelled on the CPU in
+# tests/test_torch_bfs_tiles.py).
+REACH_CASES = ["hub", "tile_starts", "word_span", "sparse_rows"]
+
+
+def reach_case(name):
+    """(num_nodes, src, dst) of a directed graph, by CSC row (dst):
+    ``hub``: row 0 holds 100 edges, row 1 the next 20 tiles and 7 edges,
+    then 300 empty rows, then rows of 0-3 edges, the edge count 3 mod 4
+    (a ragged last tile and 16-byte loads); ``tile_starts``: 8 rows of
+    exactly one tile each, so rows start at tile boundaries, then rows of
+    one edge; ``word_span``: rows 0-31 (one output word) of 40 edges each
+    span three tiles, rows 32-95 hold one edge and rows 96-127 (one
+    word) hold 16 each, across a tile boundary; ``sparse_rows``: 3000
+    edges into random rows of 2^16, most rows empty, so the walks over
+    csc_offsets are long."""
+    rng = np.random.default_rng(len(name))
+    tile = K.WARP_TILE
+    if name == "hub":
+        n = 8192
+        deg = np.zeros(n, np.int64)
+        deg[0], deg[1] = 100, 20 * tile + 7
+        deg[302:] = rng.integers(0, 4, n - 302) * (rng.random(n - 302) < 0.5)
+        deg[302] += (3 - deg.sum()) % 4
+    elif name == "tile_starts":
+        n = 4096
+        deg = np.zeros(n, np.int64)
+        deg[:8], deg[8:48] = tile, 1
+    elif name == "word_span":
+        n = 1024
+        deg = np.zeros(n, np.int64)
+        deg[:32], deg[32:96], deg[96:128] = 40, 1, 16
+    else:
+        n = 1 << 16
+        deg = np.bincount(rng.integers(0, n, 3000), minlength=n)
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, dst.shape[0])
+    return n, src, dst
+
+
+def reach_graph(name, device):
+    n, src, dst = reach_case(name)
+    return gtt.to_device(gtt.from_coo(n, src, dst, remove_self_loops=False,
+                                      dedup=False),
+                         with_csc=True, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.001, 0.3])
+@pytest.mark.parametrize("name", REACH_CASES)
+def test_pull_reached_words_kernel_tiles_equal_plain(cuda, name, density):
+    """K1 exactly on the tile edge cases, with the whole mask and with
+    half of it (the ids past it read 0)."""
+    g = reach_graph(name, cuda)
+    rng = np.random.default_rng(3)
+    words = K.pack_bitmask(torch.from_numpy(
+        rng.random(g.v_pad) < density).to(cuda))
+    for w in (words, words[:words.shape[0] // 2]):
+        got = K.pull_reached_words(w, g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.pull_reached_words_plain(w, g))
+
+
+def _above_cap_graph(cuda):
+    g = gtt.io.rmat(scale=21, edge_factor=4, seed=1, undirected=True)
+    return gtt.to_device(g, with_csc=True, device=cuda)
+
+
+@pytest.mark.cuda
+def test_pull_reached_words_kernel_on_a_large_mask(cuda):
+    """R-MAT scale 21: a mask of 65,536 words, above what K10 holds in
+    shared memory; K1, which reads its mask through L1 at every size,
+    exactly."""
+    g = _above_cap_graph(cuda)
+    words = K.pack_bitmask(torch.rand(g.v_pad, device=cuda) < 0.1)
+    assert words.shape[0] > K.SHARED_MASK_WORDS
+    before = K.LAUNCHES["pull_reached_words"]
+    got = K.pull_reached_words(words, g)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_reached_words"] == before + 1
+    assert torch.equal(got, K.pull_reached_words_plain(words, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 33 * 512 + 5,
+                               (1 << 22) + 3, "unaligned"])
+def test_bitmask_gather_cumsum_kernel_variants_equal_plain(cuda, n, shared):
+    """K10 with its mask in shared memory and through L1, exactly: one
+    id, around a warp tile, many tiles, and ids that start 4 bytes past
+    a 16-byte boundary (one id at a time)."""
+    words = K.pack_bitmask(torch.rand(1 << 20, device=cuda) < 0.5)
+    m = (1 << 20) + 1 if n == "unaligned" else n
+    idx = torch.randint(-100, (1 << 20) + 100, (m,), dtype=torch.int32,
+                        device=cuda)
+    if n == "unaligned":
+        idx = idx[1:]
+    got = K._gather_cumsum(words, idx, shared)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitmask_gather_cumsum_plain(words, idx))
+
+
+@pytest.mark.cuda
+def test_bitmask_gather_cumsum_kernel_above_the_cap(cuda):
+    """The CSC sources of R-MAT scale 21 under a mask of more words than
+    the shared variant holds: the wrapper reads it through L1, exactly;
+    the shared variant refuses it."""
+    g = _above_cap_graph(cuda)
+    words = K.pack_bitmask(torch.rand(g.v_pad, device=cuda) < 0.3)
+    assert words.shape[0] > K.SHARED_MASK_WORDS
+    got = K.bitmask_gather_cumsum(words, g.csc_indices)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitmask_gather_cumsum_plain(words,
+                                                          g.csc_indices))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K._gather_cumsum(words, g.csc_indices, True)
+
+
 def _value_graph(cuda, scale=14):
     g = gtt.io.rmat(scale=scale, edge_factor=16, seed=7, undirected=True)
     g.random_edge_values(seed=7)

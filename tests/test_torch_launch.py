@@ -183,6 +183,41 @@ def test_reduce_state_fits_the_tiles(m, dry_launch):
     assert args[3] == m and args[5] == K.REDUCE_TILE
 
 
+@pytest.mark.parametrize("n", [1, K.GATHER_CUMSUM_TILE - 1,
+                               K.GATHER_CUMSUM_TILE,
+                               K.GATHER_CUMSUM_TILE + 1,
+                               40 * K.GATHER_CUMSUM_TILE])
+def test_gather_cumsum_state_fits_the_tiles(n, dry_launch):
+    """K10's one scratch buffer: the tile counter and a 64-bit state a
+    tile of ``GATHER_CUMSUM_TILE`` ids; the mask in shared memory by the
+    size rule (a mask of 2^20 bits), through L1 above it (2^21)."""
+    idx = torch.zeros(n, dtype=torch.int32)
+    for bits, shared in ((1 << 20, 1), (1 << 21, 0)):
+        words = torch.zeros(bits // 32, dtype=torch.int32)
+        K.bitmask_gather_cumsum(words, idx)
+        # words, nbits, idx, n, state, state words, shared, out
+        args = dry_launch[-1][1]
+        assert args[1] == bits and args[3] == n
+        assert args[5] == 1 + -(-n // K.GATHER_CUMSUM_TILE)
+        assert args[6] == shared
+
+
+def test_reach_scratch_fits_the_tiles(dry_launch):
+    """K1's scratch: a tile row a warp tile of ``WARP_TILE`` edges and one
+    past the last; csc_offsets and v_pad rows, not csc_edge_dst."""
+    g = _graph()
+    words = K.pack_bitmask(torch.ones(g.v_pad, dtype=torch.bool))
+    K.pull_reached_words(words, g)
+    # words, nbits, indices, offsets, rows, edges, tile rows, their count,
+    # out
+    args = dry_launch[-1][1]
+    assert args[1] == 32 * words.shape[0]
+    assert args[3] == g.csc_offsets.data_ptr()
+    assert args[4] == g.v_pad and args[5] == g.num_edges
+    assert args[7] == -(-g.num_edges // K.WARP_TILE) + 1
+    assert g.csc_edge_dst.data_ptr() not in args
+
+
 def test_profile_pull_tool_runs_on_cpu(capsys):
     """The profiling script's code path at a tiny size; on the CPU the
     profiler records no device events, and it says so."""
@@ -191,7 +226,7 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
                               "--winners=50", "--reps=2",
                               "--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 16 and "|E|=" in lines[0]
+    assert len(lines) == 20 and "|E|=" in lines[0]
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
@@ -202,3 +237,7 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
     assert "K5 sample_sorted2 + sample_sorted" in lines[13]
     assert "K7 reduce_by_dst_sorted min" in lines[14]
     assert "K7 reduce_by_dst_sorted sum" in lines[15]
+    assert lines[16].startswith("[profile_pull] K1 pull_reached_words, pull")
+    assert "every source vertex 0" in lines[17]
+    assert "K10 bitmask_gather_cumsum" in lines[18]
+    assert "K10L1" in lines[19]
