@@ -21,7 +21,10 @@ script exits non-zero:
    predecessors by validity, plus the structural checks of ``bench.py``.
 4. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes, requiring exact equality, with median times from CUDA
-   events.
+   events: K1 at every level's frontier, K2 at the main path's launch
+   (the largest-degree vertex's neighbours, sliced from ``col_indices``
+   as the single-source push slices them) and at 2^22 random ids, each
+   with its device time, and the device time of the mask's packing.
 5. Timing: best of 5 traversals after a warm-up, MTEPS in ``bench.py``'s
    accounting (out-degree sum over reached vertices / elapsed).
 6. PageRank, power route: ``gunrock_tpu_torch.pagerank`` on the same
@@ -123,10 +126,22 @@ script exits non-zero:
     which then read the mask through L1, exactly equal to their plain
     versions at every level's frontier.
 
+25. WTF and TopK on the flagship at their defaults: ``gunrock_tpu_torch.wtf``
+    from the largest-degree vertex on the host graph (uploaded
+    ``with_csc``) and on phase 6's ``with_blocked_values`` graph, K3
+    launched once a PPR iteration, PPR and the sorted scores within rtol
+    1e-3, atol 1e-6 of ``cpu_wtf`` (the CLI's check) and within the
+    limits set from the measured reading (PPR rtol 1e-5, the scores rtol
+    1e-4, both with atol 0), the two runs' PPR bitwise equal and
+    their node ids equal where the scores stand apart; the PPR iteration
+    count, the CoT's out-edge count, best of 5 and ms a PPR iteration.
+    ``gunrock_tpu_torch.topk`` at k = 10 and 1000, exact against numpy's
+    degrees, best of 5.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4), 7-8 and 17 (K3), 12 and 17 (K5, K7, K8), 11 (K6), 16 (K9) and 21
-(K10). Every kernel's entry also carries ``bound_ms``, the least time
+(K4), 7-8, 17 and 25 (K3), 12 and 17 (K5, K7, K8), 11 (K6), 16 (K9) and
+21 (K10). Every kernel's entry also carries ``bound_ms``, the least time
 the card could take for the same work at the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
 computes the same function on the same inputs where there is one: the
@@ -135,11 +150,15 @@ K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
 The ``ms`` of every kernel is the CUDA-event time of a call, host path
 included where the card waits on it; K3 and K8 also carry ``device_ms``
 and ``library_device_ms``, the device time of a call of the kernel and
-of its library call (:func:`_device_ms`), K1 and K10 their ``device_ms``
-summed over the pull levels, K4 its ``device_ms`` and
+of its library call (:func:`_device_ms`), K2 its ``device_ms`` at the
+main path's launch (whose shape its row gives, ``ids``) and, under
+``random_*``, all its numbers at 2^22 random ids, with
+``pack_device_ms``, the device time of the mask's packing; K1 and K10
+their ``device_ms`` summed over the pull levels, K4 its ``device_ms`` and
 ``build_device_ms``, the device time of its tile rows a call, K5 the
 device time of a round's pair and K7 that of its min with aux and
-(``ring_device_ms``) of BC's ring sum.
+(``ring_device_ms``) of BC's ring sum. A device time that the profiler
+does not record fails the run (:func:`_profile`).
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -249,19 +268,22 @@ def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, reps: int = TIMED_LAUNCHES):
-    """Device time of one call of ``fn``: the summed durations of the
-    device events (kernels, copies, fills) that ``torch.profiler`` records
-    over ``reps`` calls after a warm-up, over ``reps`` (the port's
-    ``tools.profile_value.profile_run``); None where it records no device
-    event."""
+def _profile(fn, reps: int = TIMED_LAUNCHES) -> dict:
+    """``torch.profiler``'s record of ``reps`` calls of ``fn`` after a
+    warm-up (the port's ``tools.profile_value.profile_run``, which takes
+    the profile again where device events were lost and raises where
+    none of its attempts is whole), so the run fails rather than carry a
+    row without its device time."""
     import torch
     from gunrock_tpu_torch.tools.profile_value import profile_run
-    return profile_run(fn, reps, torch.device("cuda"))["device_ms"] or None
+    return profile_run(fn, reps, torch.device("cuda"))
 
 
-def _fmt_ms(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+def _device_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    device events (kernels, copies, fills) of :func:`_profile`, over
+    ``reps``."""
+    return _profile(fn, reps)["device_ms"]
 
 
 def _max_abs_err(got, want) -> int:
@@ -330,8 +352,10 @@ def check_close(what, got, want, *, rtol, atol):
     err = np.abs(got - want)
     bad = int((err > atol + rtol * np.abs(want)).sum())
     rel = float((err / np.maximum(np.abs(want), 1e-30)).max())
+    share = float(err.sum() / max(float(np.abs(want).sum()), 1e-30))
     print(f"[check] {what}: max abs err {float(err.max()):.3e}, max rel err "
-          f"{rel:.3e} (rtol {rtol}, atol {atol}), {bad} outside")
+          f"{rel:.3e}, sum|err|/sum|ref| {share:.3e} (rtol {rtol}, atol "
+          f"{atol}), {bad} outside")
     if bad:
         raise AssertionError(f"{what}: {bad} values outside the tolerance")
 
@@ -343,6 +367,149 @@ def _errs(got, want) -> tuple[float, float]:
     err = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
     rel = err / want.double().abs().clamp(min=1e-30)
     return float(err.max()), float(rel.max())
+
+
+def _apart(scores, rtol: float = 1e-5):
+    """Ranks whose score differs from both neighbours' in the ranking by
+    more than ``rtol`` of itself: there the order cannot depend on float
+    summation order."""
+    import numpy as np
+    s = np.asarray(scores, np.float64)
+    gap = np.full(s.shape[0] + 1, np.inf)
+    gap[1:-1] = np.abs(np.diff(s))
+    return np.minimum(gap[:-1], gap[1:]) > rtol * np.abs(s)
+
+
+def phase_wtf_topk(gtt, g, src, dgv, card):
+    """Phase 25: WTF and TopK on the flagship at their defaults. WTF from
+    the largest-degree vertex through ``gtt.wtf`` on the host graph
+    (uploaded ``with_csc``) and on phase 6's ``with_blocked_values``
+    graph: K3 launched once a PPR iteration, PPR and the sorted scores
+    within rtol 1e-3, atol 1e-6 of ``cpu_wtf`` (float64), as the CLI
+    checks them, and within PPR rtol 1e-5 and the scores' rtol 1e-4 with
+    no atol (the measured reading: a typical PPR entry is near 1/V, under
+    the CLI's atol), the two runs' PPR bitwise equal and their node ids equal at every rank whose score
+    stands apart (:func:`_apart`; the SALSA sums are atomics). TopK at
+    k = 10 and 1000, exact against numpy's degrees with the id-ascending
+    tie rule. Best of RUNS after a warm-up. Returns the K3 launches."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.topk import top_k, topk_device
+    from gunrock_tpu_torch.models.wtf import _ppr, wtf_device
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.utils.reference import cpu_wtf
+
+    t0 = time.perf_counter()
+    ref, ppr_ref = cpu_wtf(g, src)
+    print(f"[wtf] float64 oracle {time.perf_counter() - t0:.3f} s")
+    runs, k3 = {}, 0
+    for name, graph in (("host graph", g), ("blocked-values graph", dgv)):
+        K.reset_launch_counts()
+        res = gtt.wtf(graph, src, device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        iters = res.info["ppr_iterations"]
+        print(f"[wtf] {name}: ppr_iterations {iters}, process "
+              f"{res.info['process_ms']:.3f} ms, kernel launches {launches}")
+        if launches.pop("pull_reduce2") != iters or any(launches.values()):
+            raise AssertionError(f"WTF on the {name}: K3 should launch once "
+                                 f"a PPR iteration and nothing else")
+        # The CLI's tolerance, then limits from the measured reading:
+        # most PPR entries lie near 1/V, under the CLI's atol.
+        k = res.scores.shape[0]
+        scores = np.sort(res.scores)[::-1]
+        want = np.sort(ref)[::-1][:k]
+        for rtol, atol, tight in ((1e-3, 1e-6, ""), (1e-5, 0.0, " (tight)")):
+            check_close(f"wtf {name} ppr vs cpu_wtf{tight}", res.ppr_ranks,
+                        ppr_ref, rtol=rtol, atol=atol)
+        for rtol, atol, tight in ((1e-3, 1e-6, ""), (1e-4, 0.0, " (tight)")):
+            check_close(f"wtf {name} sorted scores vs cpu_wtf{tight}",
+                        scores, want, rtol=rtol, atol=atol)
+        runs[name] = res
+        k3 += iters
+    a, b = runs.values()
+    keep = _apart(a.scores) & _apart(b.scores)
+    if not (np.array_equal(a.ppr_ranks, b.ppr_ranks) and
+            np.array_equal(a.node_ids[keep], b.node_ids[keep])):
+        raise AssertionError("the two WTF runs differ")
+    ppr = torch.from_numpy(a.ppr_ranks).to(dgv.device)
+    _, cot = top_k(ppr, a.scores.shape[0])
+    cot_edges = int(dgv.out_degrees()[cot.long()].sum())
+    print(f"[wtf] the two runs: PPR bitwise equal, node ids equal at "
+          f"{int(keep.sum())} of {keep.shape[0]} ranks whose scores stand "
+          f"apart; the CoT's out-edges (the expand) {cot_edges}")
+    best, times = best_of(lambda: wtf_device(dgv, src))
+    iters = a.info["ppr_iterations"]
+    ppr_best, _ = best_of(lambda: _ppr(dgv, src, delta=0.85, max_iters=50,
+                                       threshold=1e-6))
+    print(f"[timing] wtf (blocked-values graph): best {best:.3f} ms of "
+          f"{RUNS} ({', '.join(f'{t:.3f}' for t in times)}); PPR alone "
+          f"{ppr_best:.3f} ms, {ppr_best / iters:.4f} ms a PPR iteration "
+          f"({iters}); on {card}")
+
+    cent = g.out_degrees + np.bincount(g.col_indices, minlength=g.num_nodes)
+    for k in (10, 1000):
+        res = gtt.topk(dgv, k)
+        order = np.argsort(-cent, kind="stable")[:k]
+        if not (np.array_equal(res.node_ids, order) and
+                np.array_equal(res.centralities, cent[order])):
+            raise AssertionError(f"TopK k={k} differs from numpy's degrees")
+        best, times = best_of(lambda: topk_device(dgv, k))
+        print(f"[topk] k={k}: ids and centralities equal numpy's (largest "
+              f"{int(cent[order[0]])}, k-th {int(cent[order[-1]])}); best "
+              f"{best:.3f} ms of {RUNS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); on {card}")
+    return k3
+
+
+def phase_k2_kernel(dg, src, labels, rng, dev):
+    """Phase 4's K2 cases: against its plain version, exactly, at the
+    main path's launch (the largest-degree vertex's neighbours, sliced
+    from col_indices as the single-source push slices them, over the
+    mask of the first level: every vertex but the source unvisited) and
+    at 2^22 random ids over the traversal's final unvisited mask; the
+    time a call (CUDA events), its device time (torch.profiler) and the
+    bound of each, and the device time of the mask's packing, which runs
+    before every K2 launch. Returns K2's JSON fields: those of the main
+    path's launch, and the same of 2^22 ids under ``random_*``."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+
+    start, end = dg.row_offsets[src:src + 2].tolist()
+    first = torch.full((dg.v_pad,), -1, dtype=torch.int32, device=dev)
+    first[src] = 0
+    cases = {
+        "main path": (K.pack_bitmask(first == -1), dg.col_indices[start:end]),
+        "random": (K.pack_bitmask(labels == -1), torch.from_numpy(
+            rng.integers(0, dg.v_pad, 1 << 22).astype(np.int32)).to(dev)),
+    }
+    out = {}
+    for name, (words, idx) in cases.items():
+        got = K.bitmask_gather(words, idx)
+        want = K.bitmask_gather_plain(words, idx)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 differs from its plain version at "
+                                 f"{name}")
+        row = {"ids": idx.shape[0], "max_abs_err": _max_abs_err(got, want),
+               "ms": _median_ms(lambda: K.bitmask_gather(words, idx)),
+               "plain_ms": _median_ms(
+                   lambda: K.bitmask_gather_plain(words, idx)),
+               "device_ms": _device_ms(lambda: K.bitmask_gather(words, idx)),
+               "library_ms": None,
+               # the ids, the output and the mask
+               **bound(8 * idx.shape[0] + dg.v_pad // 8)}
+        print(f"[kernels] K2 bitmask_gather {name}, {idx.shape[0]} ids "
+              f"(offset {idx.data_ptr() % 16} bytes mod 16): equal, "
+              f"{row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms; device "
+              f"{row['device_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms")
+        out[name] = row
+    pack_ms = _device_ms(lambda: K.pack_bitmask(labels == -1))
+    print(f"[kernels] pack_bitmask(labels == INVALID) before each K2 "
+          f"launch: device {pack_ms:.4f} ms")
+    return {**out["main path"], "pack_device_ms": pack_ms,
+            **{f"random_{k}": v for k, v in out["random"].items()
+               if k not in ("library_ms", "bound_by")}}
 
 
 def phase_pagerank(gtt, g, dev):
@@ -462,7 +629,6 @@ def phase_value_kernels(dg, dev):
     import torch
     from gunrock_tpu_torch.ops import pull2 as P
     from gunrock_tpu_torch.tools.profile_pull import power_split
-    from gunrock_tpu_torch.tools.profile_value import profile_run
     rng = np.random.default_rng(SEED)
     vals = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
     init = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
@@ -516,8 +682,8 @@ def phase_value_kernels(dg, dev):
                   f"{k3['library_ms']:.4f} ms, max rel err {lib_rel:.3e} "
                   f"vs the plain version; bound {k3['bound_ms']:.4f} ms")
             print(f"[kernels] K3 sum/none device time (torch.profiler): "
-                  f"{_fmt_ms(k3['device_ms'])} a call vs torch.mv "
-                  f"{_fmt_ms(k3['library_device_ms'])}")
+                  f"{k3['device_ms']:.4f} ms a call vs torch.mv "
+                  f"{k3['library_device_ms']:.4f} ms")
             del csr
     n = dg.num_nodes
     start = torch.where(torch.arange(dg.v_pad, device=dev) < n, 1.0 / n,
@@ -564,15 +730,15 @@ def phase_value_kernels(dg, dev):
                                                    **kw))
         plain = _median_ms(lambda: P.pull_power_iters_plain(
             dg, start, iters=iters, **kw), reps=3)
-        prof = profile_run(lambda: P.pull_power_iters(
-            dg, start, iters=iters, **kw), TIMED_LAUNCHES, dev)
-        device = prof["device_ms"] or None
+        prof = _profile(lambda: P.pull_power_iters(dg, start, iters=iters,
+                                                   **kw))
+        device = prof["device_ms"]
         split = power_split(prof, iters)
         print(f"[kernels] K4 pull_power_iters {iters} rounds: bitwise equal "
               f"over two launches and to K3's composition; max abs err "
               f"{abs_err:.3e}, max rel err {rel_err:.3e} (rtol {rtol}); "
               f"change counts equal {chg.tolist()}; {ms:.4f} ms vs plain "
-              f"{plain:.4f} ms; device {_fmt_ms(device)}: tile rows "
+              f"{plain:.4f} ms; device {device:.4f} ms: tile rows "
               f"{split['build']:.4f} ms a call apart from the rounds, pass 1 "
               f"{split['pass1']:.4f} and the rest {split['rest']:.4f} ms a "
               f"round")
@@ -866,7 +1032,7 @@ def phase_sssp_kernels(dg, src, dist, dev):
         lambda: (K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid),
                  K.sample_sorted(half, ex.src)))
     print(f"[kernels] sample_sorted device time (torch.profiler): "
-          f"{_fmt_ms(out['sample_sorted']['device_ms'])} a round's pair")
+          f"{out['sample_sorted']['device_ms']:.4f} ms a round's pair")
 
     # K7: the fused round's min with aux, and a sum, on the sorted lanes;
     # then BC's backward sum by source over the frontier with the source
@@ -938,9 +1104,9 @@ def phase_sssp_kernels(dg, src, dist, dev):
     out["reduce_by_dst_sorted"]["ring_device_ms"] = _device_ms(
         lambda: K.reduce_by_dst_sorted(ring.src, add, **kw_ring))
     print(f"[kernels] reduce_by_dst_sorted device time (torch.profiler): "
-          f"{_fmt_ms(out['reduce_by_dst_sorted']['device_ms'])} a call, min "
+          f"{out['reduce_by_dst_sorted']['device_ms']:.4f} ms a call, min "
           f"with aux; "
-          f"{_fmt_ms(out['reduce_by_dst_sorted']['ring_device_ms'])} BC's "
+          f"{out['reduce_by_dst_sorted']['ring_device_ms']:.4f} ms BC's "
           f"ring sum")
 
     # K8: the fused round's min, and add; float32 and int32.
@@ -976,9 +1142,9 @@ def phase_sssp_kernels(dg, src, dist, dev):
     out["scatter_sorted"]["library_device_ms"] = _device_ms(
         lambda: scratch.index_reduce_(0, ids_k, vals_k, "amin"))
     print(f"[kernels] scatter_sorted device time (torch.profiler): "
-          f"{_fmt_ms(out['scatter_sorted']['device_ms'])} a call vs "
+          f"{out['scatter_sorted']['device_ms']:.4f} ms a call vs "
           f"index_reduce_ "
-          f"{_fmt_ms(out['scatter_sorted']['library_device_ms'])}")
+          f"{out['scatter_sorted']['library_device_ms']:.4f} ms")
 
     # K6: SWEEPS sweeps from the source, add/val and incr; none from
     # every vertex's own id (CC's labels).
@@ -1435,7 +1601,7 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
                                          + 4 * words.shape[0])))
     print(f"[kernels] K10 equal at {K10_ODD_LENGTH} ids too; summed over "
           f"the {len(pull_depths)} pull levels {out['ms']:.4f} ms vs plain "
-          f"{out['plain_ms']:.4f} ms; device {_fmt_ms(out['device_ms'])}; "
+          f"{out['plain_ms']:.4f} ms; device {out['device_ms']:.4f} ms; "
           f"bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}); for a redesign: torch.cumsum over "
           f"precomputed hits {cum_ms:.4f} ms a level (no PyTorch call "
@@ -1644,30 +1810,17 @@ def main() -> int:
         print(f"[kernels] K1 pull_reached_words {name} "
               f"({int(mask.sum())} frontier bits): equal, "
               f"{ms:.4f} ms vs plain {plain:.4f} ms")
-    idx = torch.from_numpy(
-        rng.integers(0, dg.v_pad, 1 << 22).astype(np.int32)).to(dev)
-    words = K.pack_bitmask(labels == -1)
-    got = K.bitmask_gather(words, idx)
-    want = K.bitmask_gather_plain(words, idx)
-    k2_err = _max_abs_err(got, want)
-    if not torch.equal(got, want):
-        raise AssertionError("K2 differs from its plain version")
-    k2_ms = _median_ms(lambda: K.bitmask_gather(words, idx))
-    k2_plain_ms = _median_ms(lambda: K.bitmask_gather_plain(words, idx))
-    print(f"[kernels] K2 bitmask_gather 2^22 random ids: equal, "
-          f"{k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms")
+    k2 = phase_k2_kernel(dg, src, labels, rng, dev)
     # K1 a pull level: csc_indices, csc_offsets, the frontier and reach
     # words (csc_edge_dst is not needed: the rows follow from the
-    # offsets); K2: the ids, the words and the output.
+    # offsets).
     k1_work = bound(len(pull_levels) * (4 * dg.num_edges + 4 * (dg.v_pad + 1)
                                         + dg.v_pad // 4))
     k1_old = bound(len(pull_levels) * (8 * dg.num_edges + dg.v_pad // 4))
-    k2_work = bound(8 * idx.shape[0] + dg.v_pad // 8)
     print(f"[kernels] K1 summed over the main path's pull levels "
           f"{sorted(pull_levels)}: {k1_ms:.4f} ms vs plain "
           f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms (the "
           f"two edge streams counted before: {k1_old['bound_ms']:.4f})")
-    print(f"[kernels] K2 bound {k2_work['bound_ms']:.4f} ms")
 
     # 5. Timing, as bench.py times the flagship: bfs_device on the
     # uploaded graph, no predecessors, best of RUNS after a warm-up.
@@ -1703,7 +1856,7 @@ def main() -> int:
     k1_device = _device_ms(
         lambda: [K.pull_reached_words(w, dg) for w in pull_words])
     print(f"[kernels] K1 device time summed over the main path's pull "
-          f"levels: {_fmt_ms(k1_device)}")
+          f"levels: {k1_device:.4f} ms")
 
     # 6-7. PageRank; 8. HITS and SALSA; 9. K3/K4 against their plain
     # versions; 10. timing of the value primitives.
@@ -1711,7 +1864,7 @@ def main() -> int:
     link_launches = phase_link_analysis(gtt, g)
     k3, k4 = phase_value_kernels(dg, dev)
     phase_value_timing(dg, card)
-    del dg
+    dgv = dg  # phase 25 runs WTF on it
 
     # 11-12. SSSP; 13. the grid and non-DO BFS; 14. K5-K8 against their
     # plain versions; 15. timing.
@@ -1738,6 +1891,9 @@ def main() -> int:
     # 24. K1 and K10 above the shared-memory cap.
     phase_above_cap(gtt, dev)
 
+    # 25. WTF and TopK.
+    wtf_launches = phase_wtf_topk(gtt, g, src, dgv, card)
+
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
     sssp_source = "gunrock_tpu_torch/csrc/sssp_kernels.cu"
@@ -1749,14 +1905,12 @@ def main() -> int:
          "device_ms": k1_device, **k1_work},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
-         "launches": launches["bitmask_gather"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "library_ms": None,
-         **k2_work},
+         "launches": launches["bitmask_gather"], **k2},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
          "launches": loop_launches["pull_reduce2"] + link_launches
          + sssp_launches["pull_reduce2"] + bc_launches["pull_reduce2"]
-         + cc_launches["pull_reduce2"], **k3},
+         + cc_launches["pull_reduce2"] + wtf_launches, **k3},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
          "launches": power_launches["pull_power_iters"], **k4},

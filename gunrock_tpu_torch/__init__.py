@@ -22,6 +22,8 @@ Quick start::
     gtt.sssp(g, src="largestdegree", mark_preds=True).distances
     gtt.bc(gtt.to_device(g, with_blocked_values=True), src=0).bc_values
     gtt.cc(g).num_components
+    gtt.wtf(g, src=g.largest_degree_vertex()).node_ids[:10]
+    gtt.topk(g, k=10).node_ids
 """
 
 from . import io  # noqa: F401
@@ -34,5 +36,7 @@ from .models.hits import hits  # noqa: F401
 from .models.pr import pagerank  # noqa: F401
 from .models.salsa import salsa  # noqa: F401
 from .models.sssp import sssp  # noqa: F401
+from .models.topk import TopkResult, topk  # noqa: F401
+from .models.wtf import WtfResult, wtf  # noqa: F401
 
 __version__ = "0.1.0"

@@ -12,16 +12,21 @@ Usage mirrors the JAX package's CLI (and the reference's
     python -m gunrock_tpu_torch hits rmat --rmat_scale=16 --max-iter=10
     python -m gunrock_tpu_torch bc rmat --rmat_scale=16 --src=largestdegree
     python -m gunrock_tpu_torch cc rmat --rmat_scale=16
+    python -m gunrock_tpu_torch wtf rmat --rmat_scale=16 --src=largestdegree
+    python -m gunrock_tpu_torch topk rmat --rmat_scale=16 --top-nodes=10
 
 Each run: load/generate the graph -> run the primitive
 ``--iteration-num`` times on ``--device`` (default ``cuda``) -> validate
 against the in-package numpy oracle with the JAX CLI's tolerances
 (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
 JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
-``sssp``, ``pr``/``pagerank``, ``hits``, ``salsa``, ``bc`` and ``cc``.
-``sssp`` gives a
-graph without edge values ``random_edge_values(seed=--edge-value-seed)``
-and runs on the host graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
+``sssp``, ``pr``/``pagerank``, ``hits``, ``salsa``, ``bc``, ``cc``,
+``wtf`` and ``topk``; the shard flags are not. ``--random-edge-values``
+gives a market graph weights seeded by ``--edge-value-seed`` and an
+R-MAT graph weights seeded by ``--rmat_seed``, as the JAX CLI's loader
+does; ``sssp`` gives a graph still without edge values
+``random_edge_values(seed=--edge-value-seed)`` and runs on the host
+graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
 graph ``with_blocked_values``, so that it takes the power route (kernel
 K4) where the JAX package's rule allows; the host graph, which the JAX
 CLI passes, would take the loop route (kernel K3). In the same way, on CUDA, ``bc``
@@ -45,7 +50,7 @@ from .utils.info import write_info
 __all__ = ["main", "build_parser", "load_graph_from_args"]
 
 PRIMITIVES = ("bfs", "sssp", "pr", "pagerank", "hits", "salsa", "bc",
-              "cc")
+              "cc", "wtf", "topk")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("graph")
     g.add_argument("--undirected", action="store_true",
                    help="symmetrize edges (reference --undirected)")
+    g.add_argument("--random-edge-values", action="store_true",
+                   help="attach uniform random weights (market reader flag)")
     g.add_argument("--rmat_scale", type=int, default=10)
     g.add_argument("--rmat_edgefactor", type=float, default=16.0)
     g.add_argument("--rmat_a", type=float, default=0.57)
@@ -79,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-cache", action="store_true",
                    help="skip the binary .csr cache when loading market")
     g.add_argument("--edge-value-seed", type=int, default=0,
-                   help="seed of the random edge values SSSP gives a graph "
-                        "without them")
+                   help="seed of the random edge values of a market graph "
+                        "and of those SSSP gives a graph without them")
 
     r = p.add_argument_group("run")
     r.add_argument("--src", default="0",
@@ -112,15 +119,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DO-BFS push->pull factor (reference do_a=0.001)")
     a.add_argument("--do_b", type=float, default=18.0,
                    help="DO-BFS pull->push factor (reference do_b=0.200)")
+    a.add_argument("--traversal-mode", default="LB",
+                   help="accepted for parity; the advance is always "
+                        "load-balanced by edges (LB/TWC/LB_CULL/...)")
     a.add_argument("--mode", default="bellman", choices=("bellman", "nearfar"),
                    help="SSSP strategy (near-far delta-stepping pile)")
     a.add_argument("--delta-factor", type=float, default=32.0,
                    help="SSSP near-far delta factor (reference gunrock.h:98)")
     a.add_argument("--max-iter", type=int, default=50,
-                   help="PR/HITS/SALSA iterations (reference --max-iter)")
+                   help="PR/HITS/SALSA/WTF iteration cap (reference "
+                        "--max-iter)")
     a.add_argument("--error", type=float, default=1e-6,
                    help="PR convergence threshold (reference --error)")
     a.add_argument("--normalized", action="store_true", default=True)
+    a.add_argument("--top-nodes", type=int, default=10,
+                   help="TopK / WTF result count")
+    a.add_argument("--alpha", type=float, default=0.2,
+                   help="WTF teleport parameter")
     return p
 
 
@@ -130,6 +145,8 @@ def load_graph_from_args(args) -> CsrGraph:
             raise SystemExit("market graph type needs a .mtx path")
         return market.load_market(args.graph_file,
                                   undirected=args.undirected or None,
+                                  random_edge_values=args.random_edge_values,
+                                  seed=args.edge_value_seed,
                                   use_cache=not args.no_cache)
     if args.graph_type == "binary":
         if not args.graph_file:
@@ -140,7 +157,8 @@ def load_graph_from_args(args) -> CsrGraph:
         return generators.rmat(
             scale=args.rmat_scale, edge_factor=args.rmat_edgefactor,
             a=args.rmat_a, b=args.rmat_b, c=args.rmat_c,
-            seed=args.rmat_seed, undirected=True)
+            seed=args.rmat_seed, undirected=True,
+            random_edge_values=args.random_edge_values)
     if args.graph_type == "rgg":
         return generators.rgg(args.rgg_nodes, args.rgg_threshold,
                               seed=args.seed)
@@ -272,10 +290,41 @@ def _run_cc(args, g, src):
     return res.info, ok
 
 
+def _run_wtf(args, g, src):
+    from .models.wtf import wtf
+    res = wtf(g, src, alpha=args.alpha, max_iters=args.max_iter,
+              device=args.device)
+    ok = True
+    if not args.quick:
+        ref, ppr = oracle.cpu_wtf(g, src, alpha=args.alpha,
+                                  max_iters=args.max_iter)
+        # The top-k score values (the order among ties may differ) and
+        # the phase-1 PPR vector.
+        k = res.scores.shape[0]
+        ref_top = np.sort(ref)[::-1][:k]
+        ok = _report(bool(
+            np.allclose(res.ppr_ranks, ppr, rtol=1e-3, atol=1e-6)
+            and np.allclose(np.sort(res.scores)[::-1], ref_top,
+                            rtol=1e-3, atol=1e-6)), "wtf", args.quiet)
+    return res.info, ok
+
+
+def _run_topk(args, g, src):
+    from .models.topk import topk
+    res = topk(g, k=args.top_nodes, device=args.device)
+    ok = True
+    if not args.quick:
+        cent = g.out_degrees + g.csc().out_degrees
+        ref = np.sort(cent)[::-1][:args.top_nodes]
+        ok = _report(bool(np.array_equal(np.sort(res.centralities)[::-1],
+                                         ref)), "topk", args.quiet)
+    return res.info, ok
+
+
 _RUNNERS = {"bfs": _run_bfs, "sssp": _run_sssp, "pr": _run_pr,
             "pagerank": _run_pr,
             "hits": _run_hits, "salsa": _run_salsa, "bc": _run_bc,
-            "cc": _run_cc}
+            "cc": _run_cc, "wtf": _run_wtf, "topk": _run_topk}
 
 
 def main(argv=None) -> int:

@@ -11,17 +11,18 @@
 // (negative, or at least nbits) reads as 0, as it does in the TPU
 // kernels, whose row loop never matches such an id.
 //
-// K1 and K10 test one frontier bit for every CSC source. The TPU kernels
-// keep the whole mask in VMEM (a constant (R, 128) block); here it is
-// held on chip too. Both run a persistent grid of one block of 32 warps
-// an SM and stream their ids with 16-byte loads and the evict-first
-// hint, the next tile's loads issued before anything waits on the
-// current one. Where the mask is read was measured both ways for each
-// (PERF.md, section 6): K10 reads it from shared memory, copied there
-// once a block, and through L1 only above the 227 KB a block may hold
-// (the wrapper's size rule, ops/kernels.py SHARED_MASK_WORDS); K1 reads
-// it through L1 at every size, which was faster for K1, whose warps also
-// hold their row starts in shared memory.
+// K1 and K10 test one frontier bit for every CSC source, K2 one for
+// every id it is given. The TPU kernels keep the whole mask in VMEM (a
+// constant (R, 128) block); here it is held on chip too. K1 and K10 run
+// a persistent grid of one block of 32 warps an SM and stream their ids
+// with 16-byte loads and the evict-first hint, the next tile's loads
+// issued before anything waits on the current one. Where the mask is
+// read was measured both ways for each (PERF.md, section 6): K10 reads
+// it from shared memory, copied there once a block, and through L1 only
+// above the 227 KB a block may hold (the wrapper's size rule,
+// ops/kernels.py SHARED_MASK_WORDS); K1 and K2 read it through L1 at
+// every size, which was faster for K1, whose warps also hold their row
+// starts in shared memory, and for K2 at every launch the BFS path makes.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (or
@@ -53,17 +54,13 @@ constexpr int kWarpTile = 32 * kReachItems;    // 256 edges a warp tile
 constexpr int kCumsumQuads = 4;
 constexpr int kCumsumQuad = kBlockThreads * 4;                 // 4096 ids
 constexpr int kCumsumTile = kCumsumQuad * kCumsumQuads;        // 16384 ids
+// K2: 16-byte id loads a thread a trip of its grid-stride loop.
+constexpr int kGatherQuads = 4;
 // The shared memory a block may opt into on the H100 (227 KB), less
 // K10's own: the largest mask K10 holds in shared memory.
 constexpr int64_t kSmemCap = 232448;
 constexpr int64_t kCumsumStatic = 1024;
 constexpr int64_t kCumsumMaskWords = (kSmemCap - kCumsumStatic) / 4;  // 57856
-
-__device__ __forceinline__ uint32_t mask_bit(const uint32_t* __restrict__ words,
-                                             uint64_t nbits, uint32_t u) {
-  return (uint64_t)u < nbits ? (__ldg(words + (u >> 5)) >> (u & 31u)) & 1u
-                             : 0u;
-}
 
 // Bit u of the frontier, from shared memory (kShared, once the block has
 // copied the mask there) or through L1.
@@ -344,22 +341,84 @@ pull_reached_words_kernel(ReachArgs a) {
   }
 }
 
-// K2: out[i] = bit idx[i] of a packed mask, as 0/1 int32.
+// K2: out[i] = bit idx[i] of a packed mask, as 0/1 int32; ids outside
+// the mask read 0 (frontier_bit).
 //
 // Replaces gunrock_tpu/ops/pallas_kernels.py _gather_kernel (:71) behind
 // bitmask_gather (:116), which loops over the VMEM-resident table rows
-// because a TPU core cannot gather across them. Here each thread reads
-// its word directly; one thread per index over a grid-stride loop, with
-// no length requirement. Bound: the idx read and out write stream at
-// HBM bandwidth (8 bytes an index); the word reads hit L2.
-__global__ void bitmask_gather_kernel(const uint32_t* __restrict__ words,
-                                      uint64_t nbits,
-                                      const int32_t* __restrict__ idx,
-                                      int64_t n, int32_t* __restrict__ out) {
+// because a TPU core cannot gather across them. Here the mask stays on
+// chip as the TPU keeps it in VMEM, read through L1 (__ldg) by a grid of
+// 256-thread blocks. A copy into shared memory costs the whole mask a
+// block (128 KB at the flagship's 32,768 words), which was measured to
+// pay only from about 9 ids a mask word, and the BFS path's launches
+// stay far below that (PERF.md, section 6).
+//
+// Ids are read and bits written 16 bytes a thread (kGatherQuads loads in
+// flight a trip, each warp's on one contiguous 512-byte run), with the
+// streaming hints. The single-source push passes a view of col_indices
+// that starts at any 4-byte offset: the wrapper gives out the same
+// offset mod 16 as idx, so one scalar head (up to the first 16-byte
+// boundary) and one scalar tail serve both; where the two offsets differ
+// every id takes the scalar path. The scalar ids go to the grid's last
+// threads, which the launch leaves without quads unless the grid is
+// capped, so that no thread of a short launch waits on two chains of
+// loads, a quad's and then a scalar's.
+//
+// Bound on the H100: the 4-byte id read and the 4-byte bit written, 8
+// bytes an id, and the mask once (0.0101 ms at 2^22 ids and 2^20 bits).
+struct GatherArgs {
+  const uint32_t* words;
+  uint64_t nbits;
+  const int32_t* idx;
+  int64_t n;
+  int64_t head;    // scalar ids before the quads (all n where not aligned)
+  int64_t nquads;  // 16-byte quads from idx + head
+  int32_t* out;
+};
+
+// A trip's kGatherQuads quads from q0 on, stride apart (past nquads:
+// left as they are).
+__device__ __forceinline__ void load_quads(const int4* __restrict__ in4,
+                                           int64_t nquads, int64_t q0,
+                                           int64_t stride,
+                                           int4 (&v)[kGatherQuads]) {
+#pragma unroll
+  for (int u = 0; u < kGatherQuads; ++u) {
+    if (q0 + u * stride < nquads) v[u] = __ldcs(in4 + q0 + u * stride);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bitmask_gather_kernel(GatherArgs a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = (int32_t)mask_bit(words, nbits, (uint32_t)idx[i]);
+  const int64_t gtid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int4* const in4 = reinterpret_cast<const int4*>(a.idx + a.head);
+  int4* const out4 = reinterpret_cast<int4*>(a.out + a.head);
+  int4 v[kGatherQuads] = {};
+  load_quads(in4, a.nquads, gtid, stride, v);
+  for (int64_t q0 = gtid; q0 < a.nquads; q0 += kGatherQuads * stride) {
+    int4 nxt[kGatherQuads] = {};
+    load_quads(in4, a.nquads, q0 + kGatherQuads * stride, stride, nxt);
+#pragma unroll
+    for (int u = 0; u < kGatherQuads; ++u) {
+      const int64_t q = q0 + u * stride;
+      if (q < a.nquads) {
+        const uint32_t b = quad_bits<false>(a.words, a.nbits, v[u]);
+        __stcs(out4 + q, make_int4((int)(b & 1u), (int)((b >> 1) & 1u),
+                                   (int)((b >> 2) & 1u), (int)(b >> 3)));
+      }
+      v[u] = nxt[u];
+    }
+  }
+  // The scalar head and tail (at most 3 ids each, or every id where idx
+  // and out are not aligned alike), counted down from the grid's last
+  // thread.
+  const int64_t tail = a.head + 4 * a.nquads;
+  const int64_t nscalar = a.n - 4 * a.nquads;
+  for (int64_t j = stride - 1 - gtid; j < nscalar; j += stride) {
+    const int64_t i = j < a.head ? j : tail + (j - a.head);
+    a.out[i] = (int32_t)frontier_bit<false>(a.words, a.nbits,
+                                            __ldcs(a.idx + i));
   }
 }
 
@@ -531,7 +590,7 @@ unsigned int blocks_for(int64_t threads) {
 }
 
 // Once a device: K10's shared variant may take the mask's shared memory
-// and prefers the whole carveout; K1 and K10's L1 variant prefer the
+// and prefers the whole carveout; K1, K2 and K10's L1 variant prefer the
 // least, so that L1 keeps the mask.
 void configure_tiles() {
   static bool done[64] = {};
@@ -546,6 +605,7 @@ void configure_tiles() {
   cudaFuncSetAttribute((const void*)gather_cumsum_kernel<true>,
                        cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   for (const void* k : {(const void*)gather_cumsum_kernel<false>,
+                        (const void*)bitmask_gather_kernel,
                         (const void*)pull_reached_words_kernel}) {
     cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                          0);
@@ -598,12 +658,29 @@ int gr_pull_reached_words(const void* words, int64_t nbits,
 
 int gr_bitmask_gather(const void* words, int64_t nbits, const void* idx,
                       int64_t n, void* out, void* stream) {
-  if (n > 0) {
-    bitmask_gather_kernel<<<blocks_for(n), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (uint64_t)nbits, (const int32_t*)idx, n,
-        (int32_t*)out);
+  if (n <= 0) return (int)cudaGetLastError();
+  if (nbits < 0 || nbits % 32 != 0) return (int)cudaErrorInvalidValue;
+  GatherArgs a;
+  a.words = (const uint32_t*)words;
+  a.nbits = (uint64_t)nbits;
+  a.idx = (const int32_t*)idx;
+  a.n = n;
+  a.out = (int32_t*)out;
+  const uintptr_t pi = reinterpret_cast<uintptr_t>(idx);
+  const uintptr_t po = reinterpret_cast<uintptr_t>(out);
+  a.head = n;
+  a.nquads = 0;
+  if (((pi ^ po) & 15) == 0 && (pi & 3) == 0) {
+    const int64_t head = (int64_t)((16 - (pi & 15)) & 15) / 4;
+    a.head = head < n ? head : n;
+    a.nquads = (n - a.head) / 4;
   }
+  const int64_t work = a.nquads + (n - 4 * a.nquads);  // quads and scalars
+  const int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = 8 * sm_count();
+  configure_tiles();
+  bitmask_gather_kernel<<<(unsigned int)(blocks < cap ? blocks : cap),
+                          kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

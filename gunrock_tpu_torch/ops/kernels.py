@@ -155,21 +155,28 @@ def bitmask_gather_plain(words: torch.Tensor,
 
 
 def bitmask_gather(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = bit ``idx[i]`` of the packed mask (0/1 int32).
+    """out[i] = bit ``idx[i]`` of the packed mask (0/1 int32); ids
+    outside the mask read 0.
 
     Kernel K2 (replaces the Pallas ``bitmask_gather``,
-    ``gunrock_tpu/ops/pallas_kernels.py:116``). ``idx`` is int32 of any
-    length."""
+    ``gunrock_tpu/ops/pallas_kernels.py:116``): one launch with 16-byte
+    id loads and stores, the mask read through L1. ``idx`` is int32 of
+    any length, and may be a view at any offset: the output is placed at
+    the same offset mod 16 bytes, so that the kernel's one scalar head
+    lines both up for 16-byte accesses."""
     if not _route(words, idx):
         return bitmask_gather_plain(words, idx)
     _check("words", words, idx.device)
     _check("idx", idx, idx.device)
-    out = torch.empty(idx.shape[0], dtype=torch.int32, device=idx.device)
-    if idx.shape[0] == 0:
+    n = idx.shape[0]
+    buf = torch.empty(n + 3, dtype=torch.int32, device=idx.device)
+    off = (idx.data_ptr() - buf.data_ptr()) % 16 // 4
+    out = buf[off:off + n]
+    if n == 0:
         return out
     _launch(_build.load().gr_bitmask_gather, words.data_ptr(),
-            words.shape[0] * 32, idx.data_ptr(), idx.shape[0],
-            out.data_ptr(), device=idx.device)
+            words.shape[0] * 32, idx.data_ptr(), n, out.data_ptr(),
+            device=idx.device)
     LAUNCHES["bitmask_gather"] += 1
     return out
 

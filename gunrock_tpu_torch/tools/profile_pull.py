@@ -1,7 +1,8 @@
 """Where K3's time goes, and K8's: the device time of a call against the
 host's, and K3's edge stream against its gathers; and the device time of
-K4, which runs K3's pass, of the activity-gated pulls K6 and K9, and of
-the BFS pulls K1 and K10 at the shapes of ``chip_smoke.py``.
+K4, which runs K3's pass, of the activity-gated pulls K6 and K9, of the
+BFS pulls K1 and K10 and of the push filter K2 at the shapes of
+``chip_smoke.py``.
 
     python -m gunrock_tpu_torch.tools.profile_pull [--scale 20]
         [--edge-factor 32] [--winners 135241] [--reps 20] [--device cuda]
@@ -54,11 +55,17 @@ then ``--reps`` calls under ``torch.profiler``):
     stream, rows and launches, every mask read one word), and K10 with
     the mask read through L1 (``K10L1``, the variant for masks above the
     shared-memory cap) where the size rule would hold it in shared
-    memory.
+    memory;
+  * K2 ``bitmask_gather`` over a mask of v_pad bits (half of them set,
+    seeded): at the main path's launch, the largest-degree vertex's
+    neighbours as the single-source push slices them from
+    ``col_indices`` (a view at any 4-byte offset), also with a 64 MB fill
+    before each call, so that the ids come from device memory as on the
+    main path, and at 2^22 random ids.
 
 ``--only`` keeps the cases whose name holds one of its words (``K5``,
 ``K7``, ...; ``K1`` keeps K1, K10 and K10's L1 variant, ``"K1 "
-"K10 "`` the wrappers alone).
+"K10 "`` the wrappers alone; ``K2`` keeps K2's cases).
 
 Each prints wall and device time a call and the device events,
 ``host``: the median time until a call returns unfenced, over ``--reps``
@@ -221,6 +228,31 @@ def pull_frontiers(dg, hub: int) -> tuple[list, list]:
     return depths, [K.pack_bitmask(labels == d) for d in depths]
 
 
+def k2_cases(dg, hub: int, rng) -> tuple:
+    """K2's cases (see the module docstring): the main path's launch,
+    warm and cold, and 2^22 random ids."""
+    dev = dg.device
+    words = K.pack_bitmask(torch.from_numpy(rng.random(dg.v_pad) < 0.5)
+                           .to(dev))
+    start, end = dg.row_offsets[hub:hub + 2].tolist()
+    nbr = dg.col_indices[start:end]
+    ids = torch.from_numpy(rng.integers(0, dg.v_pad, 1 << 22)
+                           .astype(np.int32)).to(dev)
+    at = f"offset {nbr.data_ptr() % 16} bytes mod 16"
+    # Larger than the H100's 50 MB L2: zeroed before a call, it leaves
+    # the ids cold, as the main path finds them.
+    flush = torch.empty(1 << 24, dtype=torch.float32, device=dev)
+    return (
+        (f"K2 bitmask_gather, the hub's {nbr.shape[0]} neighbours ({at})",
+         lambda: K.bitmask_gather(words, nbr)),
+        (f"K2 bitmask_gather, the hub's neighbours, L2 flushed before each "
+         f"call (the fill's events apart)",
+         lambda: (flush.zero_(), K.bitmask_gather(words, nbr))),
+        (f"K2 bitmask_gather, {ids.shape[0]} random ids",
+         lambda: K.bitmask_gather(words, ids)),
+    )
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=20)
@@ -323,6 +355,7 @@ def main(argv=None) -> int:
          lambda: [K._gather_cumsum(w, dg.csc_indices, False)
                   for w in fronts]),
     )
+    cases += k2_cases(dg, hub, rng)
     if args.only:
         cases = tuple(c for c in cases
                       if any(word in c[0] for word in args.only))

@@ -2,8 +2,8 @@
 
 Counterparts of :mod:`gunrock_tpu.utils.reference` (numpy, float64):
 ``cpu_bfs`` (reference ``ReferenceBFS``, ``tests/bfs/test_bfs.cu:186-257``),
-``cpu_sssp``, ``cpu_pagerank``, ``cpu_hits``, ``cpu_salsa``, ``cpu_cc``
-and ``cpu_bc`` (with ``cpu_brandes``, its single-source pass). The BC
+``cpu_sssp``, ``cpu_pagerank``, ``cpu_hits``, ``cpu_salsa``, ``cpu_wtf``,
+``cpu_cc`` and ``cpu_bc`` (with ``cpu_brandes``, its single-source pass). The BC
 oracle is level-synchronous and vectorised over each level's edges, where
 the JAX package's loops over edges in Python, so it runs at the flagship's
 60.7 M edges.
@@ -17,7 +17,7 @@ from collections import deque
 import numpy as np
 
 __all__ = ["cpu_bfs", "cpu_sssp", "cpu_pagerank", "cpu_hits", "cpu_salsa",
-           "cpu_cc", "cpu_bc", "cpu_brandes"]
+           "cpu_wtf", "cpu_cc", "cpu_bc", "cpu_brandes"]
 
 
 def cpu_bfs(g, src: int) -> np.ndarray:
@@ -115,6 +115,57 @@ def cpu_salsa(g, max_iters: int = 50):
         auth = np.bincount(dst, weights=(hub * inv_out)[src], minlength=n)
         hub = np.bincount(src, weights=(auth * inv_in)[dst], minlength=n)
     return hub, auth
+
+
+def cpu_wtf(g, src: int, *, delta: float = 0.85, alpha: float = 0.2,
+            max_iters: int = 50, threshold: float = 1e-6,
+            cot_size: int = 1000):
+    """Who-To-Follow oracle: PPR -> circle of trust -> personalized SALSA
+    (reference ``wtf_enactor.cuh:236-565`` phase semantics; see
+    models/wtf.py for the per-phase recurrences this mirrors).
+    Returns (refscore, ppr)."""
+    n = g.num_nodes
+    esrc = g.edge_sources()
+    edst = g.col_indices
+    outdeg = np.diff(g.row_offsets).astype(np.float64)
+    inv_out = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
+
+    # phase 1: personalized PageRank
+    rank = np.full(n, 1.0 / n)
+    e_src_vec = np.zeros(n)
+    e_src_vec[src] = 1.0
+    for _ in range(max_iters):
+        incoming = np.bincount(edst, weights=(rank * inv_out)[esrc],
+                               minlength=n)
+        new_rank = delta * incoming + (1.0 - delta) * e_src_vec
+        diff = np.abs(new_rank - rank).sum()
+        rank = new_rank
+        if diff <= threshold:
+            break
+
+    # phase 2: circle of trust = top-k by PPR (ties -> lowest id), then
+    # in-degree restricted to CoT out-edges
+    k = min(cot_size, n)
+    cot = np.argsort(-rank, kind="stable")[:k]
+    in_cot = np.zeros(n, bool)
+    in_cot[cot] = True
+    sel = in_cot[esrc]
+    s, d = esrc[sel], edst[sel]
+    cot_indeg = np.bincount(d, minlength=n).astype(np.float64)
+    inv_cot_in = np.where(cot_indeg > 0,
+                          1.0 / np.maximum(cot_indeg, 1.0), 0.0)
+
+    # phase 3: personalized SALSA over the CoT's out-edges
+    salsa_iters = int(1.0 / alpha)
+    r = np.zeros(n)
+    r[src] = 1.0
+    ref = np.zeros(n)
+    for _ in range(salsa_iters):
+        ref = np.bincount(d, weights=(r * inv_out)[s], minlength=n)
+        hub_val = np.where(s == src, alpha * inv_out[s], 0.0) + \
+            (1.0 - alpha) * (ref * inv_cot_in)[d]
+        r = np.bincount(s, weights=hub_val, minlength=n)
+    return ref, rank
 
 
 def cpu_cc(g) -> np.ndarray:

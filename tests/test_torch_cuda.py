@@ -53,6 +53,73 @@ def test_bitmask_gather_kernel_equals_plain(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, (1 << 20) + 3])
+def test_bitmask_gather_kernel_offsets_equal_plain(cuda, n, offset):
+    """K2 exactly: lengths around its 16-byte quads, the ids a view at
+    every 4-byte offset mod 16 (as the single-source push slices
+    col_indices), ids outside the mask; the output lies at the ids'
+    offset mod 16."""
+    words = K.pack_bitmask(torch.rand(1 << 20, device=cuda) < 0.5)
+    base = torch.randint(-100, (1 << 20) + 100, (n + 8,), dtype=torch.int32,
+                         device=cuda)
+    idx = base[offset:offset + n]
+    assert idx.data_ptr() % 16 == 4 * offset
+    got = K.bitmask_gather(words, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitmask_gather_plain(words, idx))
+    assert got.data_ptr() % 16 == idx.data_ptr() % 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_offset", [1, 2, 3])
+def test_bitmask_gather_kernel_unaligned_output(cuda, out_offset):
+    """The C entry point with ids and output at different offsets mod
+    16: every id takes the scalar path, and nothing outside the output
+    is written."""
+    from gunrock_tpu_torch.ops import _build
+    words = K.pack_bitmask(torch.rand(1 << 16, device=cuda) < 0.5)
+    n = 100_003
+    idx = torch.randint(-5, (1 << 16) + 5, (n,), dtype=torch.int32,
+                        device=cuda)
+    want = K.bitmask_gather_plain(words, idx)
+    buf = torch.full((n + 4,), 7, dtype=torch.int32, device=cuda)
+    out = buf[out_offset:out_offset + n]
+    K._launch(_build.load().gr_bitmask_gather, words.data_ptr(),
+              words.shape[0] * 32, idx.data_ptr(), n, out.data_ptr(),
+              device=idx.device)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert (buf[:out_offset] == 7).all() and (buf[out_offset + n:] == 7).all()
+
+
+@pytest.mark.cuda
+def test_bitmask_gather_kernel_mask_above_the_cap_and_hub_slice(cuda):
+    """K2 over a mask above the shared-memory cap that K10 keeps (read
+    through L1 as every mask is), and at the single-source push's own
+    launch: the largest-degree vertex's neighbours sliced from
+    col_indices."""
+    big = K.pack_bitmask(torch.rand(32 * (K.SHARED_MASK_WORDS + 1),
+                                    device=cuda) < 0.5)
+    idx = torch.randint(-3, big.shape[0] * 32 + 3,
+                        (40 * big.shape[0] + 5,), dtype=torch.int32,
+                        device=cuda)
+    got = K.bitmask_gather(big, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitmask_gather_plain(big, idx))
+    dg = gtt.to_device(gtt.io.rmat(scale=14, edge_factor=16, seed=3,
+                                   undirected=True), device=cuda)
+    deg = dg.row_offsets[1:] - dg.row_offsets[:-1]
+    hub = int(torch.argmax(deg))
+    start, end = dg.row_offsets[hub:hub + 2].tolist()
+    nbr = dg.col_indices[start:end]
+    words = K.pack_bitmask(torch.rand(dg.v_pad, device=cuda) < 0.5)
+    got = K.bitmask_gather(words, nbr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitmask_gather_plain(words, nbr))
+
+
+@pytest.mark.cuda
 def test_bfs_on_cuda_equals_cpu_and_launches_kernels(cuda):
     g = gtt.io.rmat(scale=10, edge_factor=8, seed=42, undirected=True)
     want = gtt.bfs(g, "largestdegree", mark_preds=True,
@@ -1122,3 +1189,50 @@ def test_cc_on_cuda_equals_scipy(cuda, monkeypatch):
     assert sweeps.info["route"] == "pull_sweeps"
     assert K.LAUNCHES["pull_min_sweeps"] > 0
     np.testing.assert_array_equal(sweeps.components, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3, 7])
+def test_pagerank_directed_iterations_on_cuda(cuda, seed):
+    """PageRank's float32 routes on the card on directed R-MAT graphs
+    (ROADMAP.md queue C, C3): the loop route (K3) stops where a float64
+    power iteration with the same rule stops, and the power route (K4,
+    forced on this small graph) first counts no moved vertex at that
+    iteration; the ranks within the CPU route's tolerance of the plain
+    version."""
+    import dataclasses
+    from gunrock_tpu_torch.models.pr import pagerank_device
+    g = gtt.io.rmat(scale=9, edge_factor=8, seed=seed, undirected=False)
+    n = g.num_nodes
+    esrc = g.edge_sources()
+    deg = np.diff(g.row_offsets).astype(np.float64)
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1.0), 0.0)
+    rank = np.full(n, 1.0 / n)
+    want_iters = 50
+    for it in range(1, 51):
+        new = 0.15 / n + 0.85 * np.bincount(
+            g.col_indices, weights=(rank * inv)[esrc], minlength=n)
+        moved = int((np.abs(new - rank) > 1e-6).sum())
+        rank = new
+        if moved == 0:
+            want_iters = it
+            break
+    want = gtt.pagerank(g, device="cpu")
+    assert want.info["num_iterations"] == want_iters
+    dg = gtt.to_device(g, with_csc=True, device=cuda)
+    K.reset_launch_counts()
+    loop = gtt.pagerank(dg)
+    assert loop.info["num_iterations"] == want_iters
+    assert K.LAUNCHES["pull_reduce2"] == want_iters
+    np.testing.assert_allclose(loop.ranks, want.ranks, rtol=1e-4, atol=2e-7)
+    r, _, stats = pagerank_device(dataclasses.replace(dg, has_pull2=True))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_power_iters"] > 0
+    assert stats.frontier_trace.index(0) + 1 == want_iters
+    # The power route stops after a chunk of rounds: against its plain
+    # version over the same rounds.
+    plain, _, pstats = pagerank_device(dataclasses.replace(
+        gtt.to_device(g, with_csc=True, device="cpu"), has_pull2=True))
+    assert pstats.iteration == stats.iteration
+    np.testing.assert_allclose(r.cpu().numpy()[:n], plain.numpy()[:n],
+                               rtol=1e-4, atol=2e-7)

@@ -226,7 +226,7 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
                               "--winners=50", "--reps=2",
                               "--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 20 and "|E|=" in lines[0]
+    assert len(lines) == 23 and "|E|=" in lines[0]
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]
@@ -241,3 +241,26 @@ def test_profile_pull_tool_runs_on_cpu(capsys):
     assert "every source vertex 0" in lines[17]
     assert "K10 bitmask_gather_cumsum" in lines[18]
     assert "K10L1" in lines[19]
+    assert "K2 bitmask_gather, the hub's" in lines[20]
+    assert "L2 flushed" in lines[21]
+    assert "K2 bitmask_gather, 4194304 random ids" in lines[22]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gather_output_offset(offset, dry_launch):
+    """K2's arguments, and its output placed at the ids' offset mod 16
+    bytes for a view at any 4-byte offset, at lengths around the quads
+    and over masks on both sides of K10's shared-memory cap (K2 reads
+    every mask through L1)."""
+    for nwords, n in ((1024, 1), (1024, 9215), (K.SHARED_MASK_WORDS + 1,
+                                                 100_003)):
+        words = torch.zeros(nwords, dtype=torch.int32)
+        base = torch.zeros(n + 4, dtype=torch.int32)
+        idx = base[offset:offset + n]
+        out = K.bitmask_gather(words, idx)
+        # words, nbits, idx, n, out
+        args = dry_launch[-1][1]
+        assert args == (words.data_ptr(), 32 * nwords, idx.data_ptr(), n,
+                        out.data_ptr())
+        assert out.shape == (n,) and out.dtype == torch.int32
+        assert out.data_ptr() % 16 == idx.data_ptr() % 16 == 4 * offset

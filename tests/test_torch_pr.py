@@ -503,6 +503,78 @@ def test_profile_value_tool_runs_on_cpu(capsys):
     assert profile_value.main(["--scale=8", "--edge-factor=4", "--runs=1",
                                "--device=cpu"]) == 0
     out = capsys.readouterr().out
-    for name in ("pagerank power route", "pagerank loop route", "hits"):
+    for name in ("pagerank power route", "pagerank loop route", "hits",
+                 "wtf"):
         assert f"[{name}]" in out
     assert "device not measured" in out
+
+
+def _pr64_iterations(g, *, damping=0.85, threshold=1e-6, max_iters=50):
+    """The PageRank loop's iteration count (normalized, its stop rule: no
+    vertex moved more than ``threshold``) in float64."""
+    n = g.num_nodes
+    esrc = g.edge_sources()
+    deg = np.diff(g.row_offsets).astype(np.float64)
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1.0), 0.0)
+    rank = np.full(n, 1.0 / n)
+    for it in range(1, max_iters + 1):
+        new = (1.0 - damping) / n + damping * np.bincount(
+            g.col_indices, weights=(rank * inv)[esrc], minlength=n)
+        moved = int((np.abs(new - rank) > threshold).sum())
+        rank = new
+        if moved == 0:
+            return it
+    return max_iters
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_pagerank_directed_iterations(seed):
+    """On directed graphs the JAX package's float32 running-sum
+    differencing can move its stop by an iteration (ROADMAP.md queue C,
+    C3): the port's count is held to a float64 power iteration's exactly
+    and to the JAX count within one; the ranks as in
+    ``test_pagerank_csr_equals_jax``."""
+    gj, gp = (m.io.rmat(scale=9, edge_factor=8, seed=seed, undirected=False)
+              for m in (gt, gtt))
+    want = gt.pagerank(gj)
+    got = gtt.pagerank(gp, device="cpu")
+    it, jit = got.info["num_iterations"], want.info["num_iterations"]
+    assert it == _pr64_iterations(gp)
+    assert abs(it - jit) <= 1
+    np.testing.assert_allclose(got.ranks, want.ranks, rtol=1e-4, atol=2e-7)
+
+
+CLI_ARGVS = {
+    "sssp": ["sssp", "rmat", "--rmat_scale=8", "--rmat_seed=3",
+             "--random-edge-values"],
+    "bfs": ["bfs", "rmat", "--rmat_scale=8", "--traversal-mode=LB"],
+    "wtf": ["wtf", "rmat", "--rmat_scale=8", "--alpha=0.3",
+            "--src=largestdegree"],
+    "topk": ["topk", "rmat", "--rmat_scale=8", "--top-nodes=7"],
+}
+
+
+@pytest.mark.parametrize("prim", list(CLI_ARGVS))
+def test_cli_flags_match_jax_cli(prim, capsys, tmp_path):
+    """The JAX and port CLIs on the same argv (the port's on the CPU):
+    equal validation lines, and equal Info ``search_depth`` and
+    ``edges_visited`` where the JAX record has them. With
+    ``--random-edge-values`` both seed R-MAT's weights by ``--rmat_seed``
+    (ROADMAP.md queue C, C2)."""
+    from gunrock_tpu import cli as jax_cli
+    argv = CLI_ARGVS[prim]
+    lines, infos = [], []
+    for main, extra, name in ((jax_cli.main, [], "jax"),
+                              (cli.main, ["--device=cpu"], "port")):
+        out = tmp_path / f"{name}.json"
+        assert main(argv + extra + [f"--jsonfile={out}"]) == 0
+        lines.append([line for line in capsys.readouterr().out.splitlines()
+                      if "validation:" in line])
+        infos.append(json.loads(out.read_text()))
+    assert lines[0] == lines[1] == [f"{prim} validation: CORRECT"]
+    want, got = infos
+    for key in ("search_depth", "edges_visited"):
+        if key in want:
+            assert got[key] == want[key], key
+    if prim == "sssp":
+        assert "search_depth" in want
