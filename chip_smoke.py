@@ -138,11 +138,37 @@ script exits non-zero:
     ``gunrock_tpu_torch.topk`` at k = 10 and 1000, exact against numpy's
     degrees, best of 5.
 
+26. TC on the flagship through ``gunrock_tpu_torch.tc`` (the sort-join of
+    ``ops/intersection.py``, PyTorch operators, no kernel of its own):
+    the chunk count equals ``_tc_prepare``'s, the per-edge counts sum to
+    the total and the per-vertex counts to three times it, and 100,000
+    oriented edges drawn by a seeded generator each count
+    ``np.intersect1d`` of their two DAG rows. Exact against ``cpu_tc`` on
+    R-MAT scale 14, edge factor 16, in one chunk and, with
+    ``GUNROCK_TC_WEDGE_BUDGET=2**20``, in several with equal counts;
+    ``python -m gunrock_tpu_torch tc rmat --rmat_scale=12 --undirected``
+    prints CORRECT. ``gunrock_tpu_torch.sample`` from the hub equals phase
+    3's labels; ``expand_inverse`` of the hub, ``cull_filter`` of its
+    lanes and ``pull_reduce`` sum/max/min on the flagship equal the same
+    functions with ``device="cpu"`` (sums rtol 1e-6). TC best of 5
+    ``process_ms`` after a warm-up, a chunk's share and wedges per
+    microsecond; the device time of the first 5 chunks by step
+    (expansion, sort, run flag and gather, scatters) and the busy share of
+    a whole run, from ``torch.profiler``.
+27. SSSP's value-carry micro-loop (``deep_carry=True``): the flagship
+    with phase 12's near-far delta and the grid of phase 13 (delta 256,
+    through the sweeps' bail-out), distances bitwise equal to the
+    ``deep_carry=False`` runs, rounds and edge counts equal, and K5's pair
+    mode launched once a carry round (``sample_sorted`` fewer times than
+    without carry); the grid with and without carry, best of 3 each, in
+    turns.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4), 7-8, 17 and 25 (K3), 12 and 17 (K5, K7, K8), 11 (K6), 16 (K9) and
-21 (K10). Every kernel's entry also carries ``bound_ms``, the least time
-the card could take for the same work at the H100's published rates (see
+(K4), 7-8, 17 and 25 (K3), 12, 17 and 27 (K5), 12 and 17 (K7, K8), 11
+(K6), 16 (K9) and 21 (K10). Every kernel's entry also carries
+``bound_ms``, the least time the card could take for the same work at
+the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
 computes the same function on the same inputs where there is one: the
 CSR sparse matrix-vector product for K3 (phase 9), ``index_select`` for
@@ -1702,6 +1728,245 @@ def phase_above_cap(gtt, dev):
         del dgx
 
 
+TC_SCALE, TC_EDGE_FACTOR = 14, 16   # phase 26's exact check against cpu_tc
+TC_SMALL_BUDGET = 1 << 20           # and its several-chunk run
+TC_SAMPLED_EDGES = 100_000
+TC_PROFILED_CHUNKS = 5
+
+
+def phase_tc(gtt, g, src, bfs_labels, dgv, card):
+    """Phase 26: TC on the flagship through ``gtt.tc`` (its chunk count,
+    the count identities, 100,000 sampled oriented edges against
+    ``np.intersect1d`` of their DAG rows), exact against ``cpu_tc`` on
+    R-MAT scale 14 in one chunk and in several, the ``tc`` CLI, ``sample``
+    from the hub against phase 3's labels, the A4 operators on the card
+    against the same functions on the CPU, then TC's timing (best of RUNS
+    ``process_ms`` after a warm-up, wedges per microsecond), the device
+    time of its first chunks split by step and its busy share."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.ops import cull_filter, expand_inverse, pull_reduce
+    from gunrock_tpu_torch.ops import intersection as I
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.tools.profile_value import profile_run
+    from gunrock_tpu_torch.utils.reference import cpu_tc
+    tcm = importlib.import_module("gunrock_tpu_torch.models.tc")
+    dev = dgv.device
+
+    t0 = time.perf_counter()
+    prep = tcm._tc_prepare(g)
+    dag = prep.dag
+    print(f"[tc] host prep {time.perf_counter() - t0:.3f} s: "
+          f"{dag.num_edges} oriented edges, largest oriented out-degree "
+          f"{int(np.diff(dag.row_offsets).max())}, {prep.wedge_total} "
+          f"wedges, {len(prep.bounds) - 1} chunks of at most "
+          f"{tcm._default_wedge_budget()} wedges")
+    K.reset_launch_counts()
+    res = gtt.tc(g, device="cuda")
+    info = res.info
+    print(f"[tc] flagship: {res.total} triangles, {info['num_chunks']} "
+          f"chunks, wedges_probed {info['wedges_probed']}, preprocess "
+          f"{info['preprocess_ms']:.3f} ms, process {info['process_ms']:.3f} "
+          f"ms; kernel launches {dict(K.LAUNCHES)}")
+    if info["num_chunks"] != len(prep.bounds) - 1:
+        raise AssertionError("TC's chunk count differs from _tc_prepare's")
+    if int(res.edge_counts.sum(dtype=np.int64)) != res.total or \
+            int(res.vertex_counts.sum()) != 3 * res.total:
+        raise AssertionError("TC's per-edge or per-vertex counts do not sum "
+                             "to the total")
+    rng = np.random.default_rng(SEED)
+    row, col = dag.row_offsets, dag.col_indices
+    esrc = prep.esrc_full
+    t0 = time.perf_counter()
+    for e in rng.choice(dag.num_edges, TC_SAMPLED_EDGES, replace=False):
+        u, v = esrc[e], col[e]
+        want = np.intersect1d(col[row[u]:row[u + 1]], col[row[v]:row[v + 1]],
+                              assume_unique=True).size
+        if res.edge_counts[e] != want:
+            raise AssertionError(f"TC count of oriented edge {e} ({u}, {v}) "
+                                 f"is {res.edge_counts[e]}, not {want}")
+    print(f"[tc] the counts of {TC_SAMPLED_EDGES} sampled oriented edges "
+          f"equal np.intersect1d of their DAG rows "
+          f"({time.perf_counter() - t0:.3f} s)")
+
+    gs = gtt.io.rmat(scale=TC_SCALE, edge_factor=TC_EDGE_FACTOR, seed=SEED,
+                     undirected=True)
+    one = gtt.tc(gs, device="cuda")
+    t0 = time.perf_counter()
+    want = cpu_tc(gs)
+    with patch.dict(os.environ,
+                    {"GUNROCK_TC_WEDGE_BUDGET": str(TC_SMALL_BUDGET)}):
+        many = gtt.tc(gs, device="cuda")
+    if not one.total == many.total == want:
+        raise AssertionError(f"TC on rmat n{TC_SCALE}: {one.total} and "
+                             f"{many.total}, cpu_tc {want}")
+    if many.info["num_chunks"] < 2 or not (
+            np.array_equal(one.edge_counts, many.edge_counts) and
+            np.array_equal(one.vertex_counts, many.vertex_counts)):
+        raise AssertionError("TC's several-chunk run differs from its "
+                             "one-chunk run")
+    print(f"[tc] rmat n{TC_SCALE} e{TC_EDGE_FACTOR}: {one.total} triangles, "
+          f"equal to cpu_tc ({time.perf_counter() - t0:.3f} s) in "
+          f"{one.info['num_chunks']} chunk and, at a budget of "
+          f"{TC_SMALL_BUDGET} wedges, in {many.info['num_chunks']} chunks "
+          f"with equal counts")
+    cmd = [sys.executable, "-m", "gunrock_tpu_torch", "tc", "rmat",
+           "--rmat_scale=12", "--undirected"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [line for line in out.stdout.splitlines() if "validation" in line]
+    print(f"[tc] {' '.join(cmd[1:])}: exit {out.returncode}; {lines}")
+    if out.returncode != 0 or lines != ["tc validation: CORRECT"]:
+        raise AssertionError(f"the tc CLI failed: {out.stderr[-2000:]}")
+
+    labels = gtt.sample(dgv, src)
+    if not np.array_equal(labels, bfs_labels):
+        raise AssertionError("sample's labels differ from phase 3's")
+    print(f"[sample] from the hub on the card: labels equal phase 3's "
+          f"(depth {int(labels.max())})")
+
+    t0 = time.perf_counter()
+    dc = gtt.to_device(g, with_csc=True, device="cpu")
+    frontier = torch.tensor([src], dtype=torch.int32)
+    exg = expand_inverse(dgv, frontier.to(dev))
+    exc = expand_inverse(dc, frontier)
+    if exg.total != exc.total or not all(
+            torch.equal(getattr(exg, f).cpu(), getattr(exc, f))
+            for f in ("src", "dst", "eid", "rank")):
+        raise AssertionError("expand_inverse of the hub differs on the card")
+    keep = exc.dst % 3 != 0
+    fg = cull_filter(exg.dst, keep.to(dev), size=dgv.v_pad)
+    fc = cull_filter(exc.dst, keep, size=dc.v_pad)
+    if fg[1] != fc[1] or not (torch.equal(fg[0].cpu(), fc[0]) and
+                              torch.equal(fg[2].cpu(), fc[2])):
+        raise AssertionError("cull_filter of the hub's lanes differs on the "
+                             "card")
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, dc.e_pad).astype(
+        np.float32))
+    for op in ("sum", "max", "min"):
+        got = pull_reduce(dgv, vals.to(dev), op=op).cpu()
+        want = pull_reduce(dc, vals, op=op)
+        if op == "sum":
+            check_close("pull_reduce sum on the card", got.numpy(),
+                        want.numpy(), rtol=1e-6, atol=0.0)
+        elif not torch.equal(got, want):
+            raise AssertionError(f"pull_reduce {op} differs on the card")
+    print(f"[ops] the hub's expand_inverse ({exc.total} lanes), cull_filter "
+          f"({fc[1]} kept) and pull_reduce sum/max/min on the flagship: "
+          f"equal to the CPU's (sum rtol 1e-6) "
+          f"({time.perf_counter() - t0:.3f} s)")
+    del dc
+
+    def timed():
+        return gtt.tc(g, device="cuda").info["process_ms"]
+
+    times = [timed() for _ in range(RUNS)]
+    best = min(times)
+    print(f"[timing] tc flagship: process_ms best {best:.3f} of {RUNS} "
+          f"({', '.join(f'{t:.3f}' for t in times)}); "
+          f"{best / info['num_chunks']:.3f} ms a chunk "
+          f"({info['num_chunks']}); {prep.wedge_total / (best * 1e3):.1f} "
+          f"wedges a microsecond; {res.total} triangles; on {card}")
+
+    # The device time of the first chunks, step by step, and the busy
+    # share of a whole run (the upload and the chunk loop).
+    drow = torch.from_numpy(prep.row).to(dev)
+    dcol = torch.from_numpy(prep.col).to(dev)
+    desrc = torch.from_numpy(prep.esrc_full).to(dev)
+    n = dag.num_edges
+    steps = dict.fromkeys(("expansion", "sort", "run flag and gather",
+                           "scatters"), 0.0)
+    for a, b in zip(prep.bounds, prep.bounds[1:TC_PROFILED_CHUNKS + 1]):
+        cs, cd = desrc[a:b], dcol[a:b]
+        u, w, rank, _ = I.wedges(drow, dcol, cs, cd)
+        keys, perm = I.join(desrc, dcol[:n], u, w, prep.v_pad)
+        hit = I.hits(keys, perm, n)
+        for step, fn in (
+                ("expansion", lambda: I.wedges(drow, dcol, cs, cd)),
+                ("sort", lambda: I.join(desrc, dcol[:n], u, w, prep.v_pad)),
+                ("run flag and gather", lambda: I.hits(keys, perm, n)),
+                ("scatters", lambda: I.count(hit, w, rank, cs, cd,
+                                             prep.v_pad))):
+            steps[step] += profile_run(fn, 1, dev)["device_ms"]
+        del u, w, rank, keys, perm, hit
+    total_ms = sum(steps.values())
+    print(f"[tc] device time of the first {TC_PROFILED_CHUNKS} chunks, "
+          f"{total_ms:.3f} ms: " + ", ".join(
+              f"{k} {v:.3f} ms ({100.0 * v / total_ms:.1f}%)"
+              for k, v in steps.items()))
+    whole = profile_run(lambda: tcm._tc_run(prep, dev), 1, dev)
+    print(f"[tc] a whole run under the profiler: wall "
+          f"{whole['wall_ms']:.3f} ms, device {whole['device_ms']:.3f} ms, "
+          f"busy {100.0 * whole['device_ms'] / whole['wall_ms']:.1f}%; "
+          f"largest: " + "; ".join(f"{name[:60]} {ms:.3f} ms ({calls:.0f})"
+                                   for name, calls, ms in whole["events"][:6]))
+    del drow, dcol, desrc
+    torch.cuda.empty_cache()
+
+
+def phase_sssp_carry(g, src, dgs, dist, dgw, card):
+    """Phase 27: SSSP's value-carry micro-loop (``deep_carry=True``) on
+    the flagship with phase 12's near-far delta and on the grid of phase
+    13 (delta 256, through the sweeps' bail-out): distances bitwise equal
+    to the ``deep_carry=False`` runs, iteration and edge counts equal,
+    K5 launched on each graph. Then the grid with and without carry,
+    best of 3 each, in turns. Returns K5's launches in the carry runs."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    from gunrock_tpu_torch.ops import kernels as K
+
+    delta = 32.0 * float(np.mean(g.edge_values))
+    k5 = 0
+    for name, graph, s, kw in (
+            ("flagship near-far", dgs, src, dict(mode="nearfar",
+                                                 delta=delta)),
+            ("grid", dgw, 0, dict(mode="pull", delta=GRID_DELTA))):
+        out = {}
+        for carry in (False, True):
+            K.reset_launch_counts()
+            records = []
+            d, _, st = sssp_device(graph, s, deep_carry=carry,
+                                   instrument=records, **kw)
+            torch.cuda.synchronize()
+            out[carry] = (d, st, dict(K.LAUNCHES),
+                          [r["phase"] for r in records].count("deep"))
+        (d0, st0, n0, deep0), (d1, st1, n1, deep1) = out[False], out[True]
+        print(f"[carry] {name}: route {st1.route}, {st1.iteration} rounds "
+              f"({deep1} deep); K5 launches with carry: sample_sorted2 "
+              f"{n1['sample_sorted2']}, sample_sorted {n1['sample_sorted']} "
+              f"(without: {n0['sample_sorted2']}, {n0['sample_sorted']})")
+        if not torch.equal(d1, d0) or (name.startswith("flagship") and
+                                       not torch.equal(d1, dist)):
+            raise AssertionError(f"carry on the {name}: distances differ")
+        if (st1.iteration, st1.edges_queued, st1.frontier_trace) != \
+                (st0.iteration, st0.edges_queued, st0.frontier_trace):
+            raise AssertionError(f"carry on the {name}: the rounds differ")
+        if deep1 <= 0 or n1["sample_sorted2"] <= 0 or \
+                n1["sample_sorted2"] != n0["sample_sorted2"] or \
+                n0["sample_sorted"] - n1["sample_sorted"] <= 0:
+            raise AssertionError(f"carry on the {name}: no carry round, or "
+                                 "a carry round launched K5 otherwise than "
+                                 "once in pair mode")
+        k5 += n1["sample_sorted"] + n1["sample_sorted2"]
+    print("[carry] distances bitwise equal to the non-carry routes, rounds "
+          "and edge counts equal, on both graphs")
+    times = {False: [], True: []}
+    for carry in (False, True, True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sssp_device(dgw, 0, mode="pull", delta=GRID_DELTA, deep_carry=carry)
+        torch.cuda.synchronize()
+        times[carry].append((time.perf_counter() - t0) * 1e3)
+    for carry in (False, True):
+        print(f"[timing] sssp grid, deep_carry={carry}: best "
+              f"{min(times[carry]):.3f} ms of 3 "
+              f"({', '.join(f'{t:.3f}' for t in times[carry])}); on {card}")
+    return k5
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1886,13 +2151,19 @@ def main() -> int:
                                                     gg, dgw, dev)
     k10 = phase_k10_kernel(dgk, res.labels, pull_depths, dev)
     phase_bfs_timing(src, info["edges_visited"], dgb, dgk, gg, dgw, card)
-    del dgk, dgb, dgw
+    del dgk, dgb
 
     # 24. K1 and K10 above the shared-memory cap.
     phase_above_cap(gtt, dev)
 
     # 25. WTF and TopK.
     wtf_launches = phase_wtf_topk(gtt, g, src, dgv, card)
+
+    # 26. TC, sample and the rest of the operators; 27. SSSP's value-carry
+    # micro-loop.
+    phase_tc(gtt, g, src, res.labels, dgv, card)
+    carry_launches = phase_sssp_carry(g, src, dgs, dist, dgw, card)
+    del dgw
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -1917,7 +2188,8 @@ def main() -> int:
         {"name": "sample_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:594",
          "launches": sssp_launches["sample_sorted"]
-         + sssp_launches["sample_sorted2"] + bc_launches["sample_sorted"],
+         + sssp_launches["sample_sorted2"] + bc_launches["sample_sorted"]
+         + carry_launches,
          **sk["sample_sorted"]},
         {"name": "pull_min_sweeps", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:323",

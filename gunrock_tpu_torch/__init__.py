@@ -24,9 +24,12 @@ Quick start::
     gtt.cc(g).num_components
     gtt.wtf(g, src=g.largest_degree_vertex()).node_ids[:10]
     gtt.topk(g, k=10).node_ids
+    gtt.tc(g).total
+    gtt.sample(g, src=0)
+    gtt.api.tc(g.num_nodes, g.row_offsets, g.col_indices)
 """
 
-from . import io  # noqa: F401
+from . import api, io  # noqa: F401
 from .graph.csr import CsrGraph, from_coo  # noqa: F401
 from .graph.device import DeviceGraph, to_device  # noqa: F401
 from .models.bc import bc  # noqa: F401
@@ -35,7 +38,9 @@ from .models.cc import cc  # noqa: F401
 from .models.hits import hits  # noqa: F401
 from .models.pr import pagerank  # noqa: F401
 from .models.salsa import salsa  # noqa: F401
+from .models.sample import sample  # noqa: F401
 from .models.sssp import sssp  # noqa: F401
+from .models.tc import TcResult, tc  # noqa: F401
 from .models.topk import TopkResult, topk  # noqa: F401
 from .models.wtf import WtfResult, wtf  # noqa: F401
 

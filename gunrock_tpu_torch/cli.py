@@ -14,6 +14,7 @@ Usage mirrors the JAX package's CLI (and the reference's
     python -m gunrock_tpu_torch cc rmat --rmat_scale=16
     python -m gunrock_tpu_torch wtf rmat --rmat_scale=16 --src=largestdegree
     python -m gunrock_tpu_torch topk rmat --rmat_scale=16 --top-nodes=10
+    python -m gunrock_tpu_torch tc rmat --rmat_scale=16 --undirected
 
 Each run: load/generate the graph -> run the primitive
 ``--iteration-num`` times on ``--device`` (default ``cuda``) -> validate
@@ -21,12 +22,12 @@ against the in-package numpy oracle with the JAX CLI's tolerances
 (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
 JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
 ``sssp``, ``pr``/``pagerank``, ``hits``, ``salsa``, ``bc``, ``cc``,
-``wtf`` and ``topk``; the shard flags are not. ``--random-edge-values``
-gives a market graph weights seeded by ``--edge-value-seed`` and an
-R-MAT graph weights seeded by ``--rmat_seed``, as the JAX CLI's loader
-does; ``sssp`` gives a graph still without edge values
-``random_edge_values(seed=--edge-value-seed)`` and runs on the host
-graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
+``wtf``, ``topk`` and ``tc`` (checked against ``cpu_tc``); the shard
+flags are not. ``--random-edge-values`` gives a market graph weights
+seeded by ``--edge-value-seed`` and an R-MAT graph weights seeded by
+``--rmat_seed``, as the JAX CLI's loader does; ``sssp`` gives a graph
+still without edge values ``random_edge_values(seed=--edge-value-seed)``
+and runs on the host graph, as the JAX CLI does. On CUDA, ``pr`` uploads the
 graph ``with_blocked_values``, so that it takes the power route (kernel
 K4) where the JAX package's rule allows; the host graph, which the JAX
 CLI passes, would take the loop route (kernel K3). In the same way, on CUDA, ``bc``
@@ -50,7 +51,7 @@ from .utils.info import write_info
 __all__ = ["main", "build_parser", "load_graph_from_args"]
 
 PRIMITIVES = ("bfs", "sssp", "pr", "pagerank", "hits", "salsa", "bc",
-              "cc", "wtf", "topk")
+              "cc", "wtf", "topk", "tc")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -321,10 +322,20 @@ def _run_topk(args, g, src):
     return res.info, ok
 
 
+def _run_tc(args, g, src):
+    from .models.tc import tc
+    res = tc(g, device=args.device)
+    ok = True
+    if not args.quick:
+        ok = _report(res.total == oracle.cpu_tc(g), "tc", args.quiet)
+    return res.info, ok
+
+
 _RUNNERS = {"bfs": _run_bfs, "sssp": _run_sssp, "pr": _run_pr,
             "pagerank": _run_pr,
             "hits": _run_hits, "salsa": _run_salsa, "bc": _run_bc,
-            "cc": _run_cc, "wtf": _run_wtf, "topk": _run_topk}
+            "cc": _run_cc, "wtf": _run_wtf, "topk": _run_topk,
+            "tc": _run_tc}
 
 
 def main(argv=None) -> int:

@@ -7,3 +7,5 @@ from .salsa import salsa, salsa_device, SalsaResult  # noqa: F401
 from .sssp import sssp, sssp_device, SsspResult  # noqa: F401
 from .topk import topk, topk_device, TopkResult  # noqa: F401
 from .wtf import wtf, wtf_device, WtfResult  # noqa: F401
+from .sample import sample  # noqa: F401
+from .tc import tc, tc_device, TcResult  # noqa: F401

@@ -17,7 +17,10 @@ per destination, and the improved vertices form the next frontier. Modes:
 
 Small frontiers run the deep micro-loop (``_deep_stretch``), whose rounds
 stay at the rung width ``C`` (``GUNROCK_SSSP_DEEP``,
-``GUNROCK_SSSP_DEEP_RUNGS``). Rounds whose frontier's edge volume passes
+``GUNROCK_SSSP_DEEP_RUNGS``); ``deep_carry`` (``GUNROCK_SSSP_CARRY``)
+carries the queue's distances and degrees through them, and their
+payload comes through kernel K5's two-array mode alone. Rounds whose
+frontier's edge volume passes
 ``E / GUNROCK_SSSP_PULL_DIV`` pull over the CSC instead (kernel K3), on
 CUDA graphs uploaded ``with_blocked_values``. ``fused`` resolves winners
 with kernels K7 and K8 after one sort (``GUNROCK_SSSP_FUSED``, CUDA).
@@ -63,6 +66,9 @@ INF = float("inf")
 # fcap >= 2 * C, because the merged queue of a micro round is 2C wide.
 DEEP_CAP = 8192
 _F32_ONE = np.float32(1.0)
+# The carry merge's id for lanes that hold no queue entry (above every
+# vertex id, as the JAX package's SENT).
+_SENTINEL = 2**31 - 1
 
 
 @dataclasses.dataclass
@@ -93,6 +99,7 @@ class _Config:
     pull_thresh: Optional[int]  # pull when m_f passes it (CUDA, blocked)
     rungs: tuple              # deep micro-loop widths, ascending
     max_iters: int
+    carry: bool = False       # the deep micro-loop's value-carry rounds
 
 
 def _degree_sum(graph: DeviceGraph, verts: torch.Tensor) -> int:
@@ -134,7 +141,7 @@ def _winner_minimize(dist: torch.Tensor, dst: torch.Tensor,
     """Deterministic scatter-min (``models/sssp.py:112-128``): sort lanes
     by ``(dst, cand)``, the head of each destination run carries its min,
     and heads that improve ``dist`` win and are written (in place).
-    Returns ``(sorted_dst, win)``; winners are ascending."""
+    Returns ``(sorted_dst, win, sorted_cand)``; winners are ascending."""
     keys = torch.sort(_sort_keys(dst, cand)).values
     sd = (keys >> 32).to(torch.int32)
     sc = _unsort_cand(keys)
@@ -142,7 +149,7 @@ def _winner_minimize(dist: torch.Tensor, dst: torch.Tensor,
     head[1:] = sd[1:] != sd[:-1]
     win = head & (sc < dist[sd.long()])
     dist[sd[win].long()] = sc[win]
-    return sd, win
+    return sd, win, sc
 
 
 def _winner_minimize_fused(dist: torch.Tensor, dst: torch.Tensor,
@@ -181,7 +188,7 @@ def _relax(graph: DeviceGraph, cfg: _Config, st: _State, cap: int):
         n_next = int(count)
         nf = ids[:min(n_next, cfg.fcap)]
     else:
-        sd, win = _winner_minimize(st.dist, dst, cand)
+        sd, win, _ = _winner_minimize(st.dist, dst, cand)
         winners = sd[win]
         n_next = winners.shape[0]
         nf = winners[:cfg.fcap]
@@ -303,13 +310,63 @@ def _micro_round(graph: DeviceGraph, cfg: _Config, st: _State) -> None:
         nq = q if near is None else q[near]
         ex = expand(graph, nq, with_dst=False)
         dst, w, dsrc = _relax_payload(graph, st.dist, ex)
-        sd, win = _winner_minimize(st.dist, dst, dsrc + w)
+        sd, win, _ = _winner_minimize(st.dist, dst, dsrc + w)
         far = q[:0] if near is None else q[~near]
         q = torch.unique(torch.cat([far, sd[win]]))
         edges = ex.total
     st.frontier, st.n = q, q.shape[0]
     st.m_f = _degree_sum(graph, q)
     record_iteration(st.stats, frontier_len=st.n, edges=edges)
+
+
+def _micro_round_carry(graph: DeviceGraph, cfg: _Config, st: _State,
+                       qd: torch.Tensor, qg: torch.Tensor,
+                       deg: torch.Tensor):
+    """One deep micro round with value-carry (``micro_body_carry``,
+    ``models/sssp.py:364-424``): the queue's distances ``qd`` and
+    out-degrees ``qg`` ride beside it, so the round reads no V-scale
+    array for them. The near subset's ``(dst, w)`` come through kernel
+    K5's two-array mode, ``dist[src]`` is a take from the carried
+    distances by ``rank``, and the merge keeps each id's least distance
+    (exact: every improvement re-enters the queue as a winner). Only the
+    winners' degrees are gathered, from ``deg``, the out-degrees. Returns
+    the new ``(qd, qg)``."""
+    q = st.frontier
+    if cfg.mode == "nearfar":
+        near, any_near = _split_near(cfg, st, qd)
+    else:
+        near, any_near = None, True
+    edges = 0
+    if any_near:
+        if near is None:
+            nq, ndq, far = q, qd, torch.zeros_like(q, dtype=torch.bool)
+        else:
+            nidx = torch.nonzero(near).squeeze(1)
+            nq, ndq, far = q[nidx], qd[nidx], ~near
+        ex = expand(graph, nq, with_dst=False)
+        dst, w = sample_sorted2(graph.col_indices, graph.edge_values, ex.eid)
+        sd, win, sc = _winner_minimize(st.dist, dst, ndq[ex.rank] + w)
+        wdeg = deg[sd.long()]
+        # The merge: the far queue, then the winners, the lanes that left
+        # or lost as sentinels, sorted by id alone (stably). A winner's
+        # distance is below its queued one (it improved on it), so each
+        # id's run tail, the winner where there is one, carries the
+        # least: the entry the JAX package's (id, dist) sort keeps.
+        sid, order = torch.sort(torch.cat([torch.where(far, q, _SENTINEL),
+                                           torch.where(win, sd, _SENTINEL)]),
+                                stable=True)
+        keep = sid < _SENTINEL
+        keep[:-1] &= sid[:-1] != sid[1:]
+        kidx = torch.nonzero(keep).squeeze(1)
+        o = order[kidx]
+        q = sid[kidx]
+        qd = torch.cat([qd, sc])[o]
+        qg = torch.cat([qg, wdeg])[o]
+        edges = ex.total
+    st.frontier, st.n = q, q.shape[0]
+    st.m_f = int(qg.sum())
+    record_iteration(st.stats, frontier_len=st.n, edges=edges)
+    return qd, qg
 
 
 def _refill(graph: DeviceGraph, cfg: _Config, st: _State) -> None:
@@ -327,10 +384,20 @@ def _deep_stretch(graph: DeviceGraph, cfg: _Config, st: _State, C: int,
                   instrument: Optional[list], t0: list) -> None:
     """Micro rounds at rung ``C`` while the queue and its edge volume fit
     it (``models/sssp.py:272-465``); in near-far mode a drained queue is
-    refilled from the far pile, which ends the stretch."""
+    refilled from the far pile, which ends the stretch. With
+    ``cfg.carry`` the stretch gathers the queue's distances and degrees
+    once (``models/sssp.py:428-437``) and carries them through its
+    rounds."""
+    if cfg.carry:
+        deg = graph.out_degrees()
+        q = st.frontier.long()
+        qd, qg = st.dist[q], deg[q]
     while (0 < st.n <= C and st.m_f <= C and not st.stats.overflow
            and st.stats.iteration < cfg.max_iters):
-        _micro_round(graph, cfg, st)
+        if cfg.carry:
+            qd, qg = _micro_round_carry(graph, cfg, st, qd, qg, deg)
+        else:
+            _micro_round(graph, cfg, st)
         refill = cfg.mode == "nearfar" and st.n == 0 and \
             bool(st.active.any())
         if refill:
@@ -407,7 +474,8 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                 mode: str = "bellman", delta: float = 1.0,
                 queue_sizing: float = 1.0, max_iters: Optional[int] = None,
                 instrument: Optional[list] = None,
-                fused: Optional[bool] = None):
+                fused: Optional[bool] = None,
+                deep_carry: Optional[bool] = None):
     """SSSP on an uploaded graph; returns ``(dist, preds, stats)``: the
     (v_pad,) float32 distances (+inf unreached) and int32 parents (None
     without ``mark_preds``) on the graph's device, and the
@@ -419,6 +487,9 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     JAX package's queue and lane capacities, which decide the deep
     micro-loop, the fused kernel's output lanes and the overflow stop.
     ``fused`` defaults to CUDA with ``GUNROCK_SSSP_FUSED=1``.
+    ``deep_carry`` runs the deep micro-loop's value-carry rounds
+    (:func:`_micro_round_carry`); it defaults to ``GUNROCK_SSSP_CARRY=1``
+    (off), as in the JAX package, and changes no result, round or count.
     ``instrument``: pass a list to collect one record a round,
     ``{iteration, ms, frontier, m_f, phase}`` with phase ``deep``,
     ``pull``, ``push`` or ``pull_sweeps`` (one a sweep call)."""
@@ -451,6 +522,8 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     caps = capacity_ladder(out_cap, step=4)
     if fused is None:
         fused = on_cuda and os.environ.get("GUNROCK_SSSP_FUSED", "0") == "1"
+    if deep_carry is None:
+        deep_carry = os.environ.get("GUNROCK_SSSP_CARRY", "0") == "1"
     if fused:
         # The JAX package's finer rungs below 4M lanes for the fused round.
         caps = capacity_ladder(min(out_cap, 1 << 22), step=2) + \
@@ -464,7 +537,7 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
         pull_thresh = max(1, min(graph.num_edges // _pull_divisor(), 2**30))
     cfg = _Config(mode=mode, delta=np.float32(delta), fcap=fcap,
                   caps=tuple(caps), fused=fused, pull_thresh=pull_thresh,
-                  rungs=rungs,
+                  rungs=rungs, carry=deep_carry,
                   max_iters=4 * graph.num_nodes + 16 if max_iters is None
                   else max_iters)
     dev = graph.device
@@ -494,7 +567,7 @@ def sssp(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
          mark_preds: bool = False, mode: str = "bellman",
          delta_factor: float = 32.0, queue_sizing: float = 1.0,
          max_iters: Optional[int] = None, instrumented: bool = False,
-         device="cuda") -> SsspResult:
+         deep_carry: Optional[bool] = None, device="cuda") -> SsspResult:
     """Run SSSP from ``src`` (C API parity: ``gunrock_sssp``,
     ``gunrock.h:253``; ``mark_preds`` = MARK_PATHS). A :class:`CsrGraph`
     without edge values gets ``random_edge_values()``, ``delta`` is
@@ -502,7 +575,8 @@ def sssp(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     ``device`` ``with_edge_values`` (``with_csc`` for ``mark_preds``), as
     the JAX package does; a :class:`DeviceGraph` runs where it lies, with
     ``delta`` 1.0. ``instrumented`` collects per-round records into
-    ``info["per_iteration"]``."""
+    ``info["per_iteration"]``; ``deep_carry`` goes to
+    :func:`sssp_device`."""
     timer = Timer()
     per_iter: Optional[list] = [] if instrumented else None
     num_nodes = graph.num_nodes
@@ -528,7 +602,7 @@ def sssp(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
         dist, preds, stats = sssp_device(
             dgraph, src, mark_preds=mark_preds, mode=mode, delta=delta,
             queue_sizing=queue_sizing, max_iters=max_iters,
-            instrument=per_iter)
+            instrument=per_iter, deep_carry=deep_carry)
         sync(dgraph.device)
     dist_np = dist[:num_nodes].cpu().numpy()
     preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None

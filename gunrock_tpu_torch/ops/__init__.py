@@ -1,4 +1,7 @@
-from .advance import ExpandedEdges, expand  # noqa: F401
+from .advance import (  # noqa: F401
+    ExpandedEdges, expand, expand_inverse, pull_reduce,
+)
+from .filter import cull_filter, bypass_filter  # noqa: F401
 from .segment import (  # noqa: F401
     scatter_min, scatter_max, scatter_add, scatter_set,
     dedup_winners, compact, frontier_from_mask, mask_from_frontier,

@@ -16,7 +16,8 @@ then ``--runs`` runs under ``torch.profiler``; one run on the grid):
     (kernel K6), near-far with delta 32 x the mean weight, and the same
     with ``fused=True`` (kernels K5, K3, K7, K8);
   * SSSP on the grid from 0 with delta 256 (the sweep route bails out to
-    near-far and its deep micro-loop) and non-DO BFS on the grid from 0
+    near-far and its deep micro-loop), the same with ``deep_carry=True``
+    (the value-carry micro rounds), and non-DO BFS on the grid from 0
     (sweeps, bail-out, the deep micro-loop);
   * DO-BFS on the R-MAT from the same vertex, pulling through kernel K10
     (the graph above has no blocked CSC) and through K1 (the R-MAT
@@ -116,6 +117,9 @@ def main(argv=None) -> int:
                              fused=True)),
         ("sssp grid", 1,
          lambda: sssp_device(dgw, 0, mode="pull", delta=256.0)),
+        ("sssp grid, deep_carry", 1,
+         lambda: sssp_device(dgw, 0, mode="pull", delta=256.0,
+                             deep_carry=True)),
         ("non-DO bfs grid", 1, lambda: bfs_device(dgw, 0)),
         ("DO-bfs, K10", args.runs,
          lambda: bfs_device(dg, src, direction_optimized=True)),

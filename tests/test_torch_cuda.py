@@ -1236,3 +1236,93 @@ def test_pagerank_directed_iterations_on_cuda(cuda, seed):
     assert pstats.iteration == stats.iteration
     np.testing.assert_allclose(r.cpu().numpy()[:n], plain.numpy()[:n],
                                rtol=1e-4, atol=2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, "4096"])
+def test_tc_on_cuda_equals_cpu(cuda, budget, monkeypatch):
+    """TC on the card against the plain PyTorch path: the total, every
+    count and the chunking, in one chunk and in many."""
+    from gunrock_tpu_torch.utils.reference import cpu_tc
+    if budget:
+        monkeypatch.setenv("GUNROCK_TC_WEDGE_BUDGET", budget)
+    g = gtt.io.rmat(scale=12, edge_factor=16, seed=3, undirected=True)
+    got = gtt.tc(g, device="cuda")
+    want = gtt.tc(g, device="cpu")
+    assert got.total == want.total == cpu_tc(g) > 0
+    np.testing.assert_array_equal(got.edge_counts, want.edge_counts)
+    np.testing.assert_array_equal(got.vertex_counts, want.vertex_counts)
+    for key in ("num_chunks", "wedges_probed", "edges_visited"):
+        assert got.info[key] == want.info[key], key
+    assert (got.info["num_chunks"] > 1) == bool(budget)
+    assert got.info["gpuinfo"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_operators_on_cuda_equal_cpu(cuda):
+    """expand_inverse, pull_reduce, cull_filter and sample on the card
+    against the same functions on the CPU, on the same inputs."""
+    from gunrock_tpu_torch.ops import (cull_filter, expand_inverse,
+                                       pull_reduce)
+    g = gtt.io.rmat(scale=12, edge_factor=8, seed=4)
+    dc = gtt.to_device(g, with_csc=True, device="cpu")
+    dg = gtt.to_device(g, with_csc=True, device=cuda)
+    hub = g.largest_degree_vertex()
+    frontier = torch.tensor([hub, 0, 7], dtype=torch.int32)
+    exc, exg = expand_inverse(dc, frontier), expand_inverse(dg,
+                                                            frontier.cuda())
+    assert exg.total == exc.total > 0
+    for f in ("src", "dst", "eid", "rank"):
+        assert torch.equal(getattr(exg, f).cpu(), getattr(exc, f)), f
+    keep = exc.dst % 3 != 0
+    fc = cull_filter(exc.dst, keep, size=dc.v_pad)
+    fg = cull_filter(exg.dst, keep.cuda(), size=dg.v_pad)
+    assert fg[1] == fc[1] and torch.equal(fg[0].cpu(), fc[0])
+    assert torch.equal(fg[2].cpu(), fc[2])
+    rng = np.random.default_rng(5)
+    for vals in (rng.uniform(0.5, 1.5, dc.e_pad).astype(np.float32),
+                 rng.integers(-99, 99, dc.e_pad).astype(np.int32)):
+        v = torch.from_numpy(vals)
+        for op in ("sum", "max", "min"):
+            want = pull_reduce(dc, v, op=op)
+            got = pull_reduce(dg, v.cuda(), op=op).cpu()
+            if op == "sum" and v.dtype.is_floating_point:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(got, want), op
+    np.testing.assert_array_equal(gtt.sample(dg, hub),
+                                  gtt.sample(dc, hub))
+
+
+@pytest.mark.cuda
+def test_sssp_carry_on_cuda_equals_cpu(cuda):
+    """The value-carry micro-loop on the card: bitwise the CPU's and the
+    plain route's distances and counts; its rounds launch K5's pair mode
+    alone, so the carry run launches ``sample_sorted`` fewer times."""
+    n = 128
+    idx = np.arange(n * n).reshape(n, n)
+    g = gtt.from_coo(n * n, np.concatenate([idx[:, :-1].ravel(),
+                                            idx[:-1, :].ravel()]),
+                     np.concatenate([idx[:, 1:].ravel(),
+                                     idx[1:, :].ravel()]), undirected=True)
+    g.random_edge_values(seed=11)
+    delta = 32.0 * float(np.mean(g.edge_values))
+    dg = gtt.to_device(g, with_edge_values=True, device=cuda)
+    dc = gtt.to_device(g, with_edge_values=True, device="cpu")
+    launches = {}
+    runs = {}
+    for carry in (False, True):
+        K.reset_launch_counts()
+        runs[carry] = gtt.models.sssp_device(dg, 0, mode="nearfar",
+                                             delta=delta, deep_carry=carry)
+        torch.cuda.synchronize()
+        launches[carry] = dict(K.LAUNCHES)
+    want, _, wstats = gtt.models.sssp_device(dc, 0, mode="nearfar",
+                                             delta=delta, deep_carry=True)
+    for dist, _, stats in runs.values():
+        assert torch.equal(dist.cpu(), want)
+        assert (stats.iteration, stats.edges_queued) == \
+            (wstats.iteration, wstats.edges_queued)
+    assert launches[True]["sample_sorted2"] == \
+        launches[False]["sample_sorted2"] > 0
+    assert launches[True]["sample_sorted"] < launches[False]["sample_sorted"]
