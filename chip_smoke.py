@@ -163,10 +163,43 @@ script exits non-zero:
     without carry); the grid with and without carry, best of 3 each, in
     turns.
 
+28. 64-bit offsets: the flagship (phase 11's weights) uploaded
+    ``with_csc, with_edge_values, with_edge_src`` with ``sizet64=True``
+    (int64 offsets checked) and with int32 offsets. DO-BFS with
+    predecessors (K10, K2), SSSP near-far and fused (K5, K7, K8), CC,
+    PageRank's loop route (K3 over the narrowed row bounds) and BC,
+    hybrid and fused (K5, K7, K8), on both uploads: every result bitwise
+    equal, or, where two runs on the int32 upload differ too (atomic
+    sums), within section 2's tolerance of ``PERF.md``. DO-BFS best of 5
+    on both uploads, in turns.
+29. A graph past 2^31 edges: the circulant C(2^16; 1..2^14) (every
+    vertex joined to the 2^14 on each side on the ring: 2^31 edges,
+    degree 32,768), built in numpy without a sort (its CSC is its CSR)
+    and handed to ``from_numpy``, whose rule picks int64 offsets by
+    itself. DO-BFS with predecessors from 0 through ``gtt.bfs``: one
+    push level, then pulls through K10 over all 2^31 CSC ids; labels
+    equal ceil(d / h) (d the ring distance), every predecessor within
+    ring distance h and one level up. K10 at the depth-1 mask and at
+    the all-vertices mask (whose last sum wraps to -2^31) bitwise equal
+    to its plain version, compared in chunks that carry the plain
+    running sum. Prints the host's memory (``free -g``), the host build,
+    ``from_numpy``'s checks and upload, peak device memory of the upload
+    and of the traversal, the traversal's wall and process times by
+    level, and the card.
+30. The C ABI and ``rmat_device``: builds the port's C shim
+    (``gunrock_tpu_torch.capi.build_capi_lib``), compiles
+    ``examples/capi_example_torch.c`` against it with gcc and runs it on
+    the 7-vertex graph of ``tests/test_capi.py`` (CC, BFS, SSSP,
+    PageRank and BC, checked by the C program), then its BFS on the
+    flagship through raw int32 files: labels equal phase 3's. Then
+    ``gtt.io.rmat_device(20, 32)`` on the card: ids in range, edge
+    count, degree statistics and quadrant shares beside the host
+    generator's COO, the shares within 0.005.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
-(K4), 7-8, 17 and 25 (K3), 12, 17 and 27 (K5), 12 and 17 (K7, K8), 11
-(K6), 16 (K9) and 21 (K10). Every kernel's entry also carries
+(K4), 7-8, 17, 25 and 28 (K3), 12, 17, 27 and 28 (K5), 12, 17 and 28
+(K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10) and 28 (K2). Every kernel's entry also carries
 ``bound_ms``, the least time the card could take for the same work at
 the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
@@ -1967,6 +2000,365 @@ def phase_sssp_carry(g, src, dgs, dist, dgw, card):
     return k5
 
 
+
+# Phase 29's graph: the circulant C(n; 1..h), every vertex joined to the
+# h vertices on each side of it on the ring, 2^31 edges.
+RING_N, RING_H = 1 << 16, 1 << 14
+K10_CHECK_CHUNK = 1 << 26
+
+
+def _k10_equal_in_chunks(words, idx, got) -> int:
+    """Hold K10's output ``got`` over ``idx`` against its plain version
+    chunk by chunk, carrying the plain running sum across chunks (its
+    int64 temporaries would not fit beside a graph of 2^31 edges whole).
+    Bitwise; returns the chunks compared."""
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+    carry, chunks = 0, 0
+    for lo in range(0, idx.shape[0], K10_CHECK_CHUNK):
+        hi = min(lo + K10_CHECK_CHUNK, idx.shape[0])
+        want = K.bitmask_gather_cumsum_plain(words, idx[lo:hi], start=carry)
+        if not torch.equal(got[lo:hi], want):
+            raise AssertionError(f"K10 differs from its plain version in "
+                                 f"ids {lo}..{hi}")
+        carry = int(want[-1])
+        chunks += 1
+        del want
+    return chunks
+
+
+def phase_sizet64(gtt, g, src, dev, card):
+    """Phase 28: the flagship (with phase 11's weights) uploaded
+    ``with_csc, with_edge_values, with_edge_src`` twice, with
+    ``sizet64=True`` and with int32 offsets. DO-BFS with predecessors
+    (K10, K2), SSSP near-far and fused (K5, K7, K8; K3 where a round
+    pulls), CC, PageRank's loop route (K3) and BC, hybrid and fused (K5,
+    K7, K8), on both: every result bitwise equal across the two uploads,
+    or, where a route sums with atomics and two runs on one upload differ
+    too, within PERF.md section 2's tolerance. Best of RUNS DO-BFS for
+    both, in turns. Returns the launch counts of the sizet64 runs."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.bc import bc_device
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.models.cc import cc_device
+    from gunrock_tpu_torch.models.pr import pagerank_device
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    from gunrock_tpu_torch.ops import kernels as K
+
+    kw = dict(with_csc=True, with_edge_values=True, with_edge_src=True,
+              device=dev)
+    t0 = time.perf_counter()
+    d64 = gtt.to_device(g, sizet64=True, **kw)
+    d32 = gtt.to_device(g, sizet64=False, **kw)
+    torch.cuda.synchronize()
+    print(f"[sizet64] flagship uploaded twice in "
+          f"{time.perf_counter() - t0:.3f} s: offsets "
+          f"{d64.row_offsets.dtype}/{d64.csc_offsets.dtype} and "
+          f"{d32.row_offsets.dtype}; ids {d64.col_indices.dtype}, "
+          f"{d64.csc_indices.dtype}, {d64.csc_edge_dst.dtype}, "
+          f"{d64.edge_src.dtype}")
+    if d64.row_offsets.dtype != torch.int64 or \
+            d64.csc_offsets.dtype != torch.int64 or \
+            d32.row_offsets.dtype != torch.int32:
+        raise AssertionError("sizet64 offsets are not int64")
+    delta = 32.0 * float(np.mean(g.edge_values))
+    runs = {
+        "do-bfs preds": lambda d: bfs_device(
+            d, src, mark_preds=True, direction_optimized=True)[:2],
+        "sssp near-far": lambda d: sssp_device(
+            d, src, mark_preds=True, mode="nearfar", delta=delta)[:2],
+        "sssp near-far fused": lambda d: sssp_device(
+            d, src, mark_preds=True, mode="nearfar", delta=delta,
+            fused=True)[:2],
+        "cc": lambda d: cc_device(d)[:1],
+        "pagerank loop": lambda d: pagerank_device(d)[:1],
+        "bc hybrid": lambda d: bc_device(d, src)[:3],
+        "bc fused": lambda d: bc_device(d, src, fused=True)[:3],
+    }
+    # PERF.md section 2: PageRank rtol 1e-3; BC sigma rtol 1e-4, BC rtol
+    # 1e-3, atol 1e-3.
+    tol = {"pagerank loop": [(1e-3, 0.0)],
+           "bc hybrid": [(1e-3, 1e-3), (1e-4, 0.0), (0.0, 0.0)],
+           "bc fused": [(1e-3, 1e-3), (1e-4, 0.0), (0.0, 0.0)]}
+    launches = {}
+    for name, fn in runs.items():
+        K.reset_launch_counts()
+        got = fn(d64)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in K.LAUNCHES.items() if v}
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        want = fn(d32)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        how = "bitwise equal"
+        if not same:
+            again = fn(d32)
+            if all(torch.equal(a, b) for a, b in zip(again, want)) or \
+                    name not in tol:
+                raise AssertionError(f"sizet64 {name} differs from the "
+                                     "int32 upload's")
+            for (rtol, atol), a, b in zip(tol[name], got, want):
+                check_close(f"sizet64 {name}", a.cpu().numpy(),
+                            b.cpu().numpy(), rtol=rtol, atol=atol)
+            how = ("within PERF.md's tolerance (two runs on the int32 "
+                   "upload differ too: atomic sums)")
+        print(f"[sizet64] {name}: {how}; kernel launches {n}")
+    for name in ("bitmask_gather_cumsum", "bitmask_gather", "sample_sorted2",
+                 "reduce_by_dst_sorted", "scatter_sorted", "pull_reduce2"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the sizet64 "
+                                 "graph")
+
+    def do_bfs(d):
+        return lambda: bfs_device(d, src, direction_optimized=True)
+
+    times = {"int32": [], "sizet64": []}
+    for d in (d32, d64):
+        do_bfs(d)()
+    torch.cuda.synchronize()
+    for _ in range(RUNS):
+        for name, d in (("int32", d32), ("sizet64", d64)):
+            t0 = time.perf_counter()
+            do_bfs(d)()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ts in times.items():
+        print(f"[sizet64] DO-BFS elapsed_ms best {min(ts):.3f} of {RUNS} on "
+              f"the {name} upload ({', '.join(f'{t:.3f}' for t in ts)}), "
+              f"in turns; on {card}")
+    del d32, d64
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ring_graph():
+    """The circulant C(RING_N; 1..RING_H) as padded CSR arrays, each row
+    the h predecessors then the h successors on the ring (two ascending
+    runs modulo n), built a block of rows at a time with no host sort. It
+    is symmetric, so its CSC is its CSR."""
+    import numpy as np
+    n, h = RING_N, RING_H
+    deg = 2 * h
+    pattern = np.concatenate([np.arange(-h, 0), np.arange(1, h + 1)]) \
+        .astype(np.int32)
+    col = np.empty(n * deg, dtype=np.int32)
+    rows = col.reshape(n, deg)
+    block = 256
+    for r0 in range(0, n, block):
+        v = np.arange(r0, r0 + block, dtype=np.int32)[:, None]
+        np.bitwise_and(v + pattern[None, :], n - 1, out=rows[r0:r0 + block])
+    dst = np.empty(n * deg, dtype=np.int32)
+    dst.reshape(n, deg)[:] = np.arange(n, dtype=np.int32)[:, None]
+    offsets = np.arange(n + 1, dtype=np.int64) * deg
+    return {"row_offsets": offsets, "col_indices": col,
+            "csc_offsets": offsets, "csc_indices": col,
+            "csc_edge_dst": dst}
+
+
+def phase_past_2_31(gtt, dev, card):
+    """Phase 29: a graph past 2^31 edges through the automatic rule. The
+    circulant C(2^16; 1..2^14) (2^31 edges, degree 32,768), built in numpy
+    and handed to ``from_numpy`` with ``sizet64=None``; DO-BFS with
+    predecessors from vertex 0 through ``gtt.bfs``, whose direction vote
+    pulls the second level through K10 over all 2^31 CSC ids. Labels
+    equal ceil(d / h) (d the ring distance to the source), every
+    predecessor lies within ring distance h and one level up; K10 on the
+    depth-1 mask over all its ids bitwise equal to its plain version, in
+    chunks. Prints the host build, the checks and the upload, peak
+    device memory of the upload and of the traversal, the traversal's
+    wall time, the host's memory and the card. Returns K10's launches in
+    the traversal."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.graph.device import _pad, from_numpy, sizet64_rule
+    from gunrock_tpu_torch.ops import kernels as K
+
+    free = subprocess.run(["free", "-g"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print(f"[2^31] host memory (free -g): {' | '.join(free[:2])}")
+    n, h = RING_N, RING_H
+    t0 = time.perf_counter()
+    fields = _ring_graph()
+    e = n * 2 * h
+    print(f"[2^31] circulant C({n}; 1..{h}): |V|={n} |E|={e}, host build "
+          f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    dg = from_numpy(
+        fields, num_nodes=n, num_edges=e, v_pad=_pad(n), e_pad=_pad(e),
+        undirected=True, device=dev, timings=timings)
+    upload_s = time.perf_counter() - t0
+    up_peak = torch.cuda.max_memory_allocated()
+    del fields
+    print(f"[2^31] from_numpy {upload_s:.3f} s (host checks "
+          f"{timings['check_s']:.3f} s, upload {timings['upload_s']:.3f} "
+          f"s); e_pad {dg.e_pad} (the rule's bound 2^31 - 2 alone picks "
+          f"sizet64: {sizet64_rule(dg.e_pad, None)}), "
+          f"offsets {dg.row_offsets.dtype}/{dg.csc_offsets.dtype}, ids "
+          f"{dg.col_indices.dtype}; peak device memory "
+          f"{up_peak / 2**30:.3f} GiB")
+    if not dg.sizet64 or dg.csc_offsets.dtype != torch.int64:
+        raise AssertionError("the automatic rule did not pick int64 offsets")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gtt.bfs(dg, 0, mark_preds=True, direction_optimized=True,
+                  instrumented=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    bfs_peak = torch.cuda.max_memory_allocated()
+    phases = [r["phase"] for r in res.info["per_iteration"]]
+    levels_ms = sum(r["ms"] for r in res.info["per_iteration"])
+    print(f"[2^31] DO-BFS with preds from 0: {wall:.3f} s wall "
+          f"(process {res.info['process_ms']:.3f} ms, of which the levels "
+          f"{levels_ms:.3f} and the predecessor fill and reads the rest); "
+          f"levels "
+          + ", ".join(f"{r['iteration']}:{r['phase']}(n={r['frontier']}, "
+                      f"{r['ms']:.3f} ms)" for r in res.info["per_iteration"])
+          + f"; K10 launches {launches['bitmask_gather_cumsum']}, K2 "
+          f"{launches['bitmask_gather']}; peak device memory "
+          f"{bfs_peak / 2**30:.3f} GiB; on {card}")
+    if launches["bitmask_gather_cumsum"] <= 0 or "pull" not in phases:
+        raise AssertionError("the second level did not pull through K10")
+    v = np.arange(n)
+    d = np.minimum(v, n - v)
+    want = -(-d // h)
+    if not np.array_equal(res.labels, want):
+        raise AssertionError(f"{int((res.labels != want).sum())} labels "
+                             "differ from ceil(d / h)")
+    p = res.preds.astype(np.int64)
+    if p[0] != -1 or (p[1:] < 0).any():
+        raise AssertionError("a predecessor is missing or set at the source")
+    ring = np.abs(p[1:] - v[1:])
+    ring = np.minimum(ring, n - ring)
+    if (ring > h).any() or (ring == 0).any() or \
+            (want[p[1:]] != want[1:] - 1).any():
+        raise AssertionError("a predecessor is not an in-neighbour one "
+                             "level up")
+    print("[2^31] labels equal ceil(d / h); predecessors valid")
+    # The depth-1 mask (2^30 hits), then every vertex (2^31 hits: the
+    # last sum wraps to -2^31).
+    for name, mask in (("depth-1", want == 1), ("all-vertices", want >= 0)):
+        words = K.pack_bitmask(torch.from_numpy(mask).to(dev))
+        got = K.bitmask_gather_cumsum(words, dg.csc_indices)
+        t0 = time.perf_counter()
+        chunks = _k10_equal_in_chunks(words, dg.csc_indices, got)
+        last = int(got[-1])
+        print(f"[2^31] K10 over all {dg.csc_indices.shape[0]} ids at the "
+              f"{name} mask ({int(mask.sum())} bits): bitwise equal to its "
+              f"plain version in {chunks} chunks "
+              f"({time.perf_counter() - t0:.3f} s); last sum {last} "
+              f"({last % 2**32} hits mod 2^32)")
+        del got
+    del dg
+    torch.cuda.empty_cache()
+    return launches["bitmask_gather_cumsum"]
+
+
+
+def phase_capi(gtt, g, src, bfs_labels, card):
+    """Phase 30: the C ABI on the card and ``rmat_device``. Builds the
+    shim (``gunrock_tpu_torch.capi.build_capi_lib``), compiles
+    ``examples/capi_example_torch.c`` against it with gcc and runs it:
+    CC, BFS, SSSP, PageRank and BC on the 7-vertex graph, checked by the
+    program; then its BFS on the flagship, read from raw int32 files,
+    whose labels must equal phase 3's (``gtt.bfs``). Then
+    ``rmat_device(scale=20, edge_factor=32)`` on the card: ids in range,
+    edge count, degree statistics and quadrant shares beside the host
+    generator's COO (``rmat_coo``), the shares within 0.005."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.capi import CAPI_HEADER_DIR, build_capi_lib
+    from gunrock_tpu_torch.graph.native import build_dir
+
+    t0 = time.perf_counter()
+    so = build_capi_lib()
+    work = os.path.join(build_dir(), "capi")
+    os.makedirs(work, exist_ok=True)
+    exe = os.path.join(work, "capi_example_torch")
+    root = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run(["gcc", os.path.join(root, "examples",
+                                        "capi_example_torch.c"),
+                    "-o", exe, f"-I{CAPI_HEADER_DIR}", so, "-lm"],
+                   check=True, capture_output=True, text=True)
+    print(f"[capi] shim {os.path.relpath(so, root)} and the C consumer "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    r = subprocess.run([exe], capture_output=True, text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        print(f"[capi] {line}")
+    if r.returncode != 0 or "ALL OK" not in r.stdout:
+        raise AssertionError(f"capi_example_torch failed ({r.returncode}): "
+                             f"{r.stderr[-2000:]}")
+    print(f"[capi] 7-vertex graph: CC, BFS, SSSP, PageRank, BC checked by "
+          f"the C program ({time.perf_counter() - t0:.3f} s)")
+    files = [os.path.join(work, f"{k}.bin") for k in ("row", "col", "labels")]
+    g.row_offsets.astype(np.int32).tofile(files[0])
+    g.col_indices.astype(np.int32).tofile(files[1])
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, files[0], files[1], str(g.num_nodes),
+                        str(g.num_edges), str(src), files[2]],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"capi_example_torch BFS failed "
+                             f"({r.returncode}): {r.stderr[-2000:]}")
+    labels = np.fromfile(files[2], dtype=np.int32)
+    for f in files:
+        os.remove(f)
+    if not np.array_equal(labels, bfs_labels):
+        raise AssertionError(f"{int((labels != bfs_labels).sum())} labels "
+                             "through the C ABI differ from gtt.bfs's")
+    print(f"[capi] {r.stdout.strip()}; labels equal phase 3's "
+          f"({time.perf_counter() - t0:.3f} s with the process start) on "
+          f"{card}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, src_d, dst_d = gtt.io.rmat_device(SCALE, EDGE_FACTOR, seed=SEED,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, src_h, dst_h = gtt.io.rmat_coo(SCALE, EDGE_FACTOR, seed=SEED)
+    host_s = time.perf_counter() - t0
+    if int(src_d.min()) < 0 or int(src_d.max()) >= n or \
+            int(dst_d.min()) < 0 or int(dst_d.max()) >= n:
+        raise AssertionError("rmat_device ids out of range")
+
+    def stats(deg, s, d):
+        bits = torch.arange(SCALE, device=s.device)
+        q = torch.zeros(4, dtype=torch.int64, device=s.device)
+        step = 1 << 22
+        for k in range(0, s.shape[0], step):
+            sb = (s[k:k + step, None].long() >> bits) & 1
+            db = (d[k:k + step, None].long() >> bits) & 1
+            q += torch.bincount((2 * sb + db).flatten(), minlength=4)
+        shares = (q.double() / q.sum()).tolist()
+        return {"edges": int(s.shape[0]), "max_deg": int(deg.max()),
+                "mean_deg": float(deg.double().mean()),
+                "zero_deg": float((deg == 0).double().mean()),
+                "shares": [round(x, 5) for x in shares]}
+
+    dev_stats = stats(torch.bincount(src_d.long(), minlength=n), src_d, dst_d)
+    # the host generator's edges, counted on the card as well
+    sh, dh = torch.from_numpy(src_h).cuda(), torch.from_numpy(dst_h).cuda()
+    host_stats = stats(torch.bincount(sh, minlength=n), sh, dh)
+    print(f"[rmat_device] n{SCALE} e{EDGE_FACTOR} seed {SEED} on the card "
+          f"in {draw_ms:.3f} ms: {dev_stats}; host rmat_coo in "
+          f"{host_s:.3f} s: {host_stats} (the host CSR after dedup and "
+          f"symmetry: {g.num_edges} edges)")
+    if max(abs(a - b) for a, b in zip(dev_stats["shares"],
+                                      host_stats["shares"])) > 0.005:
+        raise AssertionError("rmat_device's quadrant shares differ from "
+                             "the host generator's")
+    del src_d, dst_d
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2163,7 +2555,15 @@ def main() -> int:
     # micro-loop.
     phase_tc(gtt, g, src, res.labels, dgv, card)
     carry_launches = phase_sssp_carry(g, src, dgs, dist, dgw, card)
-    del dgw
+    del dgw, dgs, dgv, dg
+    torch.cuda.empty_cache()
+
+    # 28. The flagship forced to sizet64; 29. a graph past 2^31 edges.
+    s64 = phase_sizet64(gtt, g, src, dev, card)
+    ring_k10 = phase_past_2_31(gtt, dev, card)
+
+    # 30. The C ABI on the card, and rmat_device.
+    phase_capi(gtt, g, src, res.labels, card)
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -2176,12 +2576,14 @@ def main() -> int:
          "device_ms": k1_device, **k1_work},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
-         "launches": launches["bitmask_gather"], **k2},
+         "launches": launches["bitmask_gather"]
+         + s64.get("bitmask_gather", 0), **k2},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
          "launches": loop_launches["pull_reduce2"] + link_launches
          + sssp_launches["pull_reduce2"] + bc_launches["pull_reduce2"]
-         + cc_launches["pull_reduce2"] + wtf_launches, **k3},
+         + cc_launches["pull_reduce2"] + wtf_launches
+         + s64.get("pull_reduce2", 0), **k3},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
          "launches": power_launches["pull_power_iters"], **k4},
@@ -2189,7 +2591,8 @@ def main() -> int:
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:594",
          "launches": sssp_launches["sample_sorted"]
          + sssp_launches["sample_sorted2"] + bc_launches["sample_sorted"]
-         + carry_launches,
+         + carry_launches + s64.get("sample_sorted", 0)
+         + s64.get("sample_sorted2", 0),
          **sk["sample_sorted"]},
         {"name": "pull_min_sweeps", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:323",
@@ -2199,18 +2602,21 @@ def main() -> int:
          "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:949",
          "launches": sssp_launches["reduce_by_dst_sorted"]
-         + bc_launches["reduce_by_dst_sorted"],
+         + bc_launches["reduce_by_dst_sorted"]
+         + s64.get("reduce_by_dst_sorted", 0),
          **sk["reduce_by_dst_sorted"]},
         {"name": "scatter_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:1151",
          "launches": sssp_launches["scatter_sorted"]
-         + bc_launches["scatter_sorted"], **sk["scatter_sorted"]},
+         + bc_launches["scatter_sorted"] + s64.get("scatter_sorted", 0),
+         **sk["scatter_sorted"]},
         {"name": "brandes_levels", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:895",
          "launches": bc_launches["brandes_levels"], **k9},
         {"name": "bitmask_gather_cumsum", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:829",
-         "launches": k10_launches, **k10},
+         "launches": k10_launches + s64["bitmask_gather_cumsum"]
+         + ring_k10, **k10},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

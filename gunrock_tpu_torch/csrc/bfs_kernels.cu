@@ -30,6 +30,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <initializer_list>
 #include <cuda_runtime.h>
 
@@ -445,9 +446,11 @@ bitmask_gather_kernel(GatherArgs a) {
 // Warp tiles of 512 ids with a look-back each were built first and
 // measured slower (PERF.md, section 6): with 4224 tiles in flight a
 // look-back walks far, 32 tiles a step, before it meets an inclusive
-// prefix; 132 block tiles in flight keep the walks short. Sums are exact
-// in int32: the wrapper's caller refuses graphs of 2^31 - 2 edges or
-// more.
+// prefix; 132 block tiles in flight keep the walks short. Tiles carry
+// their counts in 32 bits and the sums are stored as int32 modulo 2^32
+// (the JAX kernel's int32 output): past 2^31 hits, on a sizet64 graph's
+// pull, they wrap, and a difference of two sums stays exact while fewer
+// than 2^32 hits lie between them.
 //
 // Bound on the H100: the 4-byte id read and the 4-byte sum written, 8
 // bytes an id (0.145 ms over the 60.7M CSC sources at rmat n20 e32).
@@ -566,16 +569,21 @@ gather_cumsum_kernel(CumsumArgs a) {
       if (lane == 0) s_excl = excl;
     }
     __syncthreads();
-    const int32_t base = (int32_t)s_excl;
+    // Sums modulo 2^32 in uint32_t (signed overflow is undefined), their
+    // bits stored as int32: past 2^31 hits they wrap, as the plain
+    // version's do.
+    const uint32_t base = (uint32_t)s_excl;
 #pragma unroll
     for (int q = 0; q < kCumsumQuads; ++q) {
       const uint32_t h = hits >> (4 * q);
+      const uint32_t x = base + (uint32_t)s_count[kBlockWarps * q + warp] +
+                         (uint32_t)before[q] + (h & 1u);
+      const uint32_t y = x + ((h >> 1) & 1u);
+      const uint32_t z = y + ((h >> 2) & 1u);
+      const uint32_t w = z + ((h >> 3) & 1u);
+      const uint4 u = make_uint4(x, y, z, w);
       int4 o;
-      o.x = base + s_count[kBlockWarps * q + warp] + before[q] +
-            (int)(h & 1u);
-      o.y = o.x + (int)((h >> 1) & 1u);
-      o.z = o.y + (int)((h >> 2) & 1u);
-      o.w = o.z + (int)((h >> 3) & 1u);
+      memcpy(&o, &u, sizeof(o));
       store4(a.out, a.n, c * kCumsumTile + kCumsumQuad * q + 4 * tid, vec, o);
     }
 #pragma unroll

@@ -1,4 +1,4 @@
-"""Device-resident graph: padded int32 CSR (+ CSC) as torch tensors.
+"""Device-resident graph: padded CSR (+ CSC) as torch tensors.
 
 Counterpart of :mod:`gunrock_tpu.graph.device` (``DeviceGraph`` and
 ``to_device``), holding the forward CSR and optionally the inverse CSR
@@ -15,6 +15,15 @@ equals its JAX counterpart element for element:
   * ``edge_src`` (source of each CSR edge) and ``csc_edge_dst``
     (destination of each CSC edge) use ``v_pad`` as the fill.
   * ``edge_values`` / ``csc_edge_values`` are padded with 0.0.
+
+Offsets are int32, or int64 on a ``sizet64`` graph (the reference's
+``--64bit-SizeT``), by the JAX package's rule: ``sizet64=None`` turns
+them wide once ``e_pad >= 2**31 - 2``. Vertex ids and the per-edge id
+arrays stay int32 either way. The kernels that read CSC row bounds (K1,
+K3, K4, K6, K9) take them as int32: on a sizet64 graph below 2^31 edges
+their wrappers narrow the (v_pad + 1) offsets exactly, and past it they
+refuse the graph; the kernels that run over edge streams (K2, K5, K10)
+take 64-bit lengths and positions.
 
 The blocked-CSC and pull-v2 layouts of the JAX package are not built:
 the Hopper pull kernels read the plain CSC, so every graph with a CSC
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -45,13 +55,13 @@ import torch
 from .csr import CsrGraph
 
 __all__ = ["DeviceGraph", "to_device", "from_numpy", "round_up",
-           "resolve_device", "sync"]
+           "resolve_device", "sync", "sizet64_rule", "SIZET64_EDGES"]
 
 LANE = 128
 
-# Per-edge int32 arrays, the offsets, and the float32 edge values that
-# from_numpy takes, with the expected length of each ("v" = v_pad + 1,
-# "e" = e_pad).
+# Per-edge int32 arrays, the offsets (int32, or int64 on a sizet64
+# graph), and the float32 edge values that from_numpy takes, with the
+# expected length of each ("v" = v_pad + 1, "e" = e_pad).
 _INT_FIELDS = {"row_offsets": "v", "col_indices": "e", "edge_src": "e",
                "csc_offsets": "v", "csc_indices": "e", "csc_edge_dst": "e"}
 _FLOAT_FIELDS = {"edge_values": "e", "csc_edge_values": "e"}
@@ -64,9 +74,34 @@ def round_up(x: int, m: int = LANE) -> int:
     return ((x + m - 1) // m) * m
 
 
+# Edges checked at a time by from_numpy's per-edge row-id check, so that
+# its temporaries stay small at 2^31 edges.
+_CHECK_EDGES = 1 << 26
+# The padded edge count from which the JAX package holds 64-bit offsets
+# unasked (``graph/device.py:424-425``).
+SIZET64_EDGES = 2**31 - 2
+
+
 def _pad(sz: int) -> int:
     """The JAX package's padding rule (``graph/device.py:419-420``)."""
     return round_up(max(sz, 1), 8192 if sz >= 8192 else LANE)
+
+
+def sizet64_rule(e_pad: int, sizet64: Optional[bool], *,
+                 blocked: bool = False) -> bool:
+    """Whether a graph of ``e_pad`` padded edges holds int64 offsets: the
+    JAX package's rule (``graph/device.py:424-428``). ``None`` means
+    ``e_pad >= 2**31 - 2``; ``blocked`` (``with_blocked_csc`` or
+    ``with_blocked_values``) with 64-bit offsets raises ``ValueError``,
+    as there."""
+    if sizet64 is None:
+        sizet64 = e_pad >= SIZET64_EDGES
+    if sizet64 and blocked:
+        raise ValueError("with_blocked_csc and with_blocked_values need "
+                         "32-bit offsets, as the JAX package's blocked "
+                         "layouts do: a sizet64 graph (past 2^31 - 2 "
+                         "padded edges, or asked) takes neither")
+    return bool(sizet64)
 
 
 def pull2_ok(v_pad: int) -> bool:
@@ -96,7 +131,8 @@ def sync(device: torch.device) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceGraph:
-    """Padded int32 CSR (+ optional CSC) on one torch device.
+    """Padded CSR (+ optional CSC) on one torch device: int32 vertex ids
+    and per-edge arrays, offsets int32 or, on a sizet64 graph, int64.
 
     ``num_nodes``/``num_edges`` are the exact counts; ``v_pad``/``e_pad``
     the padded lengths (see the module docstring).
@@ -106,12 +142,12 @@ class DeviceGraph:
     num_edges: int
     v_pad: int
     e_pad: int
-    row_offsets: torch.Tensor                   # (v_pad+1,) int32
+    row_offsets: torch.Tensor                   # (v_pad+1,) int32/int64
     col_indices: torch.Tensor                   # (e_pad,)   int32
     edge_values: Optional[torch.Tensor] = None  # (e_pad,)   float32
     edge_src: Optional[torch.Tensor] = None     # (e_pad,)   int32, fill v_pad
     # Inverse CSR: csc row v lists the in-neighbors (sources) of v.
-    csc_offsets: Optional[torch.Tensor] = None  # (v_pad+1,) int32
+    csc_offsets: Optional[torch.Tensor] = None  # (v_pad+1,) like row_offsets
     csc_indices: Optional[torch.Tensor] = None  # (e_pad,)   int32
     csc_edge_values: Optional[torch.Tensor] = None  # (e_pad,) float32
     csc_edge_dst: Optional[torch.Tensor] = None  # (e_pad,)  int32, fill v_pad
@@ -138,8 +174,14 @@ class DeviceGraph:
     def has_csc(self) -> bool:
         return self.csc_offsets is not None
 
+    @property
+    def sizet64(self) -> bool:
+        """The offsets are int64."""
+        return self.row_offsets.dtype == torch.int64
+
     def out_degrees(self) -> torch.Tensor:
-        """(v_pad,) int32 out-degree of every (padded) vertex."""
+        """(v_pad,) out-degree of every (padded) vertex, in the offsets'
+        dtype."""
         return self.row_offsets[1:] - self.row_offsets[:-1]
 
     def reverse(self) -> "DeviceGraph":
@@ -166,10 +208,10 @@ def _inv_degree(offsets: torch.Tensor) -> torch.Tensor:
     return torch.where(deg > 0, 1.0 / deg, 0.0).float()
 
 
-def _pad_offsets(row_offsets: np.ndarray, v_pad: int,
-                 num_edges: int) -> np.ndarray:
-    out = np.full(v_pad + 1, num_edges, dtype=np.int32)
-    out[: row_offsets.shape[0]] = row_offsets.astype(np.int32)
+def _pad_offsets(row_offsets: np.ndarray, v_pad: int, num_edges: int,
+                 dtype=np.int32) -> np.ndarray:
+    out = np.full(v_pad + 1, num_edges, dtype=dtype)
+    out[: row_offsets.shape[0]] = row_offsets.astype(dtype)
     return out
 
 
@@ -188,9 +230,9 @@ def _seg_ids(offsets: np.ndarray) -> np.ndarray:
 
 def _host_fields(g: CsrGraph, t: Optional[CsrGraph], v_pad: int,
                  e_pad: int, *, with_edge_values: bool,
-                 with_edge_src: bool) -> dict:
+                 with_edge_src: bool, off_dtype=np.int32) -> dict:
     """Padded numpy arrays of ``g`` and, when ``t`` (the transpose of
-    ``g``) is given, of its CSC."""
+    ``g``) is given, of its CSC, the offsets in ``off_dtype``."""
     def values(h: CsrGraph) -> np.ndarray:
         v = h.edge_values
         if v is None:
@@ -198,7 +240,8 @@ def _host_fields(g: CsrGraph, t: Optional[CsrGraph], v_pad: int,
         return _pad_edges(v.astype(np.float32), e_pad, np.float32(0.0))
 
     fields = {
-        "row_offsets": _pad_offsets(g.row_offsets, v_pad, g.num_edges),
+        "row_offsets": _pad_offsets(g.row_offsets, v_pad, g.num_edges,
+                                    off_dtype),
         "col_indices": _pad_edges(g.col_indices.astype(np.int32), e_pad, 0),
     }
     if with_edge_values:
@@ -208,7 +251,7 @@ def _host_fields(g: CsrGraph, t: Optional[CsrGraph], v_pad: int,
                                         v_pad)
     if t is not None:
         fields["csc_offsets"] = _pad_offsets(t.row_offsets, v_pad,
-                                             t.num_edges)
+                                             t.num_edges, off_dtype)
         fields["csc_indices"] = _pad_edges(t.col_indices.astype(np.int32),
                                            e_pad, 0)
         fields["csc_edge_dst"] = _pad_edges(_seg_ids(t.row_offsets), e_pad,
@@ -239,6 +282,7 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
               with_edge_values: bool = False, with_edge_src: bool = False,
               with_blocked_csc: bool = False,
               with_blocked_values: bool = False,
+              sizet64: Optional[bool] = None,
               device="cuda") -> DeviceGraph:
     """Upload a host CSR (and its CSC with ``with_csc``) to ``device``.
 
@@ -249,33 +293,54 @@ def to_device(g: CsrGraph, *, with_csc: bool = False,
     and mark the graph as the JAX package marks it, for the routes of
     BFS, PageRank, SSSP, BC and CC (see the module docstring).
 
-    The kernels index with int32, so graphs whose padded edge count
-    reaches 2^31 - 2 (the JAX package's ``sizet64`` rule) are refused.
+    ``sizet64`` holds the offsets as int64 (the reference's
+    ``--64bit-SizeT``); ``None`` turns it on once ``e_pad >= 2**31 - 2``,
+    and with either blocked flag it raises ``ValueError``, as in the JAX
+    package (:func:`sizet64_rule`). The JAX package also refuses sizet64
+    outside its x64 mode; PyTorch holds int64 tensors in any mode, so the
+    port has no such switch and no such error.
     """
     dev = resolve_device(device)
     v_pad = _pad(g.num_nodes)
     e_pad = _pad(g.num_edges)
+    wide = sizet64_rule(e_pad, sizet64,
+                        blocked=with_blocked_csc or with_blocked_values)
     with_csc = with_csc or with_blocked_csc or with_blocked_values
     fields = _host_fields(g, g.csc() if with_csc else None, v_pad, e_pad,
                           with_edge_values=with_edge_values,
-                          with_edge_src=with_edge_src)
+                          with_edge_src=with_edge_src,
+                          off_dtype=np.int64 if wide else np.int32)
     return from_numpy(fields, num_nodes=g.num_nodes, num_edges=g.num_edges,
                       v_pad=v_pad, e_pad=e_pad, device=dev,
                       undirected=bool(g.undirected),
                       with_blocked_csc=with_blocked_csc,
-                      with_blocked_values=with_blocked_values)
+                      with_blocked_values=with_blocked_values,
+                      sizet64=wide)
 
 
 def _check_seg_ids(name: str, arr: np.ndarray, offsets: np.ndarray,
                    num_edges: int) -> None:
-    if not np.array_equal(arr[:num_edges], _seg_ids(offsets)):
-        raise ValueError(f"{name} does not match its offsets")
+    """``arr[:num_edges]`` must be the row id of every edge of
+    ``offsets``; compared a group of rows at a time, about
+    ``_CHECK_EDGES`` edges a group, so no edge-scale temporary is made."""
+    off = np.asarray(offsets).astype(np.int64)
+    rows = off.shape[0] - 1
+    starts = np.searchsorted(off, np.arange(0, num_edges, _CHECK_EDGES),
+                             side="right") - 1
+    bounds = np.unique(np.append(starts.clip(0, rows), rows))
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        want = np.repeat(np.arange(r0, r1, dtype=np.int32),
+                         np.diff(off[r0:r1 + 1]))
+        if not np.array_equal(arr[off[r0]:off[r1]], want):
+            raise ValueError(f"{name} does not match its offsets")
 
 
 def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                e_pad: int, device="cuda", undirected: bool = False,
                with_blocked_csc: bool = False,
-               with_blocked_values: bool = False) -> DeviceGraph:
+               with_blocked_values: bool = False,
+               sizet64: Optional[bool] = None,
+               timings: Optional[dict] = None) -> DeviceGraph:
     """Build a :class:`DeviceGraph` from padded numpy arrays keyed by
     field name, such as ``np.asarray`` of a JAX ``DeviceGraph``'s fields:
     ``row_offsets`` and ``col_indices`` (required), ``edge_values``,
@@ -292,12 +357,20 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
     ``inv_outdeg`` is computed here from ``row_offsets``. Any other key
     is refused.
 
+    Offsets are held as int64 with ``sizet64``; ``None`` keeps int64
+    offsets given as int64 (so a JAX sizet64 graph loads unchanged) and
+    turns them wide once ``e_pad >= 2**31 - 2``, by :func:`sizet64_rule`
+    (which also refuses the blocked flags with them). Offsets that cannot
+    hold ``num_edges`` in int32 are refused.
+
     The padding is kept as given; shapes, offsets and per-edge row ids
-    are checked here, on the host, because the kernels trust them."""
+    are checked here, on the host, because the kernels trust them: the
+    checks make no edge-scale temporary, and arrays already of their
+    dtype are not copied on the host before the upload. ``timings``: pass
+    a dict to receive the seconds of the host checks (``check_s``) and of
+    the upload (``upload_s``)."""
     dev = resolve_device(device)
-    if e_pad >= 2**31 - 2:
-        raise ValueError("graphs past 2^31 edges need 64-bit offsets, "
-                         "which the int32 kernels do not take yet")
+    t0 = time.perf_counter()
     fields = {k: v for k, v in fields.items()
               if not k.startswith(_TPU_LAYOUT_PREFIXES) and v is not None}
     unknown = set(fields) - set(_INT_FIELDS) - set(_FLOAT_FIELDS)
@@ -311,6 +384,15 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                          "together")
     if "csc_edge_values" in fields and not csc:
         raise ValueError("csc_edge_values needs the CSC")
+    if sizet64 is None and any(
+            np.asarray(v).dtype == np.int64 for k, v in fields.items()
+            if k.endswith("offsets")):
+        sizet64 = True
+    wide = sizet64_rule(e_pad, sizet64,
+                        blocked=with_blocked_csc or with_blocked_values)
+    if not wide and num_edges > 2**31 - 1:
+        raise ValueError(f"int32 offsets cannot hold num_edges={num_edges}:"
+                         " pass sizet64=True or None")
     lengths = {"v": v_pad + 1, "e": e_pad}
     arrays = {}
     for name, arr in fields.items():
@@ -324,12 +406,16 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
             if arr[0] != 0 or arr[-1] != num_edges or (d < 0).any():
                 raise ValueError(f"{name} is not a nondecreasing offset "
                                  f"array from 0 to num_edges={num_edges}")
-        elif name in ("col_indices", "csc_indices") and arr.size and (
-                arr.min() < 0 or arr.max() >= max(num_nodes, 1)):
-            raise ValueError(f"{name} holds vertex ids outside "
-                             f"[0, {num_nodes})")
-        dtype = np.int32 if name in _INT_FIELDS else np.float32
-        arrays[name] = np.array(arr, dtype=dtype)
+            dtype = np.int64 if wide else np.int32
+        elif name in _INT_FIELDS:
+            if name in ("col_indices", "csc_indices") and arr.size and (
+                    arr.min() < 0 or arr.max() >= max(num_nodes, 1)):
+                raise ValueError(f"{name} holds vertex ids outside "
+                                 f"[0, {num_nodes})")
+            dtype = np.int32
+        else:
+            dtype = np.float32
+        arrays[name] = np.asarray(arr, dtype=dtype)
     if (with_blocked_csc or with_blocked_values) and not csc:
         arrays.update(_csc_from_csr(arrays, int(num_nodes), int(num_edges),
                                     v_pad, e_pad))
@@ -342,9 +428,13 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
     if csc:
         _check_seg_ids("csc_edge_dst", arrays["csc_edge_dst"],
                        arrays["csc_offsets"], num_edges)
-    tensors = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    t1 = time.perf_counter()
+    tensors = {k: _upload(v, dev) for k, v in arrays.items()}
     if csc:
         tensors["inv_outdeg"] = _inv_degree(tensors["row_offsets"])
+    if timings is not None:
+        sync(dev)
+        timings.update(check_s=t1 - t0, upload_s=time.perf_counter() - t1)
     return DeviceGraph(num_nodes=int(num_nodes), num_edges=int(num_edges),
                        v_pad=int(v_pad), e_pad=int(e_pad),
                        undirected=undirected,
@@ -353,3 +443,12 @@ def from_numpy(fields: dict, *, num_nodes: int, num_edges: int, v_pad: int,
                        has_blocked_csc=bool(with_blocked_csc) or (
                            bool(with_blocked_values) and not pull2_ok(v_pad)),
                        **tensors)
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One copy of a host array on ``dev``, never a view of the caller's
+    array (a read-only one, such as ``np.asarray`` of a JAX array, is
+    copied on the host first, as torch shares no read-only memory)."""
+    if not arr.flags.writeable or not arr.flags.c_contiguous:
+        return torch.from_numpy(np.array(arr)).to(dev)
+    return torch.from_numpy(arr).to(dev, copy=True)

@@ -3,16 +3,20 @@
 Counterpart of :mod:`gunrock_tpu.io.generators` (reference
 ``graphio/rmat.cuh:177``, ``graphio/rgg.cuh``, ``graphio/small_world.cuh``).
 The numpy RNG calls are the same, in the same order, so the same
-arguments give a byte-identical CSR.
+arguments give a byte-identical CSR. :func:`rmat_device` draws on the
+device with a ``torch.Generator``: the JAX package's distribution, not
+its bits.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..graph.csr import CsrGraph, from_coo
+from ..graph.device import resolve_device
 
-__all__ = ["rmat", "rgg", "small_world", "rmat_coo"]
+__all__ = ["rmat", "rgg", "small_world", "rmat_coo", "rmat_device"]
 
 
 def rmat_coo(
@@ -69,6 +73,38 @@ def rmat(
     if random_edge_values:
         g.random_edge_values(seed=seed)
     return g
+
+
+def rmat_device(scale: int, edge_factor: float = 48.0,
+                a: float = 0.57, b: float = 0.19, c: float = 0.19,
+                *, seed: int = 0, device="cuda"):
+    """R-MAT COO edges drawn on ``device`` (reference GRMAT,
+    ``graphio/grmat.cuh:105``; the JAX package's ``rmat_device``):
+    returns ``(num_nodes, src, dst)``, the ids int32 tensors there.
+
+    Each level draws one float32 uniform an edge from an explicit
+    ``torch.Generator`` seeded with ``seed`` and picks the quadrant as
+    the JAX package does: source bit set above ``a + b``, destination
+    bit set above ``a + b + c`` in the lower half and above ``a`` in the
+    upper. So the edges follow the JAX package's distribution (quadrants
+    a, b, c and 1 - a - b - c, independent across levels and edges), not
+    its bits: ``jax.random`` and torch's generator give other numbers
+    from one seed. One level at a time, so the draws take one float an
+    edge where the JAX package holds all the levels'."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    num_nodes = 1 << scale
+    num_edges = int(num_nodes * edge_factor)
+    src = torch.zeros(num_edges, dtype=torch.int32, device=dev)
+    dst = torch.zeros(num_edges, dtype=torch.int32, device=dev)
+    for bit in range(scale):
+        u = torch.rand(num_edges, generator=gen, device=dev)
+        right_src = u >= a + b
+        right_dst = torch.where(right_src, u >= a + b + c, u >= a)
+        src |= right_src.to(torch.int32) << bit
+        dst |= right_dst.to(torch.int32) << bit
+    return num_nodes, src, dst
 
 
 def rgg(

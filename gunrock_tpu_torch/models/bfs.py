@@ -71,7 +71,7 @@ from ..ops.advance import expand
 from ..ops.kernels import (bitmask_gather, bitmask_gather_cumsum,
                            pack_bitmask, pull_reached_words, unpack_bitmask)
 from ..ops.segment import (compact, dedup_winners, frontier_from_mask,
-                           scatter_max, scatter_set)
+                           last_hit_in_rows, scatter_max, scatter_set)
 from ..utils.info import make_info
 
 __all__ = ["bfs", "BfsResult", "bfs_device"]
@@ -254,10 +254,13 @@ def _pull_step(graph: DeviceGraph, state: _State, depth: int) -> int:
                                  graph.v_pad)
     else:
         run = bitmask_gather_cumsum(words, graph.csc_indices)
-        # The sum before row bound b is run[b - 1], and 0 at b = 0.
+        # The sum before row bound b is run[b - 1], and 0 at b = 0. The
+        # sums wrap modulo 2^32 past 2^31 hits (K10's int32 output), and
+        # a row holds fewer than 2^32 hits, so its count is 0 iff its
+        # two bounds' sums are equal, wrapped or not.
         off = graph.csc_offsets.long()
         samples = torch.where(off > 0, run[(off - 1).clamp(min=0)], 0)
-        reached = (samples[1:] - samples[:-1]) > 0
+        reached = samples[1:] != samples[:-1]
     new_mask = (state.labels == INVALID) & reached
     state.labels.masked_fill_(new_mask, depth)
     state.n, state.m_f = _count(new_mask, graph.out_degrees())
@@ -269,17 +272,20 @@ def _fill_preds(graph: DeviceGraph, labels: torch.Tensor,
                 preds: torch.Tensor) -> torch.Tensor:
     """Post-hoc predecessors for vertices discovered in pull levels:
     pred(v) = the last in-neighbor (CSC order) with label(v) - 1
-    (``models/bfs.py:373-386``). Updates ``preds`` in place."""
-    lab_dst = labels[graph.csc_edge_dst.clamp(0, graph.v_pad - 1).long()]
-    hit = labels[graph.csc_indices.long()] + 1 == lab_dst
-    pos = torch.where(hit, torch.arange(graph.e_pad, dtype=torch.int32,
-                                        device=labels.device), -1)
-    best = torch.cummax(pos, 0).values
-    bpos0 = torch.cat([best.new_full((1,), -1), best])
-    last = bpos0[graph.csc_offsets[1:].long()]
-    start = graph.csc_offsets[:-1]
-    ok = (labels > 0) & (preds == INVALID) & (last >= start)
-    fill = graph.csc_indices[last.clamp(min=0).long()]
+    (``models/bfs.py:373-386``). Updates ``preds`` in place.
+
+    The JAX package numbers the CSC slots with an int32 ``arange(e_pad)``
+    and takes a ``cummax`` over all of them; here
+    :func:`~gunrock_tpu_torch.ops.segment.last_hit_in_rows` walks the
+    edges in chunks with int64 positions, so the fill stays exact past
+    2^31 edges and makes no edge-scale temporary."""
+    def hit(lo: int, hi: int) -> torch.Tensor:
+        return labels.index_select(0, graph.csc_indices[lo:hi]) + 1 == \
+            labels.index_select(0, graph.csc_edge_dst[lo:hi])
+
+    last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+    ok = (labels > 0) & (preds == INVALID) & (last >= 0)
+    fill = graph.csc_indices[last.clamp(min=0)]
     preds[ok] = fill[ok]
     return preds
 

@@ -56,7 +56,7 @@ from ..ops.advance import expand
 from ..ops.kernels import (reduce_by_dst_sorted, sample_sorted,
                            sample_sorted2, scatter_sorted)
 from ..ops.pull2 import pull_vertex_reduce
-from ..ops.segment import frontier_from_mask
+from ..ops.segment import frontier_from_mask, last_hit_in_rows
 from ..utils.info import make_info
 
 __all__ = ["sssp", "SsspResult", "sssp_device"]
@@ -430,18 +430,16 @@ def _fill_preds(graph: DeviceGraph, dist: torch.Tensor) -> torch.Tensor:
     """Shortest-path-tree parents (``models/sssp.py:623-638``): pred(v) =
     the last in-neighbour u in CSC order with ``dist[u] + w(u, v) ==
     dist[v]``, exact because every distance was produced as such a sum;
-    -1 at the source, at distance 0 and where unreached."""
-    v_pad = graph.v_pad
-    dst_of_edge = graph.csc_edge_dst.clamp(0, v_pad - 1).long()
-    hit = dist[graph.csc_indices.long()] + graph.csc_edge_values == \
-        dist[dst_of_edge]
-    pos = torch.where(hit, torch.arange(graph.e_pad, dtype=torch.int32,
-                                        device=dist.device), -1)
-    best = torch.cummax(pos, 0).values
-    bpos0 = torch.cat([best.new_full((1,), -1), best])
-    last = bpos0[graph.csc_offsets[1:].long()]
-    ok = torch.isfinite(dist) & (dist > 0) & (last >= graph.csc_offsets[:-1])
-    fill = graph.csc_indices[last.clamp(min=0).long()]
+    -1 at the source, at distance 0 and where unreached. Chunked with
+    int64 positions, as BFS's fill (``models/bfs.py``)."""
+    def hit(lo: int, hi: int) -> torch.Tensor:
+        return dist.index_select(0, graph.csc_indices[lo:hi]) + \
+            graph.csc_edge_values[lo:hi] == \
+            dist.index_select(0, graph.csc_edge_dst[lo:hi])
+
+    last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+    ok = torch.isfinite(dist) & (dist > 0) & (last >= 0)
+    fill = graph.csc_indices[last.clamp(min=0)]
     return torch.where(ok, fill, -1).to(torch.int32)
 
 

@@ -33,7 +33,7 @@ import torch
 
 from ..enactor import Timer
 from ..graph.csr import CsrGraph, from_coo
-from ..graph.device import resolve_device, round_up
+from ..graph.device import resolve_device, round_up, sizet64_rule
 from ..ops.intersection import intersect_counts
 from ..utils.info import make_info
 
@@ -75,7 +75,7 @@ class _TcPrep:
     """Host-side oriented-DAG layout and wedge-budget chunking, the JAX
     package's, which its sharded TC (``parallel/tc.py``) also reads."""
     dag: CsrGraph
-    row: np.ndarray          # (v_pad+1,) int32
+    row: np.ndarray          # (v_pad+1,) int32, int64 past 2^31 - 2 edges
     col: np.ndarray          # (e_pad,) int32, pad lanes = v_pad
     esrc_pad: np.ndarray     # (e_pad,) int32, pad lanes = v_pad
     esrc_full: np.ndarray    # (num_edges,) int32
@@ -103,9 +103,12 @@ def _tc_prepare(g: CsrGraph, wedge_budget: Optional[int] = None) -> _TcPrep:
     per_edge_wedges = deg[dag.col_indices]
     wedge_total = int(per_edge_wedges.sum())
     v_pad = round_up(max(dag.num_nodes, 1))
-    row = np.full(v_pad + 1, dag.num_edges, np.int32)
-    row[: dag.num_nodes + 1] = dag.row_offsets.astype(np.int32)
     e_pad = round_up(max(dag.num_edges, 1))
+    # The DAG's offsets by the sizet64 rule (the JAX package holds them
+    # in int32 at every size).
+    off_t = np.int64 if sizet64_rule(e_pad, None) else np.int32
+    row = np.full(v_pad + 1, dag.num_edges, off_t)
+    row[: dag.num_nodes + 1] = dag.row_offsets.astype(off_t)
     col = np.full(e_pad, v_pad, np.int32)
     col[: dag.num_edges] = dag.col_indices
     esrc_full = dag.edge_sources().astype(np.int32)

@@ -92,7 +92,10 @@ def hits(keys: torch.Tensor, perm: torch.Tensor,
     edge_pairs = pair[is_edge]
     if not edge_pairs.numel():
         return perm[:0]
-    last = torch.cumsum(is_edge, 0, dtype=torch.int32) - 1
+    # Positions in the sorted stream (the chunk's wedges and every edge),
+    # int64 where they pass int32.
+    ptype = torch.int32 if keys.shape[0] < 2**31 else torch.int64
+    last = torch.cumsum(is_edge, 0, dtype=ptype) - 1
     hit = ~is_edge & (last >= 0) & \
         (edge_pairs[last.clamp(min=0).long()] == pair)
     return perm[hit] - num_stream_edges

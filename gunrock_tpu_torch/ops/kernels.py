@@ -37,7 +37,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "sample_sorted", "sample_sorted_plain", "sample_sorted2",
            "sample_sorted2_plain", "reduce_by_dst_sorted",
            "reduce_by_dst_sorted_plain", "scatter_sorted",
-           "scatter_sorted_plain", "REDUCE_TILE", "WARP_TILE",
+           "scatter_sorted_plain", "row_bounds32", "REDUCE_TILE", "WARP_TILE",
            "GATHER_CUMSUM_TILE", "SHARED_MASK_WORDS"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
@@ -113,6 +113,21 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
                          f"{t.device}")
 
 
+def row_bounds32(graph) -> torch.Tensor:
+    """The CSC offsets as the int32 row bounds that K1, K3, K4, K6 and K9
+    read: as they are on an int32 graph, narrowed (v_pad + 1 entries,
+    exactly) on a sizet64 graph below 2^31 edges, and refused past it,
+    where no int32 bound can name an edge."""
+    off = graph.csc_offsets
+    if off.dtype != torch.int64:
+        return off
+    if graph.num_edges > 2**31 - 1:
+        raise ValueError(f"the CSC-tile kernels take int32 row bounds, and "
+                         f"this sizet64 graph has {graph.num_edges} edges, "
+                         "past 2^31 - 1")
+    return off.to(torch.int32)
+
+
 def _launch(fn, *args, device: torch.device) -> None:
     """Call a kernel's C entry point with ``device``'s current stream and
     raise on the CUDA error it returns. A launch goes to the current
@@ -181,11 +196,21 @@ def bitmask_gather(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bitmask_gather_cumsum_plain(words: torch.Tensor,
-                                idx: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 running sum of :func:`bitmask_gather_plain`."""
-    return torch.cumsum(bitmask_gather_plain(words, idx), 0,
-                        dtype=torch.int32)
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as the int32 two's complement of their low 32 bits."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def bitmask_gather_cumsum_plain(words: torch.Tensor, idx: torch.Tensor,
+                                start: int = 0) -> torch.Tensor:
+    """Inclusive running sum of :func:`bitmask_gather_plain`, from
+    ``start``, wrapped to int32 modulo 2^32 as K10's sums are. ``start``
+    lets a caller continue a sum across chunks of one id stream (the
+    card's check over 2^31 ids) or start it near 2^31 (the tests of the
+    wrap)."""
+    run = torch.cumsum(bitmask_gather_plain(words, idx), 0,
+                       dtype=torch.int64)
+    return _wrap32(run + start)
 
 
 def bitmask_gather_cumsum(words: torch.Tensor,
@@ -199,7 +224,15 @@ def bitmask_gather_cumsum(words: torch.Tensor,
     states and one pass over the ids with a decoupled look-back between
     tiles, the mask in shared memory up to ``SHARED_MASK_WORDS`` words,
     else through L1. ``idx`` is int32 of any length (the Pallas version
-    takes multiples of 128); the sums are exact below 2^31 ids."""
+    takes multiples of 128).
+
+    The output stays int32, as in the JAX package ("inclusive, int32"):
+    past 2^31 hits (a sizet64 graph's pull) the sums wrap modulo 2^32,
+    the kernel adding in ``uint32_t`` and storing the bits, as
+    :func:`bitmask_gather_cumsum_plain` wraps them. A difference of two
+    sums taken modulo 2^32 stays exact while fewer than 2^32 hits lie
+    between them, which is what BFS's pull reads. An int64 output would
+    cost 16 GiB at 2^31 ids, beside a graph of 24 GiB."""
     return _gather_cumsum(words, idx, words.shape[0] <= SHARED_MASK_WORDS)
 
 
@@ -254,8 +287,9 @@ def pull_reached_words(words: torch.Tensor, graph) -> torch.Tensor:
     if not _route(words, graph.csc_indices):
         return pull_reached_words_plain(words, graph)
     dev = graph.csc_indices.device
+    offsets = row_bounds32(graph)
     for name, t in (("words", words), ("csc_indices", graph.csc_indices),
-                    ("csc_offsets", graph.csc_offsets)):
+                    ("csc_offsets", offsets)):
         _check(name, t, dev)
     if graph.num_edges == 0:
         return torch.zeros(words_for(graph.v_pad), dtype=torch.int32,
@@ -266,7 +300,7 @@ def pull_reached_words(words: torch.Tensor, graph) -> torch.Tensor:
                             dtype=torch.int32, device=dev)
     _launch(_build.load().gr_pull_reached_words, words.data_ptr(),
             words.shape[0] * 32, graph.csc_indices.data_ptr(),
-            graph.csc_offsets.data_ptr(), graph.v_pad, graph.num_edges,
+            offsets.data_ptr(), graph.v_pad, graph.num_edges,
             tile_rows.data_ptr(), tile_rows.shape[0], out.data_ptr(),
             device=dev)
     LAUNCHES["pull_reached_words"] += 1
@@ -419,6 +453,9 @@ def reduce_by_dst_sorted(sd: torch.Tensor, vals: torch.Tensor, *,
         return reduce_by_dst_sorted_plain(sd, vals, op=op,
                                           out_lanes=out_lanes, aux=aux)
     _check_reduce(sd, vals, op, out_lanes, aux)
+    if sd.shape[0] > 2**31 - 1:
+        raise ValueError(f"reduce_by_dst_sorted counts runs in int32: "
+                         f"{sd.shape[0]} lanes are past 2^31 - 1")
     dev = sd.device
     _check("sd", sd, dev)
     for name, t in (("vals", vals), ("aux", aux)):
@@ -488,6 +525,9 @@ def scatter_sorted(dense: torch.Tensor, ids: torch.Tensor,
     if not _route(*tensors):
         return scatter_sorted_plain(dense, ids, vals, count=count, op=op)
     _check_scatter(dense, ids, vals, op)
+    if ids.shape[0] > 2**31 - 1:
+        raise ValueError(f"scatter_sorted reads its count as int32: "
+                         f"{ids.shape[0]} lanes are past 2^31 - 1")
     dev = dense.device
     _check("ids", ids, dev)
     if not dense.is_contiguous() or not vals.is_contiguous() or \

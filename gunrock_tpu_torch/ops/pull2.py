@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .kernels import LAUNCHES, _check, _launch, _route
+from .kernels import LAUNCHES, _check, _launch, _route, row_bounds32
 from .segment import row_reduce_sorted
 
 __all__ = ["pull_reduce2", "pull_reduce2_plain", "pull_power_iters",
@@ -153,13 +153,17 @@ def _check_float(name: str, t: torch.Tensor, n: int,
 
 
 def _check_graph(graph, w: Optional[torch.Tensor], kind: int,
-                 device: torch.device) -> None:
-    for name in ("csc_indices", "csc_offsets"):
-        _check(name, getattr(graph, name), device)
+                 device: torch.device) -> torch.Tensor:
+    """Check the CSC and the weights; returns the int32 row bounds the
+    kernels read (:func:`~gunrock_tpu_torch.ops.kernels.row_bounds32`)."""
+    offsets = row_bounds32(graph)
+    _check("csc_indices", graph.csc_indices, device)
+    _check("csc_offsets", offsets, device)
     if w is not None:
         _check_float("weights", w,
                      graph.e_pad if kind == _PER_EDGE else graph.v_pad,
                      device)
+    return offsets
 
 
 def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
@@ -185,11 +189,11 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
     if init is not None:
         init = init.to(torch.float32).contiguous()
         _check_float("init", init, graph.v_pad, dev)
-    _check_graph(graph, w, kind, dev)
+    offsets = _check_graph(graph, w, kind, dev)
     buf, scratch = _scratch(graph, dev)
     out = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     _launch(_build.load().gr_pull_reduce, values.data_ptr(),
-            graph.csc_indices.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.csc_indices.data_ptr(), offsets.data_ptr(),
             graph.num_edges, graph.v_pad, 0 if w is None else w.data_ptr(),
             kind, _OPS[op], _FNS[wmode],
             0 if init is None else init.data_ptr(), PULL_TILE, *scratch,
@@ -258,14 +262,14 @@ def pull_power_iters(graph, init: torch.Tensor, *, iters: int,
     dev = graph.csc_indices.device
     init = init.to(torch.float32).contiguous()
     _check_float("init", init, graph.v_pad, dev)
-    _check_graph(graph, w, kind, dev)
+    offsets = _check_graph(graph, w, kind, dev)
     buf, scratch = _scratch(graph, dev)
     ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     pong = torch.empty_like(ping)
     changed = torch.zeros(iters, dtype=torch.int32, device=dev)
     _launch(_build.load().gr_pull_power_iters, init.data_ptr(),
             ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
-            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            offsets.data_ptr(), graph.num_edges, graph.v_pad,
             graph.num_nodes, w.data_ptr(), kind, float(damping),
             float(reset), float(threshold), iters, PULL_TILE, *scratch,
             changed.data_ptr(), device=dev)
@@ -335,14 +339,14 @@ def pull_min_sweeps(graph, init: torch.Tensor, *, sweeps: int,
     dev = graph.csc_indices.device
     init = init.to(torch.float32).contiguous()
     _check_float("init", init, graph.v_pad, dev)
-    _check_graph(graph, w, kind, dev)
+    offsets = _check_graph(graph, w, kind, dev)
     buf, scratch = _scratch(graph, dev, gated=True)
     ping = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     pong = torch.empty_like(ping)
     changed = torch.zeros(sweeps, dtype=torch.int32, device=dev)
     _launch(_build.load().gr_pull_min_sweeps, init.data_ptr(),
             ping.data_ptr(), pong.data_ptr(), graph.csc_indices.data_ptr(),
-            graph.csc_offsets.data_ptr(), graph.num_edges, graph.v_pad,
+            offsets.data_ptr(), graph.num_edges, graph.v_pad,
             0 if w is None else w.data_ptr(), kind, _FNS[wmode], sweeps,
             PULL_TILE, *scratch, changed.data_ptr(), device=dev)
     LAUNCHES["pull_min_sweeps"] += 1
@@ -404,14 +408,14 @@ def _brandes(graph, lab, sig, delta, *, fwd: bool, level0: int,
         t = t.to(torch.float32).clone(memory_format=torch.contiguous_format)
         _check_float(name, t, graph.v_pad, dev)
         state.append(t)
-    _check_graph(graph, None, _NO_WEIGHTS, dev)
+    offsets = _check_graph(graph, None, _NO_WEIGHTS, dev)
     buf, (tile_rows, rowval, head, tail, gated, tmark,
           active) = _scratch(graph, dev, gated=True)
     counts = torch.zeros(levels, dtype=torch.int32, device=dev)
     lab, sig, delta = state
     _launch(_build.load().gr_brandes_levels, lab.data_ptr(), sig.data_ptr(),
             0 if delta is None else delta.data_ptr(),
-            graph.csc_indices.data_ptr(), graph.csc_offsets.data_ptr(),
+            graph.csc_indices.data_ptr(), offsets.data_ptr(),
             graph.num_edges, graph.v_pad, int(fwd), int(level0), levels,
             PULL_TILE, tile_rows, gated, rowval, head, tail, tmark, active,
             counts.data_ptr(), device=dev)

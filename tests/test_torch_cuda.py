@@ -1326,3 +1326,116 @@ def test_sssp_carry_on_cuda_equals_cpu(cuda):
     assert launches[True]["sample_sorted2"] == \
         launches[False]["sample_sorted2"] > 0
     assert launches[True]["sample_sorted"] < launches[False]["sample_sorted"]
+
+
+# Past 2^31: the sizet64 routes' lengths. Each test holds 16-24 GiB.
+PAST_2_31 = (1 << 31) + (1 << 20) + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_bitmask_gather_cumsum_kernel_wraps_past_2_31(cuda, shared):
+    """K10 over 2^31 + 2^20 + 3 ids, every one a hit: its int32 sums wrap
+    modulo 2^32 past 2^31, bitwise equal to the plain version, compared
+    in chunks that carry the plain running sum (``start``)."""
+    words = K.pack_bitmask(torch.ones(1024, dtype=torch.bool, device=cuda))
+    idx = torch.zeros(PAST_2_31, dtype=torch.int32, device=cuda)
+    got = K._gather_cumsum(words, idx, shared)
+    torch.cuda.synchronize()
+    assert int(got[(1 << 31) - 2]) == 2**31 - 1
+    assert int(got[(1 << 31) - 1]) == -2**31
+    assert int(got[-1]) == PAST_2_31 - 2**32
+    carry, chunk = 0, 1 << 28
+    for lo in range(0, PAST_2_31, chunk):
+        want = K.bitmask_gather_cumsum_plain(words, idx[lo:lo + chunk],
+                                             start=carry)
+        assert torch.equal(got[lo:lo + chunk], want), lo
+        carry = int(want[-1])
+
+
+@pytest.mark.cuda
+def test_bitmask_gather_kernel_past_2_31_ids(cuda):
+    """K2 over 2^31 + 2^20 + 3 ids (an int64 length): equal to the plain
+    version at the head, across 2^31 and at the tail."""
+    words = K.pack_bitmask(torch.rand(1 << 16, device=cuda) < 0.5)
+    idx = torch.randint(0, 1 << 16, (PAST_2_31,), dtype=torch.int32,
+                        device=cuda)
+    got = K.bitmask_gather(words, idx)
+    torch.cuda.synchronize()
+    for lo in (0, (1 << 31) - (1 << 20), PAST_2_31 - (1 << 20)):
+        sl = slice(lo, lo + (1 << 20))
+        assert torch.equal(got[sl], K.bitmask_gather_plain(words, idx[sl]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+def test_sample_sorted_kernel_int64_positions_past_2_31(cuda, two):
+    """K5 reading an array of 2^31 + 2^20 + 3 entries at int64 positions
+    on both sides of 2^31 (and past the end, which read 0)."""
+    a = torch.randint(0, 1 << 30, (PAST_2_31,), dtype=torch.int32,
+                      device=cuda)
+    pos = torch.cat([torch.arange(0, 4096, device=cuda),
+                     torch.arange((1 << 31) - 2048, (1 << 31) + 2048,
+                                  device=cuda),
+                     torch.arange(PAST_2_31 - 100, PAST_2_31 + 100,
+                                  device=cuda)])
+    if two:
+        b = a.view(torch.float32)
+        ga, gb = K.sample_sorted2(a, b, pos)
+        wa, wb = K.sample_sorted2_plain(a, b, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(ga, wa) and torch.equal(gb.view(torch.int32),
+                                                   wb.view(torch.int32))
+    else:
+        got = K.sample_sorted(a, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.sample_sorted_plain(a, pos))
+
+
+@pytest.mark.cuda
+def test_int32_count_kernels_refuse_2_31_lanes(cuda):
+    """K7 and K8 keep their counts in int32 by design: their wrappers
+    refuse a stream of 2^31 lanes (expanded views: nothing is allocated,
+    the refusal comes first) instead of wrapping."""
+    sd = torch.zeros(1, dtype=torch.int32, device=cuda).expand(1 << 31)
+    vals = torch.zeros(1, device=cuda).expand(1 << 31)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        K.reduce_by_dst_sorted(sd, vals, out_lanes=16)
+    dense = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        K.scatter_sorted(dense, sd, vals, count=4)
+
+
+@pytest.mark.cuda
+def test_sizet64_graph_on_cuda_equals_int32(cuda):
+    """A flagship-shaped graph (R-MAT scale 16) uploaded with sizet64 and
+    with int32 offsets: DO-BFS with preds (K10; its pushes are micro
+    rounds at this size), near-far SSSP fused
+    (K5, K7, K8) and PageRank's loop route (K3 over narrowed row bounds)
+    bitwise equal; the narrowed bounds are refused past 2^31 edges."""
+    import dataclasses
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.models.pr import pagerank_device
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    g = gtt.io.rmat(scale=16, edge_factor=16, seed=5, undirected=True)
+    g.random_edge_values(seed=7)
+    kw = dict(with_csc=True, with_edge_values=True, device=cuda)
+    d64 = gtt.to_device(g, sizet64=True, **kw)
+    d32 = gtt.to_device(g, **kw)
+    assert d64.csc_offsets.dtype == torch.int64
+    src = g.largest_degree_vertex()
+    K.reset_launch_counts()
+    for fn in (lambda d: bfs_device(d, src, mark_preds=True,
+                                    direction_optimized=True)[:2],
+               lambda d: sssp_device(d, src, mark_preds=True,
+                                     mode="nearfar", fused=True)[:2],
+               lambda d: pagerank_device(d)[:1]):
+        for a, b in zip(fn(d64), fn(d32)):
+            assert torch.equal(a, b)
+    for name in ("bitmask_gather_cumsum", "sample_sorted2",
+                 "reduce_by_dst_sorted", "scatter_sorted", "pull_reduce2"):
+        assert K.LAUNCHES[name] > 0, name
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        K.pull_reached_words(K.pack_bitmask(torch.ones(
+            d64.v_pad, dtype=torch.bool, device=cuda)),
+            dataclasses.replace(d64, num_edges=2**31))

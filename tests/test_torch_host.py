@@ -167,6 +167,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
+    yield os.path.join(_REPO, "examples", "simple_example_torch.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -177,10 +178,16 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of gunrock_tpu_torch and chip_smoke.py, parsed: no
-    import of jax or gunrock_tpu, at any depth of the file."""
+    """Every module of gunrock_tpu_torch, chip_smoke.py and the example's
+    twin, parsed: no import of jax or gunrock_tpu, at any depth of the
+    file."""
     assert not _forbidden("gunrock_tpu_torch") and _forbidden("jax.numpy")
     checked, bad = 0, []
+    paths = {os.path.relpath(p, _REPO) for p in _port_sources()}
+    for module in ("capi.py", "utils/track.py", "utils/modularity.py",
+                   "utils/baseline.py", "tools/convert.py",
+                   "io/generators.py"):
+        assert os.path.join("gunrock_tpu_torch", module) in paths, module
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
