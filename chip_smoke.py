@@ -196,10 +196,39 @@ script exits non-zero:
     count, degree statistics and quadrant shares beside the host
     generator's COO, the shares within 0.005.
 
+31. The sharded zoo (``gunrock_tpu_torch.parallel``) on a shard mesh of
+    4 shards of the card: the flagship (phase 11's weights) partitioned
+    once, ``random``, with the CSC, the ghost tables and the weights (its
+    seconds printed), then the ``*_device`` entry points on that one
+    partition: DO-BFS with predecessors through K1 (once a shard a pull
+    superstep) and non-DO BFS, labels equal phase 3's, predecessors
+    valid; PageRank, 20 iterations at threshold 0 through K3 sum/``mul``
+    once a shard an iteration, within rtol 1e-4 of the single card's loop
+    route; SSSP near-far with the pull-relax through K3 min/``add``,
+    distances bitwise equal phase 11's; CC equal to the single card's;
+    BC from the hub (labels equal, sigma rtol 1e-4, BC rtol 1e-3, atol
+    1e-3), HITS and SALSA (phase 8's tolerances) against the single
+    card; ``bfs_batch`` of 4 sources (the hub's row equal phase 3's).
+    Each run's process time, supersteps, ``comm_bytes`` and launches;
+    K1 on every shard view at the pull levels and K3 (min/``add``
+    bitwise, sum/``mul`` within rel 1e-5) on every compact table against
+    their plain versions, with median times and bounds. Then on R-MAT
+    scale 16: ``wtf_sharded`` (PPR and sorted scores within the CLI's
+    rtol 1e-3, atol 1e-6 of the single card), ``topk_sharded`` (exact
+    against numpy's degrees), ``tc_sharded`` (equal to the single
+    card), and the seven partition methods, each partition's seconds and
+    boundary fraction and its DO-BFS through K1 equal to the single
+    card's labels.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K4), 7-8, 17, 25 and 28 (K3), 12, 17, 27 and 28 (K5), 12, 17 and 28
-(K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10) and 28 (K2). Every kernel's entry also carries
+(K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10), 28 (K2) and 31 (every
+kernel a sharded run launched: K1, K3, and K2 in ``bfs_batch``). K1's
+entry also carries ``shard_*`` (K1 on the shard views at the sharded
+DO-BFS's pull levels, summed over the levels and shards) and K3's
+``compact_*`` (K3 on the shards' compact tables, summed over the
+shards). Every kernel's entry also carries
 ``bound_ms``, the least time the card could take for the same work at
 the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
@@ -2359,6 +2388,377 @@ def phase_capi(gtt, g, src, bfs_labels, card):
     del src_d, dst_d
 
 
+# Phase 31's shard count and its second graph: the other partition
+# methods, WTF, TopK and TC run on R-MAT at this scale (the flagship's
+# multilevel partition and TC would take too long).
+SHARDS, SHARD_SMALL_SCALE = 4, 16
+
+
+def _shard_run(K, launches, fn):
+    """Drive ``fn`` once with the launch counts set to 0 just before and
+    read just after (summed into ``launches``); returns ``(out, ms,
+    run)``: its result, its fenced wall time and its own counts."""
+    import torch
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    run = dict(K.LAUNCHES)
+    for k, v in run.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, ms, run
+
+
+def _shard_report(name, ms, steps, comm, run, card):
+    used = {k: v for k, v in run.items() if v}
+    print(f"[sharded] {name}: process {ms:.3f} ms, supersteps {steps}, "
+          f"comm_bytes {comm}, K1 launches {run['pull_reached_words']}, "
+          f"K3 launches {run['pull_reduce2']}, all launches {used}; on "
+          f"{card}")
+
+
+def _old_ids(perm, t, n):
+    """A relabeled (p*S,) result in original vertex ids."""
+    return t.cpu().numpy()[perm][:n]
+
+
+def _old_preds(perm, preds, n):
+    import numpy as np
+    inv = np.full(preds.shape[0], -1, np.int64)
+    inv[perm] = np.arange(n)
+    p = preds.cpu().numpy()[perm]
+    return np.where(p >= 0, inv[np.maximum(p, 0)], -1).astype(np.int32)
+
+
+def _shard_kernels(K, P, glob, compact, words_by_level, tables, card):
+    """K1 on every shard's global view at the sharded DO-BFS's pull
+    levels; K3 min/add and sum/mul on every shard's compact table; each
+    against its plain version: equal (K3's sums within rel 1e-5, as phase
+    9 holds them), bitwise over two launches, median times summed over
+    the shards. Returns the numbers for K1's and K3's JSON entries."""
+    import torch
+    k1 = {"shard_ms": 0.0, "shard_plain_ms": 0.0, "shard_max_abs_err": 0}
+    for d, words in words_by_level.items():
+        ms = plain = 0.0
+        for view in glob.views:
+            got = K.pull_reached_words(words, view)
+            want = K.pull_reached_words_plain(words, view)
+            torch.cuda.synchronize()
+            k1["shard_max_abs_err"] = max(k1["shard_max_abs_err"],
+                                          _max_abs_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 on a shard view differs from its "
+                                     f"plain version at level {d}")
+            ms += _median_ms(lambda: K.pull_reached_words(words, view))
+            plain += _median_ms(
+                lambda: K.pull_reached_words_plain(words, view), reps=5)
+        k1["shard_ms"] += ms
+        k1["shard_plain_ms"] += plain
+        # each shard's csc_indices and csc_offsets, the words, its reach
+        k1["shard_bound_ms"] = k1.get("shard_bound_ms", 0.0) + sum(
+            bound(4 * v.num_edges + 4 * (v.v_pad + 1) + 4 * words.shape[0]
+                  + v.v_pad // 8)["bound_ms"] for v in glob.views)
+        print(f"[sharded] K1 on the {len(glob.views)} shard views at pull "
+              f"level {d}: equal, {ms:.4f} ms vs plain {plain:.4f} ms "
+              f"(bound summed over the levels so far "
+              f"{k1['shard_bound_ms']:.4f} ms); on {card}")
+    k3 = {"compact_max_abs_err": 0.0, "compact_max_rel_err": 0.0}
+    for name, op, wmode in (("min_add", "min", "add"),
+                            ("sum_mul", "sum", "mul")):
+        table, views = tables[name], compact[name]
+        ms = plain = rel = 0.0
+        for i, view in enumerate(views.views):
+            got = P.pull_reduce2(table[i], view, op=op, wmode=wmode)
+            again = P.pull_reduce2(table[i], view, op=op, wmode=wmode)
+            want = P.pull_reduce2_plain(table[i], view, op=op, wmode=wmode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K3 {name} on a compact table: two "
+                                     "launches differ")
+            if op == "min" and not torch.equal(got, want):
+                raise AssertionError("K3 min on a compact table differs "
+                                     "from its plain version")
+            abs_err, rel_err = _errs(got, want)
+            if rel_err > 1e-5:
+                raise AssertionError(f"K3 {name} on a compact table: max "
+                                     f"rel err {rel_err:.3e}")
+            rel = max(rel, rel_err)
+            k3["compact_max_abs_err"] = max(k3["compact_max_abs_err"],
+                                            abs_err)
+            ms += _median_ms(lambda: P.pull_reduce2(table[i], view, op=op,
+                                                    wmode=wmode))
+            plain += _median_ms(lambda: P.pull_reduce2_plain(
+                table[i], view, op=op, wmode=wmode), reps=5)
+        k3["compact_max_rel_err"] = max(k3["compact_max_rel_err"], rel)
+        # ids and weights an edge; offsets, table and output a shard
+        k3[f"compact_{name}_bound_ms"] = sum(
+            bound(pull_bytes(v.num_edges, v.v_pad, 2, edge_streams=2)
+                  + 4 * v.n_values, v.num_edges)["bound_ms"]
+            for v in views.views)
+        k3[f"compact_{name}_ms"] = ms
+        k3[f"compact_{name}_plain_ms"] = plain
+        print(f"[sharded] K3 {name} on the {len(views.views)} compact "
+              f"tables ({views.src_pad} values over {views.dst_pad} rows "
+              f"each): bitwise over two launches, max rel err {rel:.3e} "
+              f"against the plain version, {ms:.4f} ms vs plain "
+              f"{plain:.4f} ms, bound {k3[f'compact_{name}_bound_ms']:.4f} "
+              f"ms; on {card}")
+    return k1, k3
+
+
+def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
+    """Phase 31: the sharded zoo on 4 shards of the card (see the module
+    docstring). Returns ``(launches, k1, k3)``: the kernel launches of
+    every driven run, and K1's and K3's shard numbers."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch import parallel as SP
+    from gunrock_tpu_torch.models.bfs import bfs_device
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.ops import pull2 as P
+    from gunrock_tpu_torch.parallel.blocked import blocked_from_partition
+    from gunrock_tpu_torch.parallel.hits import link_sharded_device
+
+    t_phase = time.perf_counter()
+    mesh = SP.make_mesh(SHARDS, device=dev)
+    n = g.num_nodes
+    launches = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg, perm = SP.partition(g, SHARDS, method="random", with_csc=True,
+                            with_ghosts=True, with_edge_values=True,
+                            device=dev)
+    torch.cuda.synchronize()
+    print(f"[sharded] partition 'random' of rmat n{SCALE} e{EDGE_FACTOR} "
+          f"into {SHARDS} shards of {dev} (with_csc, with_ghosts, "
+          f"with_edge_values): {time.perf_counter() - t0:.3f} s; S "
+          f"{pg.shard_size}, e_shard_pad {pg.e_shard_pad}, ghost_cap "
+          f"{pg.ghost_cap}, fwd_ghost_cap {pg.fwd_ghost_cap}; on {card}")
+    t0 = time.perf_counter()
+    V = pg.v_global_pad
+    src_new = int(perm[src])
+    vmask = np.zeros(V, bool)
+    vmask[perm] = True
+    vmask = torch.from_numpy(vmask).to(dev)
+    out_deg = np.zeros(V, np.float32)
+    out_deg[perm] = np.diff(g.row_offsets).astype(np.float32)
+    out_deg = torch.from_numpy(out_deg).to(dev)
+    inv_deg = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1.0), 0.0)
+    glob = blocked_from_partition(pg)
+    compact = {"sum_mul": blocked_from_partition(
+        pg, compact=True, edge_weight=lambda sg, dl, i: inv_deg[sg]),
+        "min_add": blocked_from_partition(pg, compact=True,
+                                          edge_weight="csc")}
+    torch.cuda.synchronize()
+    print(f"[sharded] shard views (global, compact with 1/outdeg, compact "
+          f"with the weights): {time.perf_counter() - t0:.3f} s")
+
+    # DO-BFS through K1, and non-DO BFS, with predecessors.
+    (lab, preds, iters, _, ovf, comm, trace), ms, run = _shard_run(
+        K, launches, lambda: SP.bfs_sharded_device(
+            pg, src_new, mesh=mesh, mark_preds=True,
+            direction_optimized=True, blocked=glob))
+    _shard_report("DO-BFS (K1 a shard a pull)", ms, iters, float(comm), run,
+                  card)
+    pulls = [d + 1 for d in range(iters) if trace[d] == 1]
+    print(f"[sharded] DO-BFS direction trace {trace[:iters].tolist()}")
+    if ovf or not pulls or run["pull_reached_words"] != SHARDS * len(pulls):
+        raise AssertionError(f"sharded DO-BFS: {run['pull_reached_words']} "
+                             f"K1 launches for pull levels {pulls}")
+    labels_do = _old_ids(perm, lab, n)
+    if not np.array_equal(labels_do, bfs_labels):
+        raise AssertionError("sharded DO-BFS labels differ from phase 3's")
+    check_preds(g, src, labels_do, _old_preds(perm, preds, n))
+    lab_new = lab
+    (lab, preds, iters, _, ovf, comm, _), ms, run = _shard_run(
+        K, launches, lambda: SP.bfs_sharded_device(pg, src_new, mesh=mesh,
+                                                   mark_preds=True))
+    _shard_report("non-DO BFS", ms, iters, float(comm), run, card)
+    labels = _old_ids(perm, lab, n)
+    if ovf or not np.array_equal(labels, bfs_labels):
+        raise AssertionError("sharded BFS labels differ from phase 3's")
+    check_preds(g, src, labels, _old_preds(perm, preds, n))
+    print("[sharded] both BFS runs: labels equal phase 3's (scipy's "
+          "depths), predecessors valid")
+
+    # PageRank through K3 sum/mul, 20 iterations at threshold 0.
+    (rank, iters), ms, run = _shard_run(
+        K, launches, lambda: SP.pagerank_sharded_device(
+            pg, mesh=mesh, out_degrees_new=out_deg, vmask_new=vmask,
+            max_iters=PR_ITERS, threshold=0.0, blocked=compact["sum_mul"]))
+    step_bytes = SHARDS * (SHARDS - 1) * pg.ghost_cap * 4
+    _shard_report("PageRank (K3 sum a shard)", ms, iters, step_bytes * iters,
+                  run, card)
+    if run["pull_reduce2"] != SHARDS * iters:
+        raise AssertionError("sharded PageRank: K3 not launched once a "
+                             "shard an iteration")
+    one = gtt.pagerank(g, max_iters=PR_ITERS, threshold=0.0, device=dev)
+    check_close("sharded pagerank vs single-card loop route",
+                _old_ids(perm, rank, n), one.ranks, rtol=1e-4, atol=0.0)
+    pr_table = SP.ghost_exchange(rank.view(SHARDS, -1), pg.ghost_send_idx)
+
+    # SSSP near-far with the pull-relax through K3 min/add.
+    delta = 32.0 * float(np.mean(g.edge_values))
+    (dist_new, iters, ovf, comm), ms, run = _shard_run(
+        K, launches, lambda: SP.sssp_sharded_device(
+            pg, src_new, mesh=mesh, mode="nearfar", delta=delta,
+            blocked=compact["min_add"]))
+    _shard_report("SSSP near-far (K3 min a shard a pull)", ms, iters,
+                  float(comm), run, card)
+    if ovf or run["pull_reduce2"] <= 0 or run["pull_reduce2"] % SHARDS:
+        raise AssertionError(f"sharded SSSP: {run['pull_reduce2']} K3 "
+                             "launches")
+    ref = dist[:n].cpu().numpy()
+    if not np.array_equal(_old_ids(perm, dist_new, n), ref):
+        raise AssertionError("sharded SSSP distances differ from phase "
+                             "11's")
+    print(f"[sharded] SSSP distances bitwise equal phase 11's (Dijkstra "
+          f"within rtol 1e-5); {run['pull_reduce2'] // SHARDS} pull "
+          f"supersteps")
+    frontier = (torch.rand(V, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED)) < 0.3) & vmask
+    sssp_table = SP.ghost_exchange(
+        torch.where(frontier, dist_new, float("inf")).view(SHARDS, -1),
+        pg.ghost_send_idx)
+
+    # CC, BC from the hub, HITS and SALSA.
+    (comp, iters), ms, run = _shard_run(
+        K, launches, lambda: SP.cc_sharded_device(pg, mesh=mesh,
+                                                  vmask_new=vmask))
+    _shard_report("CC", ms, iters, SHARDS * (SHARDS - 1) * pg.fwd_ghost_cap
+                  * 4 * iters, run, card)
+    inv = np.zeros(V, np.int64)
+    inv[perm] = np.arange(n)
+    rep = inv[_old_ids(perm, comp, n)]
+    mins = np.full(n, np.iinfo(np.int64).max)
+    np.minimum.at(mins, rep, np.arange(n))
+    one = gtt.cc(g, device=dev)
+    if not np.array_equal(mins[rep].astype(np.int32), one.components):
+        raise AssertionError("sharded CC differs from the single-card CC")
+    (bcv, sig, blab, depth), ms, run = _shard_run(
+        K, launches, lambda: SP.bc_sharded_device(pg, src_new, mesh=mesh))
+    # BC's exchanges: a label table a BFS level and a sigma table a
+    # forward level (in-edge ghosts), a delta table a backward level
+    # (out-edge ghosts), and the fixed labels and sigmas once.
+    _shard_report("BC from the hub", ms, 3 * depth, SHARDS * (SHARDS - 1)
+                  * 4 * ((2 * depth + 1) * pg.ghost_cap
+                         + (depth + 2) * pg.fwd_ghost_cap), run, card)
+    one = gtt.bc(g, src, device=dev)
+    if not np.array_equal(_old_ids(perm, blab, n), one.labels):
+        raise AssertionError("sharded BC labels differ")
+    check_close("sharded bc sigma vs single card", _old_ids(perm, sig, n),
+                one.sigmas, rtol=1e-4, atol=0.0)
+    check_close("sharded bc vs single card", 0.5 * _old_ids(perm, bcv, n),
+                one.bc_values, rtol=1e-3, atol=1e-3)
+    for kind, atol in (("hits", 1e-4), ("salsa", 1e-5)):
+        (hub, auth), ms, run = _shard_run(
+            K, launches, lambda: link_sharded_device(
+                pg, kind, vmask_new=vmask, max_iters=LINK_ITERS, mesh=mesh))
+        _shard_report(kind, ms, LINK_ITERS, SHARDS * (SHARDS - 1) * (
+            pg.ghost_cap + pg.fwd_ghost_cap) * 4 * LINK_ITERS, run, card)
+        one = getattr(gtt, kind)(g, max_iters=LINK_ITERS, device=dev)
+        check_close(f"sharded {kind} hubs vs single card",
+                    _old_ids(perm, hub, n), one.hubs, rtol=1e-3, atol=atol)
+        check_close(f"sharded {kind} auths vs single card",
+                    _old_ids(perm, auth, n), one.auths, rtol=1e-3,
+                    atol=atol)
+
+    # bfs_batch: 4 sources on the 4 shards, each a single-card loop.
+    rng = np.random.default_rng(SEED)
+    sources = [src] + rng.choice(np.nonzero(np.diff(g.row_offsets))[0], 3,
+                                 replace=False).tolist()
+    batch, ms, run = _shard_run(K, launches,
+                                lambda: SP.bfs_batch(g, sources, mesh=mesh))
+    _shard_report(f"bfs_batch {sources}", ms, "-", 0, run, card)
+    if not np.array_equal(batch.labels[0], bfs_labels):
+        raise AssertionError("bfs_batch's hub row differs from phase 3's")
+    for row, s in zip(batch.labels[1:], sources[1:]):
+        lab_s = SP.bfs_sharded_device(pg, int(perm[s]), mesh=mesh,
+                                      direction_optimized=True,
+                                      blocked=glob)[0]
+        if not np.array_equal(row, _old_ids(perm, lab_s, n)):
+            raise AssertionError(f"bfs_batch row of {s} differs from the "
+                                 "sharded DO-BFS")
+    print("[sharded] bfs_batch: the hub's row equals phase 3's, the others "
+          "the sharded DO-BFS's")
+
+    # The kernels at these shapes against their plain versions.
+    words = {d: K.pack_bitmask(lab_new == d - 1) for d in pulls}
+    k1, k3 = _shard_kernels(K, P, glob, compact, words,
+                            {"sum_mul": pr_table, "min_add": sssp_table},
+                            card)
+    del pg, glob, compact, pr_table, sssp_table
+    torch.cuda.empty_cache()
+    print(f"[sharded] the flagship's part: {time.perf_counter() - t_phase:.3f} "
+          f"s")
+
+    # R-MAT scale 16: WTF, TopK, TC and every partition method.
+    g16 = gtt.io.rmat(scale=SHARD_SMALL_SCALE, edge_factor=16, seed=SEED,
+                      undirected=True)
+    s16 = g16.largest_degree_vertex()
+    res, ms, run = _shard_run(K, launches, lambda: SP.wtf_sharded(
+        g16, s16, mesh=mesh))
+    _shard_report(f"wtf, rmat n{SHARD_SMALL_SCALE}", res.info["process_ms"],
+                  res.info["ppr_iterations"], res.info[
+                      "comm_bytes_per_superstep"], run, card)
+    one = gtt.wtf(g16, s16, device=dev)
+    check_close("sharded wtf ppr vs single card", res.ppr_ranks,
+                one.ppr_ranks, rtol=1e-3, atol=1e-6)
+    check_close("sharded wtf sorted scores vs single card",
+                np.sort(res.scores)[::-1], np.sort(one.scores)[::-1],
+                rtol=1e-3, atol=1e-6)
+    res, ms, run = _shard_run(K, launches, lambda: SP.topk_sharded(
+        g16, k=10, mesh=mesh))
+    _shard_report(f"topk, rmat n{SHARD_SMALL_SCALE}", res.info["process_ms"],
+                  1, res.info["comm_bytes_per_superstep"], run, card)
+    cent = np.diff(g16.row_offsets) + np.bincount(g16.col_indices,
+                                                  minlength=g16.num_nodes)
+    if not (np.array_equal(res.centralities, np.sort(cent)[::-1][:10])
+            and np.array_equal(cent[res.node_ids], res.centralities)):
+        raise AssertionError("sharded topk differs from numpy's degrees")
+    res, ms, run = _shard_run(K, launches, lambda: SP.tc_sharded(
+        g16, mesh=mesh))
+    _shard_report(f"tc, rmat n{SHARD_SMALL_SCALE}, {res.info['num_chunks']} "
+                  f"chunks", res.info["process_ms"], res.info["num_chunks"],
+                  0, run, card)
+    one = gtt.tc(g16, device=dev)
+    if res.total != one.total or not np.array_equal(res.vertex_counts,
+                                                    one.vertex_counts):
+        raise AssertionError("sharded tc differs from the single card")
+    print(f"[sharded] wtf, topk, tc on rmat n{SHARD_SMALL_SCALE}: equal to "
+          f"the single card ({res.total} triangles)")
+    dg16 = gtt.to_device(g16, with_csc=True, device=dev)
+    lab16 = bfs_device(dg16, s16, direction_optimized=True)[0][
+        :g16.num_nodes].cpu().numpy()
+    for method in ("static", "random", "biasrandom", "cluster", "metis", "lp",
+                   "duplicate"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pgm, pm = SP.partition(g16, SHARDS, method=method, seed=SEED,
+                               with_csc=True, device=dev)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t0
+        views = blocked_from_partition(pgm)
+        (lab, _, iters, _, _, comm, _), ms, run = _shard_run(
+            K, launches, lambda: SP.bfs_sharded_device(
+                pgm, int(pm[s16]), mesh=mesh, direction_optimized=True,
+                blocked=views))
+        cut = SP.boundary_fraction(g16, pm // pgm.shard_size)
+        print(f"[sharded] partition '{method}' of rmat n{SHARD_SMALL_SCALE}: "
+              f"{part_s:.3f} s, boundary fraction {cut:.4f}; DO-BFS process "
+              f"{ms:.3f} ms, supersteps {iters}, comm_bytes {float(comm)}, "
+              f"K1 launches {run['pull_reached_words']}; on {card}")
+        if run["pull_reached_words"] <= 0 or not np.array_equal(
+                _old_ids(pm, lab, g16.num_nodes), lab16):
+            raise AssertionError(f"sharded DO-BFS on the '{method}' "
+                                 "partition differs or launched no K1")
+    print(f"[sharded] phase 31 in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches {launches}; on {card}")
+    return launches, k1, k3
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2565,58 +2965,69 @@ def main() -> int:
     # 30. The C ABI on the card, and rmat_device.
     phase_capi(gtt, g, src, res.labels, card)
 
+    # 31. The sharded zoo on 4 shards of the card.
+    sh, k1_shard, k3_compact = phase_sharded(gtt, g, src, res.labels, dist,
+                                             card, dev)
+
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
     sssp_source = "gunrock_tpu_torch/csrc/sssp_kernels.cu"
     print(json.dumps({"kernels": [
         {"name": "pull_reached_words", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
-         "launches": launches["pull_reached_words"], "max_abs_err": k1_err,
+         "launches": launches["pull_reached_words"]
+         + sh["pull_reached_words"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": None,
-         "device_ms": k1_device, **k1_work},
+         "device_ms": k1_device, **k1_work, **k1_shard},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
          "launches": launches["bitmask_gather"]
-         + s64.get("bitmask_gather", 0), **k2},
+         + s64.get("bitmask_gather", 0) + sh["bitmask_gather"], **k2},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
          "launches": loop_launches["pull_reduce2"] + link_launches
          + sssp_launches["pull_reduce2"] + bc_launches["pull_reduce2"]
          + cc_launches["pull_reduce2"] + wtf_launches
-         + s64.get("pull_reduce2", 0), **k3},
+         + s64.get("pull_reduce2", 0) + sh["pull_reduce2"], **k3,
+         **k3_compact},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
-         "launches": power_launches["pull_power_iters"], **k4},
+         "launches": power_launches["pull_power_iters"]
+         + sh["pull_power_iters"], **k4},
         {"name": "sample_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:594",
          "launches": sssp_launches["sample_sorted"]
          + sssp_launches["sample_sorted2"] + bc_launches["sample_sorted"]
          + carry_launches + s64.get("sample_sorted", 0)
-         + s64.get("sample_sorted2", 0),
+         + s64.get("sample_sorted2", 0) + sh["sample_sorted"]
+         + sh["sample_sorted2"],
          **sk["sample_sorted"]},
         {"name": "pull_min_sweeps", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:323",
          "launches": sssp_launches["pull_min_sweeps"]
-         + cc_launches["pull_min_sweeps"], **sk["pull_min_sweeps"]},
+         + cc_launches["pull_min_sweeps"] + sh["pull_min_sweeps"],
+         **sk["pull_min_sweeps"]},
         {"name": "reduce_by_dst_sorted", "route": "cuda",
          "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:949",
          "launches": sssp_launches["reduce_by_dst_sorted"]
          + bc_launches["reduce_by_dst_sorted"]
-         + s64.get("reduce_by_dst_sorted", 0),
+         + s64.get("reduce_by_dst_sorted", 0) + sh["reduce_by_dst_sorted"],
          **sk["reduce_by_dst_sorted"]},
         {"name": "scatter_sorted", "route": "cuda", "source": sssp_source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:1151",
          "launches": sssp_launches["scatter_sorted"]
-         + bc_launches["scatter_sorted"] + s64.get("scatter_sorted", 0),
+         + bc_launches["scatter_sorted"] + s64.get("scatter_sorted", 0)
+         + sh["scatter_sorted"],
          **sk["scatter_sorted"]},
         {"name": "brandes_levels", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:895",
-         "launches": bc_launches["brandes_levels"], **k9},
+         "launches": bc_launches["brandes_levels"]
+         + sh["brandes_levels"], **k9},
         {"name": "bitmask_gather_cumsum", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:829",
          "launches": k10_launches + s64["bitmask_gather_cumsum"]
-         + ring_k10, **k10},
+         + ring_k10 + sh["bitmask_gather_cumsum"], **k10},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,13 @@ against the in-package numpy oracle with the JAX CLI's tolerances
 (skipped by ``--quick``) -> print CORRECT/INCORRECT -> write the Info
 JSON run record to ``--jsonfile/--jsondir``. Ported so far: ``bfs``,
 ``sssp``, ``pr``/``pagerank``, ``hits``, ``salsa``, ``bc``, ``cc``,
-``wtf``, ``topk`` and ``tc`` (checked against ``cpu_tc``); the shard
-flags are not. ``--random-edge-values`` gives a market graph weights
+``wtf``, ``topk`` and ``tc`` (checked against ``cpu_tc``), each also
+sharded: ``--num-shards=N`` (0, the default, runs the single-card
+path) routes every primitive through its sharded path in
+``gunrock_tpu_torch.parallel`` on ``N`` shards of ``--device``, with
+``--partition-method`` and ``--partition-seed``, as the JAX CLI routes
+them (its multi-chip flags; the reference's ``--device=0,0`` trick).
+``--random-edge-values`` gives a market graph weights
 seeded by ``--edge-value-seed`` and an R-MAT graph weights seeded by
 ``--rmat_seed``, as the JAX CLI's loader does; ``sssp`` gives a graph
 still without edge values ``random_edge_values(seed=--edge-value-seed)``
@@ -110,6 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--jsondir", default=None)
     r.add_argument("--seed", type=int, default=0)
 
+    m = p.add_argument_group("multi-chip")
+    m.add_argument("--num-shards", type=int, default=0,
+                   help="shard across N shards of --device (reference "
+                        "--device list; 0 = single card)")
+    m.add_argument("--partition-method", default="random",
+                   choices=("random", "biasrandom", "cluster", "static",
+                            "metis", "duplicate"))
+    m.add_argument("--partition-seed", type=int, default=0)
+
     a = p.add_argument_group("primitive options")
     a.add_argument("--mark-pred", action="store_true",
                    help="BFS MARK_PREDECESSORS / SSSP MARK_PATHS")
@@ -183,13 +197,25 @@ def _report(ok: bool, label: str, quiet: bool) -> bool:
     return ok
 
 
+def _shards(args) -> dict:
+    """The sharded entry points' partition and device arguments."""
+    return dict(num_shards=args.num_shards,
+                partition_method=args.partition_method,
+                seed=args.partition_seed, device=args.device)
+
+
 def _run_bfs(args, g, src):
-    from .models.bfs import bfs
-    res = bfs(g, src, mark_preds=args.mark_pred,
-              direction_optimized=args.direction_optimized,
-              alpha=args.do_a, beta=args.do_b,
-              queue_sizing=args.queue_sizing, idempotence=args.idempotence,
-              instrumented=args.instrumented, device=args.device)
+    if args.num_shards:
+        from .parallel.bfs import bfs_sharded
+        res = bfs_sharded(g, src, mark_preds=args.mark_pred, **_shards(args))
+    else:
+        from .models.bfs import bfs
+        res = bfs(g, src, mark_preds=args.mark_pred,
+                  direction_optimized=args.direction_optimized,
+                  alpha=args.do_a, beta=args.do_b,
+                  queue_sizing=args.queue_sizing,
+                  idempotence=args.idempotence,
+                  instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
         ok = _report(bool(np.array_equal(res.labels, oracle.cpu_bfs(g, src))),
@@ -198,13 +224,18 @@ def _run_bfs(args, g, src):
 
 
 def _run_sssp(args, g, src):
-    from .models.sssp import sssp
     if g.edge_values is None:
         g.random_edge_values(seed=args.edge_value_seed)
-    res = sssp(g, src, mark_preds=args.mark_pred, mode=args.mode,
-               delta_factor=args.delta_factor,
-               queue_sizing=args.queue_sizing,
-               instrumented=args.instrumented, device=args.device)
+    if args.num_shards:
+        from .parallel.sssp import sssp_sharded
+        res = sssp_sharded(g, src, mode=args.mode,
+                           delta_factor=args.delta_factor, **_shards(args))
+    else:
+        from .models.sssp import sssp
+        res = sssp(g, src, mark_preds=args.mark_pred, mode=args.mode,
+                   delta_factor=args.delta_factor,
+                   queue_sizing=args.queue_sizing,
+                   instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
         ref = oracle.cpu_sssp(g, src)
@@ -216,13 +247,18 @@ def _run_sssp(args, g, src):
 def _run_pr(args, g, src):
     from .graph.device import resolve_device, to_device
     from .models.pr import pagerank
-    graph = g
-    if resolve_device(args.device).type == "cuda":
-        graph = to_device(g, with_csc=True, with_blocked_values=True,
-                          device=args.device)
-    res = pagerank(graph, damping=0.85, threshold=args.error,
-                   max_iters=args.max_iter, normalized=args.normalized,
-                   instrumented=args.instrumented, device=args.device)
+    if args.num_shards:
+        from .parallel.pr import pagerank_sharded
+        res = pagerank_sharded(g, damping=0.85, max_iters=args.max_iter,
+                               **_shards(args))
+    else:
+        graph = g
+        if resolve_device(args.device).type == "cuda":
+            graph = to_device(g, with_csc=True, with_blocked_values=True,
+                              device=args.device)
+        res = pagerank(graph, damping=0.85, threshold=args.error,
+                       max_iters=args.max_iter, normalized=args.normalized,
+                       instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
         ref = oracle.cpu_pagerank(g, 0.85, args.max_iter, args.error,
@@ -233,8 +269,12 @@ def _run_pr(args, g, src):
 
 
 def _run_hits(args, g, src):
-    from .models.hits import hits
-    res = hits(g, max_iters=args.max_iter, device=args.device)
+    if args.num_shards:
+        from .parallel.hits import hits_sharded
+        res = hits_sharded(g, max_iters=args.max_iter, **_shards(args))
+    else:
+        from .models.hits import hits
+        res = hits(g, max_iters=args.max_iter, device=args.device)
     ok = True
     if not args.quick:
         hub, auth = oracle.cpu_hits(g, args.max_iter)
@@ -245,8 +285,12 @@ def _run_hits(args, g, src):
 
 
 def _run_salsa(args, g, src):
-    from .models.salsa import salsa
-    res = salsa(g, max_iters=args.max_iter, device=args.device)
+    if args.num_shards:
+        from .parallel.hits import salsa_sharded
+        res = salsa_sharded(g, max_iters=args.max_iter, **_shards(args))
+    else:
+        from .models.salsa import salsa
+        res = salsa(g, max_iters=args.max_iter, device=args.device)
     ok = True
     if not args.quick:
         hub, auth = oracle.cpu_salsa(g, args.max_iter)
@@ -259,11 +303,16 @@ def _run_salsa(args, g, src):
 def _run_bc(args, g, src):
     from .graph.device import resolve_device, to_device
     from .models.bc import bc
-    graph = g
-    if resolve_device(args.device).type == "cuda":
-        graph = to_device(g, with_blocked_values=True, device=args.device)
-    res = bc(graph, src, queue_sizing=args.queue_sizing,
-             instrumented=args.instrumented, device=args.device)
+    if args.num_shards:
+        from .parallel.bc import bc_sharded
+        res = bc_sharded(g, src, **_shards(args))
+    else:
+        graph = g
+        if resolve_device(args.device).type == "cuda":
+            graph = to_device(g, with_blocked_values=True,
+                              device=args.device)
+        res = bc(graph, src, queue_sizing=args.queue_sizing,
+                 instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
         ref = oracle.cpu_bc(g, src)
@@ -275,11 +324,15 @@ def _run_bc(args, g, src):
 def _run_cc(args, g, src):
     from .graph.device import resolve_device, to_device
     from .models.cc import _is_symmetric, cc
-    graph = g
-    if resolve_device(args.device).type == "cuda" and _is_symmetric(g):
-        graph = to_device(g, with_edge_src=True, with_blocked_values=True,
-                          device=args.device)
-    res = cc(graph, instrumented=args.instrumented, device=args.device)
+    if args.num_shards:
+        from .parallel.cc import cc_sharded
+        res = cc_sharded(g, **_shards(args))
+    else:
+        graph = g
+        if resolve_device(args.device).type == "cuda" and _is_symmetric(g):
+            graph = to_device(g, with_edge_src=True,
+                              with_blocked_values=True, device=args.device)
+        res = cc(graph, instrumented=args.instrumented, device=args.device)
     ok = True
     if not args.quick:
         # Component ids are representatives: compare partitions.
@@ -292,9 +345,14 @@ def _run_cc(args, g, src):
 
 
 def _run_wtf(args, g, src):
-    from .models.wtf import wtf
-    res = wtf(g, src, alpha=args.alpha, max_iters=args.max_iter,
-              device=args.device)
+    if args.num_shards:
+        from .parallel.wtf import wtf_sharded
+        res = wtf_sharded(g, src, alpha=args.alpha, max_iters=args.max_iter,
+                          **_shards(args))
+    else:
+        from .models.wtf import wtf
+        res = wtf(g, src, alpha=args.alpha, max_iters=args.max_iter,
+                  device=args.device)
     ok = True
     if not args.quick:
         ref, ppr = oracle.cpu_wtf(g, src, alpha=args.alpha,
@@ -311,8 +369,12 @@ def _run_wtf(args, g, src):
 
 
 def _run_topk(args, g, src):
-    from .models.topk import topk
-    res = topk(g, k=args.top_nodes, device=args.device)
+    if args.num_shards:
+        from .parallel.topk import topk_sharded
+        res = topk_sharded(g, k=args.top_nodes, **_shards(args))
+    else:
+        from .models.topk import topk
+        res = topk(g, k=args.top_nodes, device=args.device)
     ok = True
     if not args.quick:
         cent = g.out_degrees + g.csc().out_degrees
@@ -323,8 +385,12 @@ def _run_topk(args, g, src):
 
 
 def _run_tc(args, g, src):
-    from .models.tc import tc
-    res = tc(g, device=args.device)
+    if args.num_shards:
+        from .parallel.tc import tc_sharded
+        res = tc_sharded(g, num_shards=args.num_shards, device=args.device)
+    else:
+        from .models.tc import tc
+        res = tc(g, device=args.device)
     ok = True
     if not args.quick:
         ok = _report(res.total == oracle.cpu_tc(g), "tc", args.quiet)

@@ -216,13 +216,16 @@ struct PullArgs {
   const float* weights;
   int64_t num_edges;
   int64_t rows;             // v_pad
+  int64_t n_values;         // length of values (and of per-source
+                            // weights): rows, or more for a shard's
+                            // compact table (K3)
   int op, fn, wkind;
   int32_t* tile_rows;       // (ntiles + 1,) scratch: row of each tile's
                             // first edge, then rows
   float* rowval;            // (rows,) scratch
   float* head;              // (ntiles,) scratch
   float* tail;              // (ntiles,) scratch
-  float* vscratch;          // (rows,) scratch: folded per-source values
+  float* vscratch;          // (n_values,) scratch: folded per-source values
 };
 
 // A round of a gated pass (K6, K9).
@@ -258,11 +261,12 @@ __device__ __forceinline__ float apply_fn(int fn, float x, float w) {
   }
 }
 
-// vscratch[u] = f(values[u], weights[u]) for per-source weights.
+// vscratch[u] = f(values[u], weights[u]) for per-source weights, over
+// the whole value table.
 __global__ void fold_per_source_kernel(PullArgs a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       u < a.rows; u += stride) {
+       u < a.n_values; u += stride) {
     a.vscratch[u] = apply_fn(a.fn, __ldg(a.values + u), __ldg(a.weights + u));
   }
 }
@@ -670,7 +674,7 @@ unsigned int blocks_for(int64_t threads) {
 }
 
 bool valid_args(const PullArgs& a, int tile) {
-  return tile == kTile && a.rows > 0 &&
+  return tile == kTile && a.rows > 0 && a.n_values > 0 &&
          (a.op == kSum || a.op == kMin) && a.fn >= kNone && a.fn <= kIncr &&
          a.wkind >= kNoWeights && a.wkind <= kPerSource &&
          ((a.fn == kAdd || a.fn == kMul) == (a.wkind != kNoWeights));
@@ -743,7 +747,7 @@ unsigned int tile_blocks(int64_t num_edges) {
 // Per-source weights: fold them into vscratch and pull that with f = none.
 void fold_weights(PullArgs& a, cudaStream_t s) {
   if (a.wkind == kPerSource) {
-    fold_per_source_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a);
+    fold_per_source_kernel<<<blocks_for(a.n_values), kThreads, 0, s>>>(a);
     a.values = a.vscratch;
     a.fn = kNone;
     a.wkind = kNoWeights;
@@ -840,6 +844,7 @@ PullArgs make_args(const void* values, const void* indices,
   a.weights = (const float*)weights;
   a.num_edges = num_edges;
   a.rows = rows;
+  a.n_values = rows;
   a.op = op;
   a.fn = fn;
   a.wkind = wkind;
@@ -855,19 +860,22 @@ PullArgs make_args(const void* values, const void* indices,
 
 extern "C" {
 
-// K3. tile: kTile (the wrapper's PULL_TILE). Scratch: tile_rows
-// (ntiles + 1,) int32; rowval and vscratch (rows,), head and tail
-// (ntiles,) float32, with ntiles = ceil(num_edges / tile). init may be
-// null.
+// K3. tile: kTile (the wrapper's PULL_TILE). values (and per-source
+// weights) hold n_values entries: rows for a graph, S + p * ghost_cap
+// for a shard's compact table, whose ghost slots no row owns. Scratch:
+// tile_rows (ntiles + 1,) int32; rowval (rows,), vscratch (n_values,),
+// head and tail (ntiles,) float32, with ntiles = ceil(num_edges / tile).
+// init may be null.
 int gr_pull_reduce(const void* values, const void* indices,
                    const void* offsets, int64_t num_edges, int64_t rows,
-                   const void* weights, int wkind, int op, int fn,
-                   const void* init, int tile, void* tile_rows, void* rowval,
-                   void* head, void* tail, void* vscratch, void* out,
-                   void* stream) {
-  const PullArgs a = make_args(values, indices, offsets, num_edges, rows,
-                               weights, wkind, op, fn, tile_rows, rowval,
-                               head, tail, vscratch);
+                   int64_t n_values, const void* weights, int wkind, int op,
+                   int fn, const void* init, int tile, void* tile_rows,
+                   void* rowval, void* head, void* tail, void* vscratch,
+                   void* out, void* stream) {
+  PullArgs a = make_args(values, indices, offsets, num_edges, rows,
+                         weights, wkind, op, fn, tile_rows, rowval, head,
+                         tail, vscratch);
+  a.n_values = n_values;
   if (!valid_args(a, tile)) return (int)cudaErrorInvalidValue;
   FinishArgs f = {};
   f.init = (const float*)init;

@@ -179,6 +179,13 @@ class DeviceGraph:
         """The offsets are int64."""
         return self.row_offsets.dtype == torch.int64
 
+    @property
+    def n_values(self) -> int:
+        """Entries of the value table a pull gathers from (kernel K3):
+        one a vertex, ``v_pad``. A shard's view of a partitioned graph
+        has more (``parallel.blocked.ShardView``)."""
+        return self.v_pad
+
     def out_degrees(self) -> torch.Tensor:
         """(v_pad,) out-degree of every (padded) vertex, in the offsets'
         dtype."""

@@ -44,7 +44,7 @@ SIGNATURES = {
     "gr_pull_reached_words": "pqppqqpqpp",
     "gr_bitmask_gather": "pqpqpp",
     "gr_bitmask_gather_cumsum": "pqpqpqipp",
-    "gr_pull_reduce": "pppqqpiiipippppppp",
+    "gr_pull_reduce": "pppqqqpiiipippppppp",
     "gr_pull_power_iters": "pppppqqqpifffiippppppp",
     "gr_pull_min_sweeps": "pppppqqpiiiippppppppp",
     "gr_brandes_levels": "pppppqqiiiippppppppp",

@@ -17,6 +17,13 @@ of the source, ``graph.inv_outdeg``). The JAX package computes it on its
 TPU pull-v2 layout; here the kernels read the plain CSC (``csc_indices``
 and ``csc_offsets``) of any graph uploaded ``with_csc``.
 
+K3 also reads one shard of a partitioned graph
+(:class:`gunrock_tpu_torch.parallel.blocked.ShardView`): its rows are
+the shard's S vertices, and ``values`` is the shard's value table of
+``graph.n_values`` entries, longer than the rows where it holds the
+ghost slots of the shard's remote in-neighbours. A graph's table is its
+``v_pad`` vertices.
+
 As in :mod:`gunrock_tpu_torch.ops.kernels`, each kernel has a plain
 PyTorch version (``*_plain``), a wrapper that launches the CUDA kernel in
 ``csrc/pull_kernels.cu`` for CUDA tensors (or raises), and a launch count
@@ -87,14 +94,18 @@ def _weights(graph, wmode: str, weights: str):
     raise ValueError(f"unknown weights {weights!r}")
 
 
-def _validate(graph, op: str, values: torch.Tensor) -> None:
+def _validate(graph, op: str, values: torch.Tensor,
+              n: Optional[int] = None) -> None:
+    """Check ``op``, the CSC and that ``values`` has ``n`` entries
+    (default ``v_pad``; K3's value table has ``graph.n_values``)."""
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}")
     if not graph.has_csc:
         raise ValueError("value pulls need to_device(with_csc=True)")
-    if values.shape != (graph.v_pad,):
+    n = graph.v_pad if n is None else n
+    if values.shape != (n,):
         raise ValueError(f"values have shape {tuple(values.shape)}, "
-                         f"expected ({graph.v_pad},)")
+                         f"expected ({n},)")
 
 
 def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
@@ -104,7 +115,7 @@ def pull_reduce2_plain(values: torch.Tensor, graph, *, op: str = "sum",
     """Gather, f in float32, :func:`row_reduce_sorted` over the CSC rows
     (sums in float64, so this version is the accurate reference the
     kernel is held to; ``min`` is exact either way), then (+) ``init``."""
-    _validate(graph, op, values)
+    _validate(graph, op, values, graph.n_values)
     w, kind = _weights(graph, wmode, weights)
     src = graph.csc_indices.long()
     x = values.float()[src]
@@ -125,14 +136,15 @@ def _scratch(graph, device, *, gated: bool = False
     """K3/K4/K6/K9 scratch as one buffer of 4-byte slots, and the
     addresses the kernels take, in their order: the first row of each
     tile and one past the last (int32), per-row totals, per-tile head and
-    tail partials, and a (v_pad,) value table (the per-source values
-    folded with the ``wpr`` weights; K9's gated values), all float32;
+    tail partials, and a value table of ``graph.n_values`` (the
+    per-source values folded with the ``wpr`` weights; K9's gated
+    values), all float32;
     ``gated`` (K6, K9) adds a mark a tile (int32) and two rounds' source
     group bits (``GROUP_WORDS`` words each). One allocation a call, never
     cleared (the kernels read no slot they did not write in the same
     call); the caller holds the buffer until the launch is enqueued."""
     ntiles = -(-graph.num_edges // PULL_TILE)
-    sizes = (ntiles + 1, graph.v_pad, ntiles, ntiles, graph.v_pad)
+    sizes = (ntiles + 1, graph.v_pad, ntiles, ntiles, graph.n_values)
     if gated:
         sizes += (ntiles, 2 * GROUP_WORDS)
     buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
@@ -161,7 +173,7 @@ def _check_graph(graph, w: Optional[torch.Tensor], kind: int,
     _check("csc_offsets", offsets, device)
     if w is not None:
         _check_float("weights", w,
-                     graph.e_pad if kind == _PER_EDGE else graph.v_pad,
+                     graph.e_pad if kind == _PER_EDGE else graph.n_values,
                      device)
     return offsets
 
@@ -174,18 +186,19 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
     identity (0 for ``sum``, +inf for ``min``).
 
     Kernel K3 (replaces the Pallas ``pull_reduce2``,
-    ``gunrock_tpu/ops/pull2.py:268``). ``values`` and ``init`` are
-    (v_pad,) and cast to float32. Two launches on the same input give
-    bitwise equal output."""
+    ``gunrock_tpu/ops/pull2.py:268``, and ``pull_vertex_reduce`` over the
+    sharded layouts of ``gunrock_tpu/parallel/blocked.py``). ``values``
+    is the (graph.n_values,) table, ``init`` (v_pad,); both are cast to
+    float32. Two launches on the same input give bitwise equal output."""
     tensors = [values, graph.csc_indices] + ([] if init is None else [init])
     if not _route(*tensors):
         return pull_reduce2_plain(values, graph, op=op, wmode=wmode,
                                   init=init, weights=weights)
-    _validate(graph, op, values)
+    _validate(graph, op, values, graph.n_values)
     w, kind = _weights(graph, wmode, weights)
     dev = graph.csc_indices.device
     values = values.to(torch.float32).contiguous()
-    _check_float("values", values, graph.v_pad, dev)
+    _check_float("values", values, graph.n_values, dev)
     if init is not None:
         init = init.to(torch.float32).contiguous()
         _check_float("init", init, graph.v_pad, dev)
@@ -194,8 +207,8 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
     out = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     _launch(_build.load().gr_pull_reduce, values.data_ptr(),
             graph.csc_indices.data_ptr(), offsets.data_ptr(),
-            graph.num_edges, graph.v_pad, 0 if w is None else w.data_ptr(),
-            kind, _OPS[op], _FNS[wmode],
+            graph.num_edges, graph.v_pad, graph.n_values,
+            0 if w is None else w.data_ptr(), kind, _OPS[op], _FNS[wmode],
             0 if init is None else init.data_ptr(), PULL_TILE, *scratch,
             out.data_ptr(), device=dev)
     LAUNCHES["pull_reduce2"] += 1

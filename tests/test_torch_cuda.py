@@ -1439,3 +1439,93 @@ def test_sizet64_graph_on_cuda_equals_int32(cuda):
         K.pull_reached_words(K.pack_bitmask(torch.ones(
             d64.v_pad, dtype=torch.bool, device=cuda)),
             dataclasses.replace(d64, num_edges=2**31))
+
+
+def _sharded_graph(cuda, scale=12):
+    """R-MAT at ``scale`` with weights, partitioned into 4 shards of the
+    card with the CSC, the ghost tables and the edge values."""
+    from gunrock_tpu_torch.parallel import partition
+    g = gtt.io.rmat(scale=scale, edge_factor=16, seed=3, undirected=True)
+    g.random_edge_values(seed=4)
+    pg, perm = partition(g, 4, with_csc=True, with_ghosts=True,
+                         with_edge_values=True, device=cuda)
+    return g, pg, perm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,wmode", [("min", "add"), ("sum", "mul"),
+                                      ("sum", "none")])
+def test_pull_reduce2_compact_table_equals_plain(cuda, op, wmode):
+    """K3 over a shard's compact table (S + p * ghost_cap values, S
+    rows): ``min`` bitwise, sums within rtol 1e-5 of the float64-summing
+    plain version, bitwise over two launches, one launch a call."""
+    from gunrock_tpu_torch.ops.pull2 import pull_reduce2, pull_reduce2_plain
+    from gunrock_tpu_torch.parallel.blocked import blocked_from_partition
+    _, pg, _ = _sharded_graph(cuda)
+    blk = blocked_from_partition(pg, compact=True, edge_weight="csc")
+    assert blk.src_pad > blk.dst_pad
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for view in blk.views:
+        table = torch.rand(view.n_values, device=cuda, generator=gen)
+        before = K.LAUNCHES["pull_reduce2"]
+        got = pull_reduce2(table, view, op=op, wmode=wmode)
+        again = pull_reduce2(table, view, op=op, wmode=wmode)
+        want = pull_reduce2_plain(table, view, op=op, wmode=wmode)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["pull_reduce2"] == before + 2
+        assert torch.equal(got, again)
+        if op == "min":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pull_reached_words_on_a_shard_view_equals_plain(cuda):
+    """K1 over each shard's global view, the gathered frontier words of
+    every shard, at three densities: exact, one launch a shard."""
+    from gunrock_tpu_torch.parallel.blocked import blocked_from_partition
+    _, pg, _ = _sharded_graph(cuda)
+    blk = blocked_from_partition(pg)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for density in (0.001, 0.1, 1.0):
+        words = K.pack_bitmask(torch.rand(pg.v_global_pad, device=cuda,
+                                          generator=gen) < density)
+        for view in blk.views:
+            before = K.LAUNCHES["pull_reached_words"]
+            got = K.pull_reached_words(words, view)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["pull_reached_words"] == before + 1
+            assert torch.equal(got, K.pull_reached_words_plain(words, view))
+
+
+@pytest.mark.cuda
+def test_sharded_bfs_sssp_pagerank_on_cuda_equal_single_card(cuda):
+    """Sharded DO-BFS (K1 a shard), SSSP near-far with the pull-relax
+    (K3 min) and PageRank (K3 sum) on 4 shards of the card, against the
+    single-card port: labels and distances equal, ranks within the
+    single-card tests' rtol 1e-4, atol 2e-7; K1 and K3 launched."""
+    from gunrock_tpu_torch.parallel import (bfs_sharded, pagerank_sharded,
+                                            sssp_sharded)
+    g, _, _ = _sharded_graph(cuda)
+    src = g.largest_degree_vertex()
+    K.reset_launch_counts()
+    sb = bfs_sharded(g, src, num_shards=4, direction_optimized=True,
+                     mark_preds=True)
+    assert K.LAUNCHES["pull_reached_words"] >= 4
+    assert sb.info["blocked_kernels"] and sb.info["pull_iterations"] >= 1
+    one = gtt.bfs(g, src, direction_optimized=True, device="cuda")
+    assert np.array_equal(sb.labels, one.labels)
+    K.reset_launch_counts()
+    ss = sssp_sharded(g, src, num_shards=4, mode="nearfar", pull_frac=4)
+    assert K.LAUNCHES["pull_reduce2"] >= 4
+    one = gtt.sssp(g, src, mode="nearfar", device="cuda")
+    assert np.array_equal(ss.distances, one.distances)
+    K.reset_launch_counts()
+    sp = pagerank_sharded(g, num_shards=4)
+    assert K.LAUNCHES["pull_reduce2"] == 4 * sp.info["num_iterations"]
+    one = gtt.pagerank(g, device="cuda")
+    np.testing.assert_allclose(sp.ranks, one.ranks, rtol=1e-4, atol=2e-7)
+    with pytest.raises(NotImplementedError):
+        from gunrock_tpu_torch.parallel import make_mesh
+        make_mesh(device=["cuda:0", "cpu"])

@@ -168,6 +168,7 @@ def _port_sources():
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
     yield os.path.join(_REPO, "examples", "simple_example_torch.py")
+    yield os.path.join(_REPO, "examples", "sharded_example_torch.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -178,16 +179,22 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of gunrock_tpu_torch, chip_smoke.py and the example's
-    twin, parsed: no import of jax or gunrock_tpu, at any depth of the
-    file."""
+    """Every module of gunrock_tpu_torch (the sharded ``parallel/`` and
+    ``tools/dryrun_multichip.py`` among them), chip_smoke.py and the
+    examples' twins, parsed: no import of jax or gunrock_tpu, at any
+    depth of the file."""
     assert not _forbidden("gunrock_tpu_torch") and _forbidden("jax.numpy")
     checked, bad = 0, []
     paths = {os.path.relpath(p, _REPO) for p in _port_sources()}
     for module in ("capi.py", "utils/track.py", "utils/modularity.py",
                    "utils/baseline.py", "tools/convert.py",
-                   "io/generators.py"):
+                   "io/generators.py", "tools/dryrun_multichip.py",
+                   *(f"parallel/{m}.py" for m in (
+                       "__init__", "mesh", "partition", "comm", "blocked",
+                       "bfs", "pr", "sssp", "cc", "bc", "hits", "replicate",
+                       "wtf", "topk", "tc"))):
         assert os.path.join("gunrock_tpu_torch", module) in paths, module
+    assert os.path.join("examples", "sharded_example_torch.py") in paths
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
