@@ -78,8 +78,9 @@ script exits non-zero:
     times; for K5, K7, K8 and ``index_reduce_`` also the device time a
     call. K6's tiles reduced and active edges a sweep, by its skip
     rule, and its bound over those edges beside the full-sweep one.
-15. Timing, best of 5 after a warm-up: SSSP on the flagship (sweep route,
-    near-far, near-far fused), SSSP on the grid, non-DO BFS on the grid.
+15. Timing, best of 5 (3 on the grid) after a warm-up: SSSP on the
+    flagship (sweep route, near-far, near-far fused), SSSP on the grid,
+    non-DO BFS on the grid.
 
 16. BC, kernel-C route: ``gunrock_tpu_torch.bc`` on phase 11's graph
     (undirected, ``has_pull2``) from the largest-degree vertex, through
@@ -114,10 +115,11 @@ script exits non-zero:
     level of phase 21 and at one length that is not a multiple of 128;
     median times, the bound, and ``torch.cumsum`` over precomputed hits
     as a reference for a later redesign.
-23. Timing, best of 5 after a warm-up: DO-BFS on the flagship uploaded
-    with the blocked CSC (K1; also with ``GUNROCK_BFS_DEEP=0``, where the
-    tail level is a push) and without (K10); DO and non-DO BFS on the
-    grid with the deep micro-loop and with ``GUNROCK_BFS_DEEP=0``.
+23. Timing, best of 5 (3 on the grid) after a warm-up: DO-BFS on the
+    flagship uploaded with the blocked CSC (K1; also with
+    ``GUNROCK_BFS_DEEP=0``, where the tail level is a push) and without
+    (K10); DO and non-DO BFS on the grid with the deep micro-loop and
+    with ``GUNROCK_BFS_DEEP=0``.
 
 24. Above the shared-memory cap: R-MAT scale 21, edge factor 4, whose
     frontier masks (65,536 words) are larger than K10 holds in shared
@@ -167,11 +169,13 @@ script exits non-zero:
     ``with_csc, with_edge_values, with_edge_src`` with ``sizet64=True``
     (int64 offsets checked) and with int32 offsets. DO-BFS with
     predecessors (K10, K2), SSSP near-far and fused (K5, K7, K8), CC,
-    PageRank's loop route (K3 over the narrowed row bounds) and BC,
-    hybrid and fused (K5, K7, K8), on both uploads: every result bitwise
-    equal, or, where two runs on the int32 upload differ too (atomic
-    sums), within section 2's tolerance of ``PERF.md``. DO-BFS best of 5
-    on both uploads, in turns.
+    PageRank's loop route (K3, its int64 instance on the sizet64 upload)
+    and BC, hybrid and fused (K5, K7, K8), on both uploads: every result
+    bitwise equal, or, where two runs on the int32 upload differ too
+    (atomic sums), within section 2's tolerance of ``PERF.md``. DO-BFS
+    best of 5 on both uploads, in turns; K3 sum/none through its int64
+    instance (the sizet64 upload) and its int32 one, bitwise equal, the
+    median of 20 calls 5 times in turns.
 29. A graph past 2^31 edges: the circulant C(2^16; 1..2^14) (every
     vertex joined to the 2^14 on each side on the ring: 2^31 edges,
     degree 32,768), built in numpy without a sort (its CSC is its CSR)
@@ -185,7 +189,19 @@ script exits non-zero:
     running sum. Prints the host's memory (``free -g``), the host build,
     ``from_numpy``'s checks and upload, peak device memory of the upload
     and of the traversal, the traversal's wall and process times by
-    level, and the card.
+    level, and the card. Then the value pulls on the same upload, K3's
+    int64 instance (``phase_ring_values``): per-edge weights 1..64 from
+    an integer mix of the unordered pair (8 GiB, one array for the CSR
+    and the CSC); K3 sum/none, sum/``mul`` and min/``add`` against its
+    plain version in 32 row chunks (min bitwise, sums rtol 1e-5, atol
+    1e-6) with its time a call and its bound; PageRank's loop route 20
+    iterations (unnormalized, every rank 1 - 0.85^21); HITS and SALSA 10
+    iterations (every score equal); WTF's PPR from 0 against a float64
+    power iteration in row chunks; SSSP near-far from 0 against the
+    shortest-path certificate checked in row chunks, with its rounds
+    that pulled through K3; CC (every label 0); BC from 0 on the hybrid
+    route against the ring's float64 prefix-sum oracle; the peak device
+    memory of each part.
 30. The C ABI and ``rmat_device``: builds the port's C shim
     (``gunrock_tpu_torch.capi.build_capi_lib``), compiles
     ``examples/capi_example_torch.c`` against it with gcc and runs it on
@@ -219,16 +235,34 @@ script exits non-zero:
     card), and the seven partition methods, each partition's seconds and
     boundary fraction and its DO-BFS through K1 equal to the single
     card's labels.
+32. The sharded zoo across processes: 4 ranks of a ``torch.distributed``
+    group, one shard a rank (``gunrock_tpu_torch.tools.shard_ranks``;
+    the kernels built before the ranks start, a deadline on the ranks).
+    NCCL, one card a rank, on a host of 4 cards; else Gloo over CUDA
+    tensors with the 4 ranks sharing the card (printed). The flagship
+    goes to the ranks as a file; the ranks run ``bfs_sharded`` (DO
+    through K1 on each rank's shard, and non-DO), ``pagerank_sharded``
+    and ``sssp_sharded`` (K3 on each rank's shard), CC, BC, HITS,
+    SALSA and ``bfs_batch`` on the partition of phase 31, WTF, TopK and
+    TC on R-MAT scale 16. Each result against phase 31's: BFS and SSSP
+    bitwise with their supersteps, overflow flags, ``comm_bytes`` and
+    direction trace, CC, TopK, TC and the batch exactly, the floats at
+    phase 31's tolerances. Each rank's K1 and K3 launches, process ms,
+    supersteps and ``comm_bytes``.
 
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K4), 7-8, 17, 25 and 28 (K3), 12, 17, 27 and 28 (K5), 12, 17 and 28
-(K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10), 28 (K2) and 31 (every
-kernel a sharded run launched: K1, K3, and K2 in ``bfs_batch``). K1's
-entry also carries ``shard_*`` (K1 on the shard views at the sharded
-DO-BFS's pull levels, summed over the levels and shards) and K3's
-``compact_*`` (K3 on the shards' compact tables, summed over the
-shards). Every kernel's entry also carries
+(K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10), 28 (K2), 29 (K3 on the
+circulant's value pulls), 31 and 32 (every kernel a sharded run
+launched, summed over the ranks in 32: K1, K3, and K2 in
+``bfs_batch``). K1's entry also carries ``shard_*`` (K1 on the shard
+views at the sharded DO-BFS's pull levels, summed over the levels and
+shards) and K3's ``compact_*`` (K3 on the shards' compact tables,
+summed over the shards), ``flagship_int32_ms`` and
+``flagship_int64_ms`` (phase 28) and ``past31_*`` (phase 29's sum/none
+over 2^31 edges: its time a call, its bound and its error). Every
+kernel's entry also carries
 ``bound_ms``, the least time the card could take for the same work at
 the H100's published rates (see
 :func:`bound`), and ``library_ms``, the time of one PyTorch call that
@@ -261,6 +295,7 @@ from unittest.mock import patch
 
 SCALE, EDGE_FACTOR, SEED = 20, 32, 1
 RUNS = 5
+GRID_RUNS = 3   # the grid's host-bound timings, 1.6-6.6 s a run
 TIMED_LAUNCHES = 20
 BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
 K10_ODD_LENGTH = 1_000_003      # a K10 length that is not a multiple of 128
@@ -863,13 +898,14 @@ def phase_value_timing(dg, card):
               f"{edges * iters / (best * 1000.0):.1f} MTEPS; on {card}")
 
 
-def best_of(fn):
-    """Best of RUNS calls of ``fn`` after a warm-up, fenced; (best, all)."""
+def best_of(fn, runs: int = RUNS):
+    """Best of ``runs`` calls of ``fn`` after a warm-up, fenced; (best,
+    all)."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1282,7 +1318,8 @@ def phase_sssp_kernels(dg, src, dist, dev):
 
 
 def phase_sssp_timing(g, src, dg, gg, dgw, card):
-    """Phase 15: best of RUNS SSSP and non-DO BFS runs after a warm-up."""
+    """Phase 15: best of RUNS SSSP and non-DO BFS runs after a warm-up
+    (GRID_RUNS on the grid)."""
     import numpy as np
     from gunrock_tpu_torch.models.bfs import bfs_device
     from gunrock_tpu_torch.models.sssp import sssp_device
@@ -1305,8 +1342,9 @@ def phase_sssp_timing(g, src, dg, gg, dgw, card):
             ("sssp grid", lambda: sssp_device(dgw, 0, mode="pull",
                                               delta=GRID_DELTA), gev),
             ("non-DO bfs grid", lambda: bfs_device(dgw, 0), gev)):
-        best, times = best_of(fn)
-        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+        runs = GRID_RUNS if "grid" in name else RUNS
+        best, times = best_of(fn, runs)
+        print(f"[timing] {name}: best {best:.3f} ms of {runs} "
               f"({', '.join(f'{t:.3f}' for t in times)}); "
               f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
               f"on {card}")
@@ -1701,7 +1739,7 @@ def phase_bfs_timing(src, edges_visited, dgb, dgk, gg, dgw, card):
     """Phase 23: best of RUNS BFS runs after a warm-up: DO-BFS on the
     flagship with the blocked CSC (K1), with and without the deep
     micro-loop, and without the blocked CSC (K10); DO and non-DO BFS on
-    the grid with and without the deep micro-loop."""
+    the grid with and without the deep micro-loop (GRID_RUNS each)."""
     from gunrock_tpu_torch.models.bfs import bfs_device
     off = {"GUNROCK_BFS_DEEP": "0"}
     for name, fn, edges, flags in (
@@ -1724,9 +1762,10 @@ def phase_bfs_timing(src, edges_visited, dgb, dgk, gg, dgw, card):
              gg.num_edges, {}),
             ("non-DO BFS grid, GUNROCK_BFS_DEEP=0",
              lambda: bfs_device(dgw, 0), gg.num_edges, off)):
+        runs = GRID_RUNS if "grid" in name else RUNS
         with patch.dict(os.environ, flags):
-            best, times = best_of(fn)
-        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
+            best, times = best_of(fn, runs)
+        print(f"[timing] {name}: best {best:.3f} ms of {runs} "
               f"({', '.join(f'{t:.3f}' for t in times)}); "
               f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
               f"on {card}")
@@ -2074,6 +2113,7 @@ def phase_sizet64(gtt, g, src, dev, card):
     from gunrock_tpu_torch.models.pr import pagerank_device
     from gunrock_tpu_torch.models.sssp import sssp_device
     from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.ops import pull2 as P
 
     kw = dict(with_csc=True, with_edge_values=True, with_edge_src=True,
               device=dev)
@@ -2157,9 +2197,31 @@ def phase_sizet64(gtt, g, src, dev, card):
         print(f"[sizet64] DO-BFS elapsed_ms best {min(ts):.3f} of {RUNS} on "
               f"the {name} upload ({', '.join(f'{t:.3f}' for t in ts)}), "
               f"in turns; on {card}")
+    # K3 sum/none through its int64 instance (the sizet64 upload's
+    # offsets as they are) and its int32 one (the int32 upload, the
+    # bounds the narrowing would give): bitwise equal, then the median
+    # of TIMED_LAUNCHES calls, RUNS times in turns.
+    vals = torch.rand(d32.v_pad, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(28))
+    if not torch.equal(P.pull_reduce2(vals, d64), P.pull_reduce2(vals, d32)):
+        raise AssertionError("K3's int64 instance differs from its int32 "
+                             "one on the flagship")
+    k3_times = {"int32": [], "int64": []}
+    for r in range(RUNS):
+        order = (("int32", d32), ("int64", d64))
+        for name, d in order if r % 2 == 0 else order[::-1]:
+            k3_times[name].append(
+                _median_ms(lambda: P.pull_reduce2(vals, d)))
+    for name, ts in k3_times.items():
+        print(f"[sizet64] K3 sum/none, {name} offsets: median "
+              f"{sorted(ts)[len(ts) // 2]:.4f} ms a call, spread "
+              f"{min(ts):.4f}..{max(ts):.4f} over {RUNS} turns of "
+              f"{TIMED_LAUNCHES} calls ({', '.join(f'{t:.4f}' for t in ts)});"
+              f" bitwise equal; on {card}")
     del d32, d64
     torch.cuda.empty_cache()
-    return launches
+    return launches, {f"flagship_{k}_ms": sorted(ts)[len(ts) // 2]
+                      for k, ts in k3_times.items()}
 
 
 def _ring_graph():
@@ -2284,9 +2346,313 @@ def phase_past_2_31(gtt, dev, card):
               f"({time.perf_counter() - t0:.3f} s); last sum {last} "
               f"({last % 2**32} hits mod 2^32)")
         del got
+    k3 = phase_ring_values(dg, dev, card)
     del dg
     torch.cuda.empty_cache()
-    return launches["bitmask_gather_cumsum"]
+    return launches["bitmask_gather_cumsum"], k3
+
+
+# Phase 29's weights: 1 + (a mix of the unordered pair {u, v}) mod 64, the
+# same for (u, v) and (v, u), and its value pulls' row chunks.
+RING_WEIGHT_SEED = 29
+RING_CHUNK_ROWS = 2048
+RING_ITERS = 20
+
+
+def _ring_weights(dg):
+    """Per-edge weights 1..64 of the circulant, made on the card a row
+    chunk at a time from an explicit integer mix of the unordered pair
+    (symmetric across the undirected pair), and their exact sum. The CSC
+    of the circulant is its CSR, edge for edge, so one array serves as
+    both edge_values and csc_edge_values."""
+    import torch
+    n = dg.num_nodes
+    off = dg.row_offsets
+    w = torch.empty(dg.e_pad, dtype=torch.float32, device=dg.device)
+    total = 0
+    for r0 in range(0, n, RING_CHUNK_ROWS):
+        r1 = min(r0 + RING_CHUNK_ROWS, n)
+        e0, e1 = int(off[r0]), int(off[r1])
+        u = torch.repeat_interleave(
+            torch.arange(r0, r1, device=dg.device), torch.diff(off[r0:r1 + 1]),
+            output_size=e1 - e0)
+        v = dg.col_indices[e0:e1].long()
+        x = (torch.minimum(u, v) * n + torch.maximum(u, v)) ^ RING_WEIGHT_SEED
+        for _ in range(2):
+            x = (((x >> 16) ^ x) * 0x45D9F3B) & 0xFFFFFFFF
+        x = (x >> 16) ^ x
+        w[e0:e1] = (1 + (x & 63)).float()
+        total += int((1 + (x & 63)).sum())
+    w[dg.num_edges:] = 0.0
+    return w, total
+
+
+def _ring_chunks(dg):
+    """Row chunks of the circulant's CSC as views K3's plain version
+    takes: ``(rows, view)`` with ``view`` a ``ShardView`` of the chunk's
+    rows (offsets rebased, its edges' sources and weights), reading the
+    whole value table."""
+    from gunrock_tpu_torch.parallel.blocked import ShardView
+    off = dg.csc_offsets
+    for r0 in range(0, dg.num_nodes, RING_CHUNK_ROWS):
+        r1 = min(r0 + RING_CHUNK_ROWS, dg.num_nodes)
+        e0, e1 = int(off[r0]), int(off[r1])
+        yield slice(r0, r1), ShardView(
+            csc_offsets=off[r0:r1 + 1] - e0,
+            csc_indices=dg.csc_indices[e0:e1],
+            csc_edge_values=None if dg.csc_edge_values is None
+            else dg.csc_edge_values[e0:e1],
+            num_edges=e1 - e0, v_pad=r1 - r0, e_pad=e1 - e0,
+            n_values=dg.v_pad)
+
+
+def _ring_pull_f64(dg, vals):
+    """Sum over each CSC row of ``vals`` at the sources, in float64, a
+    row chunk at a time (no kernel: a gather and a segmented sum)."""
+    import torch
+    from gunrock_tpu_torch.ops.segment import row_reduce_sorted
+    out = torch.zeros(dg.v_pad, dtype=torch.float64, device=dg.device)
+    for rows, view in _ring_chunks(dg):
+        out[rows] = row_reduce_sorted(vals[view.csc_indices.long()],
+                                      view.csc_offsets, op="sum")
+    return out
+
+
+def _ring_bc_oracle(n, h):
+    """Brandes from vertex 0 on C(n; 1..h), in float64 from prefix sums
+    over the ring: level 1 is ring distance 1..h, level 2 the rest;
+    sigma of a level-2 vertex is the count of level-1 vertices within h
+    of it, and the dependency of a level-1 vertex the sum of 1 / sigma
+    over the level-2 vertices within h of it. Returns (labels, sigma,
+    delta), delta 0 at the source."""
+    import numpy as np
+    v = np.arange(n)
+    d = np.minimum(v, n - v)
+    labels = np.where(d == 0, 0, np.where(d <= h, 1, 2))
+
+    def window(x):
+        """sum of x over ring positions p - h .. p + h, every p."""
+        c = np.concatenate([[0.0], np.cumsum(np.tile(x, 3))])
+        p = v + n
+        return c[p + h + 1] - c[p - h]
+
+    sigma = np.where(labels == 0, 1.0, 0.0)
+    sigma[labels == 1] = 1.0
+    sigma = np.where(labels == 2, window((labels == 1).astype(np.float64)),
+                     sigma)
+    inv = np.where(labels == 2, 1.0 / np.maximum(sigma, 1.0), 0.0)
+    delta = np.where(labels == 1, window(inv), 0.0)
+    return labels, sigma, delta
+
+
+def phase_ring_values(dg, dev, card):
+    """The rest of phase 29: the value pulls on the circulant of 2^31
+    edges, through kernel K3's int64 instance. Per-edge weights 1..64
+    (``_ring_weights``, 8 GiB); K3 sum/none, sum/mul and min/add against
+    its plain version in row chunks (min bitwise, sums at rtol 1e-5,
+    atol 1e-6, as tests/test_torch_cuda.py holds K3), with its time a
+    call and its bound; PageRank's loop route 20 iterations at threshold
+    0, unnormalized (every rank 1 - 0.85^21, rtol 1e-5); HITS and SALSA
+    10 iterations (every score equal: a vertex-transitive graph); WTF from 0, its PPR against
+    a float64 power iteration in row chunks (no K3; rtol 1e-5); SSSP
+    near-far from 0 (the certificate, checked in row chunks: no edge
+    relaxes, every reached vertex but the source has a tight in-edge,
+    the source is 0), with its rounds that pulled through K3; CC (every
+    label 0); BC from 0 on the hybrid route against ``_ring_bc_oracle``
+    (sigma rtol 1e-4, BC rtol 1e-3 atol 1e-3, PERF.md section 2). Peak
+    device memory a part. Returns K3's row additions: launches on these
+    runs and ``past31_*`` times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.models.bc import bc_device
+    from gunrock_tpu_torch.models.cc import cc_device
+    from gunrock_tpu_torch.models.hits import hits_device
+    from gunrock_tpu_torch.models.pr import pagerank_device
+    from gunrock_tpu_torch.models.salsa import salsa_device
+    from gunrock_tpu_torch.models.sssp import sssp_device
+    from gunrock_tpu_torch.models.wtf import wtf_device
+    from gunrock_tpu_torch.ops import kernels as K
+    from gunrock_tpu_torch.ops import pull2 as P
+    from gunrock_tpu_torch.ops.segment import row_reduce_sorted
+
+    n, h, e = dg.num_nodes, RING_H, dg.num_edges
+    t_phase = time.perf_counter()
+
+    def part(name):
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[2^31] {name}: peak device memory {peak:.3f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w, wsum = _ring_weights(dg)
+    # The CSC is the CSR edge for edge: one weight array serves both,
+    # and each CSR edge's source is its CSC edge's destination.
+    dg = dataclasses.replace(dg, edge_values=w, csc_edge_values=w,
+                             edge_src=dg.csc_edge_dst)
+    torch.cuda.synchronize()
+    wmin, wmax = float(w[:e].min()), float(w[:e].max())
+    print(f"[2^31] weights 1..64 made on the card in "
+          f"{time.perf_counter() - t0:.3f} s: min {wmin}, max {wmax}, mean "
+          f"{wsum / e:.4f}; K3 gets csc_offsets {dg.csc_offsets.dtype}, "
+          f"its int64 instance")
+    part("weights")
+
+    # K3 against its plain version, three modes.
+    gen = torch.Generator(device=dev).manual_seed(RING_WEIGHT_SEED)
+    vals = torch.rand(dg.v_pad, generator=gen, device=dev)
+    modes = {"sum/none": dict(op="sum", wmode="none"),
+             "sum/mul": dict(op="sum", wmode="mul"),
+             "min/add": dict(op="min", wmode="add")}
+    k3 = {}
+    for name, kw in modes.items():
+        before = K.LAUNCHES["pull_reduce2"]
+        got = P.pull_reduce2(vals, dg, **kw)
+        torch.cuda.synchronize()
+        if K.LAUNCHES["pull_reduce2"] != before + 1:
+            raise AssertionError("K3 did not launch on the circulant")
+        if not torch.equal(got, P.pull_reduce2(vals, dg, **kw)):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        t0 = time.perf_counter()
+        err = rel = 0.0
+        for rows, view in _ring_chunks(dg):
+            want = P.pull_reduce2_plain(vals, view, **kw)
+            if kw["op"] == "min":
+                if not torch.equal(got[rows], want):
+                    raise AssertionError(f"K3 {name} differs from its plain "
+                                         f"version in rows {rows}")
+            else:
+                torch.testing.assert_close(got[rows], want, rtol=1e-5,
+                                           atol=1e-6)
+                a, r = _errs(got[rows], want)
+                err, rel = max(err, a), max(rel, r)
+        chunk_s = time.perf_counter() - t0
+        ms = _median_ms(lambda: P.pull_reduce2(vals, dg, **kw))
+        streams = 2 if kw["wmode"] != "none" else 1
+        # indices (+ weights) an edge, the int64 offsets, values and out
+        b = bound(pull_bytes(e, dg.v_pad, 4, streams))
+        print(f"[2^31] K3 {name} over {e} edges: "
+              + ("bitwise equal to" if kw["op"] == "min" else
+                 f"max abs err {err:.3e}, max rel err {rel:.3e} vs")
+              + f" its plain version in {e // (RING_CHUNK_ROWS * 2 * h)} "
+              f"row chunks ({chunk_s:.3f} s); {ms:.3f} ms a call (median of "
+              f"{TIMED_LAUNCHES}), bound {b['bound_ms']:.3f} ms; on {card}")
+        if name == "sum/none":
+            k3 = {"past31_edges": e, "past31_ms": ms,
+                  "past31_bound_ms": b["bound_ms"], "past31_max_rel_err": rel}
+        del got
+    part("K3 against its plain version")
+
+    K.reset_launch_counts()
+    f32 = np.float32
+    # Unnormalized, from 1 - d: every rank is 1 - d^(k + 1) after k
+    # iterations, so none stops early at threshold 0 (normalized, the
+    # first iteration gives 1/n back exactly and the loop ends).
+    rank, _, stats = pagerank_device(dg, max_iters=RING_ITERS, threshold=0.0,
+                                     normalized=False)
+    torch.cuda.synchronize()
+    if stats.iteration != RING_ITERS:
+        raise AssertionError(f"PageRank ran {stats.iteration} iterations")
+    check_close("[2^31] PageRank loop route vs 1 - 0.85^21",
+                rank[:n].cpu().numpy(),
+                np.full(n, 1.0 - 0.85 ** (RING_ITERS + 1)), rtol=1e-5,
+                atol=0.0)
+    print(f"[2^31] PageRank loop route: {stats.iteration} iterations, "
+          f"K3 launches {K.LAUNCHES['pull_reduce2']}")
+    del rank
+    part("PageRank")
+    for name, fn in (("HITS", hits_device), ("SALSA", salsa_device)):
+        hub, auth = fn(dg, max_iters=LINK_ITERS)[:2]
+        torch.cuda.synchronize()
+        for what, x in (("hub", hub), ("auth", auth)):
+            x = x[:n].double()
+            spread = float((x.max() - x.min()) / x.max())
+            if not spread <= 1e-6 or not float(x.min()) > 0:
+                raise AssertionError(f"{name} {what} scores differ on the "
+                                     f"circulant: spread {spread:.3e}")
+        print(f"[2^31] {name} {LINK_ITERS} iterations: every hub and auth "
+              f"score equal (spread within 1e-6; auth {float(auth[0]):.6e})")
+        del hub, auth
+    part("HITS and SALSA")
+
+    _, _, ppr, ppr_iters = wtf_device(dg, 0)
+    torch.cuda.synchronize()
+    inv = dg.inv_outdeg.double()
+    is_src = torch.zeros(dg.v_pad, dtype=torch.float64, device=dev)
+    is_src[0] = 1.0
+    vmask = torch.arange(dg.v_pad, device=dev) < n
+    ref = torch.where(vmask, 1.0 / n, 0.0).double()
+    for _ in range(ppr_iters):
+        ref = torch.where(vmask, 0.85 * _ring_pull_f64(dg, ref * inv)
+                          + 0.15 * is_src, 0.0)
+    check_close("[2^31] WTF PPR vs float64 power iteration",
+                ppr[:n].cpu().numpy(), ref[:n].cpu().numpy(), rtol=1e-5,
+                atol=0.0)
+    print(f"[2^31] WTF from 0: {ppr_iters} PPR iterations")
+    del ppr, ref
+    part("WTF")
+
+    delta = 32.0 * wsum / e
+    records = []
+    dist, _, stats = sssp_device(dg, 0, mode="nearfar", delta=delta,
+                                 instrument=records)
+    torch.cuda.synchronize()
+    pulls = sum(r["phase"] == "pull" for r in records)
+    if float(dist[0]) != 0.0 or not bool(torch.isfinite(dist[:n]).all()):
+        raise AssertionError("SSSP: the source is not 0 or a vertex is "
+                             "unreached")
+    tight = torch.zeros(dg.v_pad, dtype=torch.bool, device=dev)
+    for rows, view in _ring_chunks(dg):
+        cand = dist[view.csc_indices.long()] + view.csc_edge_values
+        best = row_reduce_sorted(cand, view.csc_offsets, op="min")
+        if bool((best < dist[rows]).any()):
+            raise AssertionError(f"SSSP: an edge into rows {rows} relaxes")
+        tight[rows] = best == dist[rows]
+    if not bool(tight[1:n].all()):
+        raise AssertionError("SSSP: a reached vertex has no tight in-edge")
+    print(f"[2^31] SSSP near-far from 0 (delta {delta:.3f}): "
+          f"{stats.iteration} rounds, {pulls} pulled through K3 "
+          f"({', '.join(r['phase'] for r in records)}); certificate holds "
+          f"on every edge (no edge relaxes, every vertex but the source "
+          f"has a tight in-edge, the source is 0); max distance "
+          f"{float(dist[:n].max())}")
+    if pulls <= 0:
+        raise AssertionError("SSSP did not pull through K3")
+    del dist, tight
+    part("SSSP near-far")
+
+    comp, num, stats = cc_device(dg)
+    torch.cuda.synchronize()
+    if num != 1 or bool((comp[:n] != 0).any()):
+        raise AssertionError(f"CC: {num} components, labels not all 0")
+    print(f"[2^31] CC: every label 0, one component "
+          f"({stats.iteration} rounds)")
+    del comp
+    part("CC")
+
+    bc_vals, sigma, labels, stats = bc_device(dg, 0)
+    torch.cuda.synchronize()
+    want_l, want_s, want_d = _ring_bc_oracle(n, h)
+    if stats.route != "hybrid" or \
+            not np.array_equal(labels[:n].cpu().numpy(), want_l):
+        raise AssertionError(f"BC: route {stats.route} or labels differ")
+    check_close("[2^31] BC sigma vs the ring oracle",
+                sigma[:n].cpu().numpy(), want_s, rtol=1e-4, atol=0.0)
+    check_close("[2^31] BC vs the ring oracle", bc_vals[:n].cpu().numpy(),
+                want_d, rtol=1e-3, atol=1e-3)
+    print(f"[2^31] BC from 0 on the {stats.route} route: labels equal, "
+          f"{stats.iteration} forward levels")
+    del bc_vals, sigma, labels
+    part("BC")
+    k3["launches"] = K.LAUNCHES["pull_reduce2"]
+    print(f"[2^31] K3 launches on PageRank, HITS, SALSA, WTF, SSSP, CC "
+          f"and BC: {k3['launches']}; value part "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    del w, dg
+    return k3
 
 
 
@@ -2510,8 +2876,9 @@ def _shard_kernels(K, P, glob, compact, words_by_level, tables, card):
 
 def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     """Phase 31: the sharded zoo on 4 shards of the card (see the module
-    docstring). Returns ``(launches, k1, k3)``: the kernel launches of
-    every driven run, and K1's and K3's shard numbers."""
+    docstring). Returns ``(launches, k1, k3, ref)``: the kernel launches
+    of every driven run, K1's and K3's shard numbers, and the results
+    (in original ids) that phase 32's ranks are held to."""
     import numpy as np
     import torch
     from gunrock_tpu_torch import parallel as SP
@@ -2571,6 +2938,11 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     if not np.array_equal(labels_do, bfs_labels):
         raise AssertionError("sharded DO-BFS labels differ from phase 3's")
     check_preds(g, src, labels_do, _old_preds(perm, preds, n))
+    # What phase 32's ranks are held to, in original ids.
+    ref = {"bfs_do": {"labels": labels_do, "preds": _old_preds(perm, preds, n),
+                      "num_iterations": iters, "frontier_overflow": ovf,
+                      "comm_bytes": float(comm),
+                      "direction_trace": trace[:iters].tolist()}}
     lab_new = lab
     (lab, preds, iters, _, ovf, comm, _), ms, run = _shard_run(
         K, launches, lambda: SP.bfs_sharded_device(pg, src_new, mesh=mesh,
@@ -2580,6 +2952,9 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     if ovf or not np.array_equal(labels, bfs_labels):
         raise AssertionError("sharded BFS labels differ from phase 3's")
     check_preds(g, src, labels, _old_preds(perm, preds, n))
+    ref["bfs"] = {"labels": labels, "preds": _old_preds(perm, preds, n),
+                  "num_iterations": iters, "frontier_overflow": ovf,
+                  "comm_bytes": float(comm)}
     print("[sharded] both BFS runs: labels equal phase 3's (scipy's "
           "depths), predecessors valid")
 
@@ -2597,6 +2972,8 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     one = gtt.pagerank(g, max_iters=PR_ITERS, threshold=0.0, device=dev)
     check_close("sharded pagerank vs single-card loop route",
                 _old_ids(perm, rank, n), one.ranks, rtol=1e-4, atol=0.0)
+    ref["pagerank"] = {"ranks": _old_ids(perm, rank, n),
+                       "num_iterations": iters}
     pr_table = SP.ghost_exchange(rank.view(SHARDS, -1), pg.ghost_send_idx)
 
     # SSSP near-far with the pull-relax through K3 min/add.
@@ -2610,10 +2987,13 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     if ovf or run["pull_reduce2"] <= 0 or run["pull_reduce2"] % SHARDS:
         raise AssertionError(f"sharded SSSP: {run['pull_reduce2']} K3 "
                              "launches")
-    ref = dist[:n].cpu().numpy()
-    if not np.array_equal(_old_ids(perm, dist_new, n), ref):
+    if not np.array_equal(_old_ids(perm, dist_new, n),
+                          dist[:n].cpu().numpy()):
         raise AssertionError("sharded SSSP distances differ from phase "
                              "11's")
+    ref["sssp"] = {"distances": _old_ids(perm, dist_new, n),
+                   "num_iterations": iters, "frontier_overflow": ovf,
+                   "comm_bytes": float(comm), "delta": delta}
     print(f"[sharded] SSSP distances bitwise equal phase 11's (Dijkstra "
           f"within rtol 1e-5); {run['pull_reduce2'] // SHARDS} pull "
           f"supersteps")
@@ -2637,6 +3017,8 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     one = gtt.cc(g, device=dev)
     if not np.array_equal(mins[rep].astype(np.int32), one.components):
         raise AssertionError("sharded CC differs from the single-card CC")
+    ref["cc"] = {"components": mins[rep].astype(np.int32),
+                 "num_iterations": iters}
     (bcv, sig, blab, depth), ms, run = _shard_run(
         K, launches, lambda: SP.bc_sharded_device(pg, src_new, mesh=mesh))
     # BC's exchanges: a label table a BFS level and a sigma table a
@@ -2652,6 +3034,10 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
                 one.sigmas, rtol=1e-4, atol=0.0)
     check_close("sharded bc vs single card", 0.5 * _old_ids(perm, bcv, n),
                 one.bc_values, rtol=1e-3, atol=1e-3)
+    ref["bc"] = {"labels": _old_ids(perm, blab, n),
+                 "sigmas": _old_ids(perm, sig, n),
+                 "bc_values": (0.5 * _old_ids(perm, bcv, n)).astype(
+                     np.float32), "search_depth": depth}
     for kind, atol in (("hits", 1e-4), ("salsa", 1e-5)):
         (hub, auth), ms, run = _shard_run(
             K, launches, lambda: link_sharded_device(
@@ -2664,6 +3050,8 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
         check_close(f"sharded {kind} auths vs single card",
                     _old_ids(perm, auth, n), one.auths, rtol=1e-3,
                     atol=atol)
+        ref[kind] = {"hubs": _old_ids(perm, hub, n),
+                     "auths": _old_ids(perm, auth, n)}
 
     # bfs_batch: 4 sources on the 4 shards, each a single-card loop.
     rng = np.random.default_rng(SEED)
@@ -2683,6 +3071,7 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
                                  "sharded DO-BFS")
     print("[sharded] bfs_batch: the hub's row equals phase 3's, the others "
           "the sharded DO-BFS's")
+    ref["bfs_batch"] = {"labels": batch.labels, "sources": sources}
 
     # The kernels at these shapes against their plain versions.
     words = {d: K.pack_bitmask(lab_new == d - 1) for d in pulls}
@@ -2709,6 +3098,9 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     check_close("sharded wtf sorted scores vs single card",
                 np.sort(res.scores)[::-1], np.sort(one.scores)[::-1],
                 rtol=1e-3, atol=1e-6)
+    ref["wtf"] = {"ppr_ranks": res.ppr_ranks, "scores": res.scores,
+                  "node_ids": res.node_ids, "src": s16,
+                  "ppr_iterations": res.info["ppr_iterations"]}
     res, ms, run = _shard_run(K, launches, lambda: SP.topk_sharded(
         g16, k=10, mesh=mesh))
     _shard_report(f"topk, rmat n{SHARD_SMALL_SCALE}", res.info["process_ms"],
@@ -2718,6 +3110,8 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     if not (np.array_equal(res.centralities, np.sort(cent)[::-1][:10])
             and np.array_equal(cent[res.node_ids], res.centralities)):
         raise AssertionError("sharded topk differs from numpy's degrees")
+    ref["topk"] = {"node_ids": res.node_ids,
+                   "centralities": res.centralities}
     res, ms, run = _shard_run(K, launches, lambda: SP.tc_sharded(
         g16, mesh=mesh))
     _shard_report(f"tc, rmat n{SHARD_SMALL_SCALE}, {res.info['num_chunks']} "
@@ -2727,6 +3121,8 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
     if res.total != one.total or not np.array_equal(res.vertex_counts,
                                                     one.vertex_counts):
         raise AssertionError("sharded tc differs from the single card")
+    ref["tc"] = {"vertex_counts": res.vertex_counts,
+                 "num_triangles": res.total}
     print(f"[sharded] wtf, topk, tc on rmat n{SHARD_SMALL_SCALE}: equal to "
           f"the single card ({res.total} triangles)")
     dg16 = gtt.to_device(g16, with_csc=True, device=dev)
@@ -2756,7 +3152,161 @@ def phase_sharded(gtt, g, src, bfs_labels, dist, card, dev):
                                  "partition differs or launched no K1")
     print(f"[sharded] phase 31 in {time.perf_counter() - t_phase:.3f} s; "
           f"launches {launches}; on {card}")
-    return launches, k1, k3
+    return launches, k1, k3, ref
+
+
+# Phase 32: the deadline of the 4 ranks' run, and their init timeout.
+RANKS_DEADLINE, RANKS_INIT_TIMEOUT = 400.0, 120.0
+
+
+def phase_process_group(g, src, ref, card):
+    """Phase 32: the sharded zoo on 4 ranks of a ``torch.distributed``
+    group, one shard a rank, through ``gunrock_tpu_torch.tools.
+    shard_ranks`` (the kernels built here first; the ranks only load
+    them). NCCL, one card a rank, where the host has 4 cards; else Gloo
+    over CUDA tensors with the 4 ranks sharing the card. The flagship
+    (phase 11's weights) goes to the ranks as a file; each rank runs the
+    entry points on the partition of phase 31 (``random``, seed 0), and
+    R-MAT scale 16 for WTF, TopK and TC. Every result is held against
+    phase 31's: BFS and SSSP bitwise with their info fields (supersteps,
+    overflow, comm_bytes, the direction trace), CC, TopK, TC and the
+    batch exactly, the floats at phase 31's tolerances (PageRank rtol
+    1e-4; BC sigma rtol 1e-4, BC rtol 1e-3 atol 1e-3; HITS rtol 1e-3 atol
+    1e-4, SALSA atol 1e-5; WTF rtol 1e-3 atol 1e-6). Each rank's K1 and K3
+    launches, process ms, supersteps and comm_bytes are printed. Returns
+    the launches of every rank, summed."""
+    import numpy as np
+    import torch
+    from gunrock_tpu_torch.graph.native import build_dir
+    from gunrock_tpu_torch.tools.shard_ranks import launch
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARDS else "gloo"
+    out = os.path.join(build_dir(), "phase32")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "flagship.npz")
+    np.savez(path, row_offsets=g.row_offsets, col_indices=g.col_indices,
+             edge_values=g.edge_values)
+    flag = {"kind": "npz", "path": path, "undirected": True}
+    r16 = {"kind": "rmat", "scale": SHARD_SMALL_SCALE, "edge_factor": 16,
+           "seed": SEED, "undirected": True}
+    s16 = int(ref["wtf"]["src"])
+    runs = [
+        ("bfs_do", "bfs", "flagship", src,
+         dict(mark_preds=True, direction_optimized=True)),
+        ("bfs", "bfs", "flagship", src, dict(mark_preds=True)),
+        ("pagerank", "pagerank", "flagship", None,
+         dict(max_iters=PR_ITERS, threshold=0.0)),
+        ("sssp", "sssp", "flagship", src, dict(mode="nearfar")),
+        ("cc", "cc", "flagship", None, {}),
+        ("bc", "bc", "flagship", src, {}),
+        ("hits", "hits", "flagship", None, dict(max_iters=LINK_ITERS)),
+        ("salsa", "salsa", "flagship", None, dict(max_iters=LINK_ITERS)),
+        ("wtf", "wtf", "r16", s16, {}),
+        ("topk", "topk", "r16", None, dict(k=10)),
+        ("tc", "tc", "r16", None, {}),
+    ]
+    spec = {"graphs": {"flagship": flag, "r16": r16}, "runs": [
+        dict({"name": name, "prim": prim, "graph": graph, "kwargs": kw},
+             **({} if s is None else {"src": s}))
+        for name, prim, graph, s, kw in runs]}
+    spec["runs"].append({"name": "bfs_batch", "prim": "bfs_batch",
+                         "graph": "flagship",
+                         "sources": ref["bfs_batch"]["sources"],
+                         "kwargs": {}})
+    torch.cuda.empty_cache()
+    print(f"[ranks] {SHARDS} ranks, backend {backend} "
+          + ("(one card a rank)" if backend == "nccl" else
+             f"over CUDA tensors, the {SHARDS} ranks sharing the card "
+             f"(the host has {cards} card(s))")
+          + f"; the flagship to the ranks as {os.path.relpath(path)}")
+    t0 = time.perf_counter()
+    records, arrays = launch(spec, out, world=SHARDS, backend=backend,
+                             device="cuda", deadline=RANKS_DEADLINE,
+                             init_timeout=RANKS_INIT_TIMEOUT, build=True)
+    print(f"[ranks] the {SHARDS} ranks ran in {time.perf_counter() - t0:.3f}"
+          f" s (start, graphs, partitions and runs)")
+    info0 = records[0]["runs"]["bfs_do"]["info"]
+    print(f"[ranks] backend {info0['backend']}, world_size "
+          f"{info0['world_size']}, rank devices {info0['rank_devices']}"
+          + (" (Gloo takes the CUDA tensors in every collective: none is "
+             "staged through host buffers)" if backend == "gloo" else ""))
+    launches = {}
+    for rec in records:
+        for name, run in rec["runs"].items():
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for name, *_ in runs + [("bfs_batch",)]:
+        per = [rec["runs"][name] for rec in records]
+        info = per[0]["info"]
+        comm = info.get("comm_bytes",
+                        info.get("comm_bytes_per_superstep", "-"))
+        print(f"[ranks] {name}: process ms by rank "
+              f"{[round(r['info'].get('process_ms', 0.0), 3) for r in per]}"
+              f", supersteps {info.get('num_iterations', '-')}, comm_bytes "
+              f"{comm}"
+              f", K1 launches by rank "
+              f"{[r['launches'].get('pull_reached_words', 0) for r in per]}"
+              f", K3 {[r['launches'].get('pull_reduce2', 0) for r in per]}")
+    for r, rec in enumerate(records):
+        for name, key in (("bfs_do", "pull_reached_words"),
+                          ("pagerank", "pull_reduce2"),
+                          ("sssp", "pull_reduce2")):
+            if rec["runs"][name]["launches"].get(key, 0) <= 0:
+                raise AssertionError(f"rank {r} launched no {key} in {name}")
+
+    def same(name, field, want, tol=None):
+        got = arrays[f"{name}/{field}"]
+        want = np.asarray(want)
+        if tol is None:
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"ranks' {name} {field} differs from "
+                                     "phase 31's")
+        else:
+            check_close(f"ranks' {name} {field} vs phase 31", got, want,
+                        **tol)
+
+    for name in ("bfs_do", "bfs", "sssp"):
+        want = ref[name]
+        for rec in records:
+            info = rec["runs"][name]["info"]
+            for key in ("num_iterations", "frontier_overflow",
+                        "comm_bytes", "direction_trace", "delta"):
+                if key in want and info[key] != want[key]:
+                    raise AssertionError(f"ranks' {name} {key} "
+                                         f"{info[key]} != {want[key]}")
+        for field in ("labels", "preds", "distances"):
+            if field in want:
+                same(name, field, want[field])
+    same("pagerank", "ranks", ref["pagerank"]["ranks"],
+         dict(rtol=1e-4, atol=0.0))
+    same("cc", "components", ref["cc"]["components"])
+    same("bc", "labels", ref["bc"]["labels"])
+    same("bc", "sigmas", ref["bc"]["sigmas"], dict(rtol=1e-4, atol=0.0))
+    same("bc", "bc_values", ref["bc"]["bc_values"],
+         dict(rtol=1e-3, atol=1e-3))
+    for kind, atol in (("hits", 1e-4), ("salsa", 1e-5)):
+        for field in ("hubs", "auths"):
+            same(kind, field, ref[kind][field], dict(rtol=1e-3, atol=atol))
+    same("wtf", "ppr_ranks", ref["wtf"]["ppr_ranks"],
+         dict(rtol=1e-3, atol=1e-6))
+    same("wtf", "scores", ref["wtf"]["scores"], dict(rtol=1e-3, atol=1e-6))
+    same("topk", "node_ids", ref["topk"]["node_ids"])
+    same("topk", "centralities", ref["topk"]["centralities"])
+    same("tc", "vertex_counts", ref["tc"]["vertex_counts"])
+    same("bfs_batch", "labels", ref["bfs_batch"]["labels"])
+    exact = [f"{n}/{f}" for n, f in (
+        ("pagerank", "ranks"), ("bc", "sigmas"), ("bc", "bc_values"),
+        ("hits", "hubs"), ("salsa", "hubs"), ("wtf", "ppr_ranks"))
+        if np.array_equal(arrays[f"{n}/{f}"], ref[n][f])]
+    print(f"[ranks] every result equals phase 31's: BFS (DO through K1 and "
+          f"non-DO) and SSSP bitwise with their supersteps, overflow flags, "
+          f"comm_bytes and direction trace; CC, TopK, TC and bfs_batch "
+          f"exactly; the floats within phase 31's tolerances (bitwise: "
+          f"{exact}); launches of all ranks {launches}; phase 32 "
+          f"{time.perf_counter() - t_phase:.3f} s; on {card}")
+    return launches
 
 
 def main() -> int:
@@ -2959,15 +3509,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 28. The flagship forced to sizet64; 29. a graph past 2^31 edges.
-    s64 = phase_sizet64(gtt, g, src, dev, card)
-    ring_k10 = phase_past_2_31(gtt, dev, card)
+    s64, k3_widths = phase_sizet64(gtt, g, src, dev, card)
+    ring_k10, ring_k3 = phase_past_2_31(gtt, dev, card)
 
     # 30. The C ABI on the card, and rmat_device.
     phase_capi(gtt, g, src, res.labels, card)
 
-    # 31. The sharded zoo on 4 shards of the card.
-    sh, k1_shard, k3_compact = phase_sharded(gtt, g, src, res.labels, dist,
-                                             card, dev)
+    # 31. The sharded zoo on 4 shards of the card; 32. on 4 ranks of a
+    # process group, one shard a rank. Phase 32's launches count in.
+    sh, k1_shard, k3_compact, ref = phase_sharded(gtt, g, src, res.labels,
+                                                  dist, card, dev)
+    for name, n in phase_process_group(g, src, ref, card).items():
+        sh[name] = sh.get(name, 0) + n
 
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
@@ -2988,8 +3541,8 @@ def main() -> int:
          "launches": loop_launches["pull_reduce2"] + link_launches
          + sssp_launches["pull_reduce2"] + bc_launches["pull_reduce2"]
          + cc_launches["pull_reduce2"] + wtf_launches
-         + s64.get("pull_reduce2", 0) + sh["pull_reduce2"], **k3,
-         **k3_compact},
+         + s64.get("pull_reduce2", 0) + ring_k3.pop("launches")
+         + sh["pull_reduce2"], **k3, **k3_compact, **k3_widths, **ring_k3},
         {"name": "pull_power_iters", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:605",
          "launches": power_launches["pull_power_iters"]

@@ -44,6 +44,7 @@ undirected graph) and ``cc`` a symmetric graph ``with_edge_src`` and
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -404,8 +405,39 @@ _RUNNERS = {"bfs": _run_bfs, "sssp": _run_sssp, "pr": _run_pr,
             "tc": _run_tc}
 
 
+DIST_INIT_TIMEOUT = 300  # seconds a rank waits for the process group
+
+
+def _join_group(args) -> int:
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` above 1) with
+    ``--num-shards``: join the process group, one shard a rank, and
+    return the rank (0 otherwise). The backend is NCCL for a CUDA
+    ``--device`` (one card a rank) and Gloo for the CPU; a rank waits
+    ``DIST_INIT_TIMEOUT`` seconds for the group. The sharded entry points
+    then make their mesh from the group."""
+    import datetime
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if not args.num_shards or world <= 1:
+        return 0
+    import torch.distributed as dist
+    if args.num_shards != world:
+        raise SystemExit(f"--num-shards={args.num_shards} under "
+                         f"{world} ranks: one shard a rank")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if args.device.startswith("cuda") else "gloo",
+            timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT))
+    return dist.get_rank()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    rank = _join_group(args)
+    if rank:
+        # Every rank runs the primitive; rank 0 checks, prints and
+        # writes the record.
+        args.quiet, args.quick = True, True
+        args.jsonfile = args.jsondir = None
     rng = np.random.default_rng(args.seed)
     g = load_graph_from_args(args)
     if not args.quiet:
@@ -435,6 +467,9 @@ def main(argv=None) -> int:
     path = write_info(info, args.jsonfile, args.jsondir)
     if path and not args.quiet:
         print(f"json: {path}")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and args.num_shards:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0 if all_ok else 1
 
 

@@ -53,6 +53,15 @@
 // Rows that span tiles also get rowval writes from several tiles;
 // nothing reads those.
 //
+// Offsets past 2^31 edges. K3 takes the CSC offsets as int32_t or, on a
+// sizet64 graph, as int64_t (a template parameter of the tile rows, of
+// pass 1's row starts and of the finish's row bounds); every edge
+// position and every difference of offsets is int64_t in both, rows and
+// positions inside a tile int32_t, so the two instances do the same
+// arithmetic on the same values and give the same bits. K4, K6 and K9
+// keep int32_t bounds: they run only on the blocked routes, which a
+// sizet64 graph never takes.
+//
 // Per-source weights. With the "wpr" stream, f(values[u], w[u]) depends
 // on the source alone, so a V-sized pass folds it into one value a
 // vertex first (vscratch) and pass 1 pulls that with f = none: one
@@ -209,10 +218,14 @@ enum Weights : int { kNoWeights = 0, kPerEdge = 1, kPerSource = 2 };
 // source bits (K6), source bits and live tiles (K9).
 enum Gate : int { kUngated = 0, kSources = 1, kLiveTiles = 2 };
 
-struct PullArgs {
+// Off is the type of csc_offsets: int32_t, or int64_t past 2^31 edges
+// (K3 only; K4, K6 and K9 take int32 bounds). Every edge position is
+// int64_t either way, rows and positions inside a tile int32_t.
+template <typename Off>
+struct PullArgsT {
   const float* values;
   const int32_t* indices;   // csc_indices: source of each CSC edge
-  const int32_t* offsets;   // csc_offsets: (rows + 1,)
+  const Off* offsets;       // csc_offsets: (rows + 1,)
   const float* weights;
   int64_t num_edges;
   int64_t rows;             // v_pad
@@ -227,6 +240,7 @@ struct PullArgs {
   float* tail;              // (ntiles,) scratch
   float* vscratch;          // (n_values,) scratch: folded per-source values
 };
+using PullArgs = PullArgsT<int32_t>;
 
 // A round of a gated pass (K6, K9).
 struct GateArgs {
@@ -263,7 +277,8 @@ __device__ __forceinline__ float apply_fn(int fn, float x, float w) {
 
 // vscratch[u] = f(values[u], weights[u]) for per-source weights, over
 // the whole value table.
-__global__ void fold_per_source_kernel(PullArgs a) {
+template <typename Off>
+__global__ void fold_per_source_kernel(PullArgsT<Off> a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        u < a.n_values; u += stride) {
@@ -271,7 +286,8 @@ __global__ void fold_per_source_kernel(PullArgs a) {
   }
 }
 
-__device__ __forceinline__ void emit(const PullArgs& a, int64_t t,
+template <typename Off>
+__device__ __forceinline__ void emit(const PullArgsT<Off>& a, int64_t t,
                                      int32_t first_row, int32_t row,
                                      bool last, float val) {
   a.rowval[row] = val;
@@ -291,8 +307,8 @@ __device__ __forceinline__ bool on(unsigned act, int k) {
 }
 
 // Pass 1: per-tile segmented reduction (see the file comment).
-template <int G>
-__device__ __forceinline__ void pull_tiles(const PullArgs& a,
+template <int G, typename Off>
+__device__ __forceinline__ void pull_tiles(const PullArgsT<Off>& a,
                                            const GateArgs& g) {
   __shared__ __align__(16) int32_t starts[kTile];  // row starting here, or -1
   __shared__ float warp_val[kWarps];
@@ -364,7 +380,7 @@ __device__ __forceinline__ void pull_tiles(const PullArgs& a,
     __syncthreads();
     for (int64_t r = first_row + 1 + tid; r <= end_row && r < a.rows;
          r += kThreads) {
-      const int32_t s = __ldg(a.offsets + r);
+      const Off s = __ldg(a.offsets + r);
       if (s < lo + len && __ldg(a.offsets + r + 1) > s) {
         starts[s - lo] = (int32_t)r;
       }
@@ -495,7 +511,9 @@ __device__ __forceinline__ void pull_tiles(const PullArgs& a,
 }
 
 // K3's and K4's pass 1, and the gated one of K6 and K9.
-__global__ void __launch_bounds__(kThreads) pull_tiles_kernel(PullArgs a) {
+template <typename Off>
+__global__ void __launch_bounds__(kThreads)
+pull_tiles_kernel(PullArgsT<Off> a) {
   pull_tiles<kUngated>(a, GateArgs{});
 }
 
@@ -538,11 +556,11 @@ __device__ __forceinline__ int64_t group_word(int gshift, int64_t base) {
 
 // Gated, a quiet tile left identity head and tail partials but no rowval,
 // so a row inside one quiet tile reads the identity.
-template <int G>
-__device__ __forceinline__ float row_total(const PullArgs& a,
+template <int G, typename Off>
+__device__ __forceinline__ float row_total(const PullArgsT<Off>& a,
                                            const GateArgs& g, int64_t v) {
-  const int32_t lo = __ldg(a.offsets + v);
-  const int32_t hi = __ldg(a.offsets + v + 1);
+  const Off lo = __ldg(a.offsets + v);
+  const Off hi = __ldg(a.offsets + v + 1);
   if (hi <= lo) return identity(a.op);
   const int64_t c0 = lo / kTile;
   const int64_t c1 = (hi - 1) / kTile;
@@ -558,8 +576,8 @@ __device__ __forceinline__ float row_total(const PullArgs& a,
   return combine(a.op, acc, a.head[c1]);
 }
 
-template <int G>
-__device__ __forceinline__ void pull_finish(const PullArgs& a,
+template <int G, typename Off>
+__device__ __forceinline__ void pull_finish(const PullArgsT<Off>& a,
                                             const FinishArgs& f,
                                             const GateArgs& g) {
   const int lane = threadIdx.x & 31;
@@ -597,7 +615,8 @@ __device__ __forceinline__ void pull_finish(const PullArgs& a,
   }
 }
 
-__global__ void pull_finish_kernel(PullArgs a, FinishArgs f) {
+template <typename Off>
+__global__ void pull_finish_kernel(PullArgsT<Off> a, FinishArgs f) {
   pull_finish<kUngated>(a, f, GateArgs{});
 }
 
@@ -673,7 +692,8 @@ unsigned int blocks_for(int64_t threads) {
   return (unsigned int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-bool valid_args(const PullArgs& a, int tile) {
+template <typename Off>
+bool valid_args(const PullArgsT<Off>& a, int tile) {
   return tile == kTile && a.rows > 0 && a.n_values > 0 &&
          (a.op == kSum || a.op == kMin) && a.fn >= kNone && a.fn <= kIncr &&
          a.wkind >= kNoWeights && a.wkind <= kPerSource &&
@@ -688,12 +708,14 @@ constexpr int kCarveout = 14;
 
 // Once per host call: the tile rows, which do not change between rounds,
 // and, once a device, the carveout of every variant of pass 1.
-void launch_tile_rows(const PullArgs& a, cudaStream_t s) {
+template <typename Off>
+void launch_tile_rows(const PullArgsT<Off>& a, cudaStream_t s) {
   static bool carved[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < 64 &&
       !carved[dev]) {
-    for (const void* k : {(const void*)pull_tiles_kernel,
+    for (const void* k : {(const void*)pull_tiles_kernel<int32_t>,
+                          (const void*)pull_tiles_kernel<int64_t>,
                           (const void*)gated_tiles_kernel<kSources>,
                           (const void*)gated_tiles_kernel<kLiveTiles>}) {
       cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -701,7 +723,7 @@ void launch_tile_rows(const PullArgs& a, cudaStream_t s) {
     }
     carved[dev] = true;
   }
-  csc_tile_rows_kernel<kTile><<<blocks_for(a.rows), kThreads, 0, s>>>(
+  csc_tile_rows_kernel<kTile, Off><<<blocks_for(a.rows), kThreads, 0, s>>>(
       a.offsets, a.rows, a.num_edges, a.tile_rows);
 }
 
@@ -745,21 +767,24 @@ unsigned int tile_blocks(int64_t num_edges) {
 }
 
 // Per-source weights: fold them into vscratch and pull that with f = none.
-void fold_weights(PullArgs& a, cudaStream_t s) {
+template <typename Off>
+void fold_weights(PullArgsT<Off>& a, cudaStream_t s) {
   if (a.wkind == kPerSource) {
-    fold_per_source_kernel<<<blocks_for(a.n_values), kThreads, 0, s>>>(a);
+    fold_per_source_kernel<Off><<<blocks_for(a.n_values), kThreads, 0, s>>>(
+        a);
     a.values = a.vscratch;
     a.fn = kNone;
     a.wkind = kNoWeights;
   }
 }
 
-void launch_pull(PullArgs a, const FinishArgs& f, cudaStream_t s) {
+template <typename Off>
+void launch_pull(PullArgsT<Off> a, const FinishArgs& f, cudaStream_t s) {
   fold_weights(a, s);
   if (a.num_edges > 0) {
-    pull_tiles_kernel<<<tile_blocks(a.num_edges), kThreads, 0, s>>>(a);
+    pull_tiles_kernel<Off><<<tile_blocks(a.num_edges), kThreads, 0, s>>>(a);
   }
-  pull_finish_kernel<<<blocks_for(a.rows), kThreads, 0, s>>>(a, f);
+  pull_finish_kernel<Off><<<blocks_for(a.rows), kThreads, 0, s>>>(a, f);
 }
 
 // K9's gate (see the file comment): gated[v] for the level, the source
@@ -832,15 +857,16 @@ __global__ void brandes_finish_kernel(PullArgs a, GateArgs g, float* lab,
   }
 }
 
-PullArgs make_args(const void* values, const void* indices,
-                   const void* offsets, int64_t num_edges, int64_t rows,
-                   const void* weights, int wkind, int op, int fn,
-                   void* tile_rows, void* rowval, void* head, void* tail,
-                   void* vscratch) {
-  PullArgs a = {};
+template <typename Off = int32_t>
+PullArgsT<Off> make_args(const void* values, const void* indices,
+                         const void* offsets, int64_t num_edges,
+                         int64_t rows, const void* weights, int wkind,
+                         int op, int fn, void* tile_rows, void* rowval,
+                         void* head, void* tail, void* vscratch) {
+  PullArgsT<Off> a = {};
   a.values = (const float*)values;
   a.indices = (const int32_t*)indices;
-  a.offsets = (const int32_t*)offsets;
+  a.offsets = (const Off*)offsets;
   a.weights = (const float*)weights;
   a.num_edges = num_edges;
   a.rows = rows;
@@ -856,34 +882,50 @@ PullArgs make_args(const void* values, const void* indices,
   return a;
 }
 
+// K3 on the offsets' type of the graph.
+template <typename Off>
+int pull_reduce_call(PullArgsT<Off> a, int64_t n_values, int tile,
+                     const FinishArgs& f, cudaStream_t s) {
+  a.n_values = n_values;
+  if (!valid_args(a, tile)) return (int)cudaErrorInvalidValue;
+  launch_tile_rows(a, s);
+  launch_pull(a, f, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// K3. tile: kTile (the wrapper's PULL_TILE). values (and per-source
+// K3. tile: kTile (the wrapper's PULL_TILE). offsets64: csc_offsets are
+// int64_t (a sizet64 graph) rather than int32_t. values (and per-source
 // weights) hold n_values entries: rows for a graph, S + p * ghost_cap
 // for a shard's compact table, whose ghost slots no row owns. Scratch:
 // tile_rows (ntiles + 1,) int32; rowval (rows,), vscratch (n_values,),
 // head and tail (ntiles,) float32, with ntiles = ceil(num_edges / tile).
 // init may be null.
 int gr_pull_reduce(const void* values, const void* indices,
-                   const void* offsets, int64_t num_edges, int64_t rows,
-                   int64_t n_values, const void* weights, int wkind, int op,
-                   int fn, const void* init, int tile, void* tile_rows,
-                   void* rowval, void* head, void* tail, void* vscratch,
-                   void* out, void* stream) {
-  PullArgs a = make_args(values, indices, offsets, num_edges, rows,
-                         weights, wkind, op, fn, tile_rows, rowval, head,
-                         tail, vscratch);
-  a.n_values = n_values;
-  if (!valid_args(a, tile)) return (int)cudaErrorInvalidValue;
+                   const void* offsets, int offsets64, int64_t num_edges,
+                   int64_t rows, int64_t n_values, const void* weights,
+                   int wkind, int op, int fn, const void* init, int tile,
+                   void* tile_rows, void* rowval, void* head, void* tail,
+                   void* vscratch, void* out, void* stream) {
   FinishArgs f = {};
   f.init = (const float*)init;
   f.out = (float*)out;
   const cudaStream_t s = (cudaStream_t)stream;
-  launch_tile_rows(a, s);
-  launch_pull(a, f, s);
-  return (int)cudaGetLastError();
+  if (offsets64) {
+    return pull_reduce_call(
+        make_args<int64_t>(values, indices, offsets, num_edges, rows, weights,
+                           wkind, op, fn, tile_rows, rowval, head, tail,
+                           vscratch),
+        n_values, tile, f, s);
+  }
+  return pull_reduce_call(
+      make_args<int32_t>(values, indices, offsets, num_edges, rows, weights,
+                         wkind, op, fn, tile_rows, rowval, head, tail,
+                         vscratch),
+      n_values, tile, f, s);
 }
 
 // K4. Round r reads init (r = 0) or the previous round's buffer and
@@ -921,7 +963,8 @@ int gr_pull_power_iters(const void* init, void* ping, void* pong,
     f.folded = per_source && r + 1 < iters ? a.vscratch : nullptr;
     f.changed = (int32_t*)changed + r;
     if (num_edges > 0) {
-      pull_tiles_kernel<<<tile_blocks(num_edges), kThreads, 0, s>>>(a);
+      pull_tiles_kernel<int32_t><<<tile_blocks(num_edges), kThreads, 0, s>>>(
+          a);
     }
     power_finish_kernel<<<blocks_for(rows), kThreads, 0, s>>>(a, f);
     const int rc = (int)cudaGetLastError();

@@ -31,9 +31,11 @@ namespace {
 // V-wide pass over csc_offsets (merge-based SpMV's partition, Merrill
 // and Garland, SC16). A tile then finds the rows that start inside it
 // by reading csc_offsets over tile_rows[t] + 1 .. tile_rows[t + 1], so
-// no per-edge row array is read.
-template <int kTileEdges>
-__global__ void csc_tile_rows_kernel(const int32_t* __restrict__ offsets,
+// no per-edge row array is read. Off is the offsets' type: int32_t, or
+// int64_t for a graph past 2^31 edges (rows and tiles stay int32: fewer
+// than 2^31 rows, and 2^20 tiles of 2048 edges at 2^31 edges).
+template <int kTileEdges, typename Off = int32_t>
+__global__ void csc_tile_rows_kernel(const Off* __restrict__ offsets,
                                      int64_t rows, int64_t num_edges,
                                      int32_t* __restrict__ tile_rows) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;

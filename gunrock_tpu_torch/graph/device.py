@@ -186,6 +186,18 @@ class DeviceGraph:
         has more (``parallel.blocked.ShardView``)."""
         return self.v_pad
 
+    @property
+    def k3_pulls(self) -> bool:
+        """Whether the full-edge value pulls of SSSP (pull-relax), CC
+        (the min hook) and BC (pull levels) may run through kernel K3 on
+        CUDA: the graph was uploaded ``with_blocked_values``, as the JAX
+        package gates them on its blocked layout, or it has more than
+        2^31 - 1 edges. There no blocked layout exists in either
+        package, and a push round over a frontier of high degree would
+        hold a lane an edge (2^30 lanes on the circulant C(2^16;
+        1..2^14)), while K3 reads the int64 CSC offsets in place."""
+        return self.has_blocked_values or self.num_edges > 2**31 - 1
+
     def out_degrees(self) -> torch.Tensor:
         """(v_pad,) out-degree of every (padded) vertex, in the offsets'
         dtype."""

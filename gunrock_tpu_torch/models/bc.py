@@ -14,12 +14,13 @@ JAX package:
     of ``GUNROCK_BC_LEVELS`` (8) levels with one host read of the counts
     a call (``GUNROCK_BC_PULL2``, default on).
   * the hybrid loop (:func:`_bc_hybrid`): push levels (expand, claim
-    dedup, scatters); on CUDA graphs uploaded ``with_blocked_values``, a
-    level whose frontier edges pass ``E / 32`` pulls through kernel K3
-    instead. ``fused`` resolves push levels with kernels K5, K7 and K8
-    after one sort (``GUNROCK_BC_FUSED``, CUDA).
-  * the all-pull route (:func:`_bc_pull`): instrumented runs on CUDA
-    graphs uploaded ``with_blocked_values``, one K3 pull a level.
+    dedup, scatters); on CUDA graphs uploaded ``with_blocked_values`` or
+    past 2^31 edges (``DeviceGraph.k3_pulls``), a level whose frontier
+    edges pass ``E / 32`` pulls through kernel K3 instead. ``fused``
+    resolves push levels with kernels K5, K7 and K8 after one sort
+    (``GUNROCK_BC_FUSED``, CUDA).
+  * the all-pull route (:func:`_bc_pull`): instrumented runs on the
+    same CUDA graphs, one K3 pull a level.
 
 Routing follows the JAX package's, with "the graph's tensors lie on CUDA"
 where it reads "the backend is a TPU"; on the CPU the port takes the JAX
@@ -365,7 +366,7 @@ def bc_device(graph: DeviceGraph, src: int, *, queue_sizing: float = 1.0,
             and os.environ.get("GUNROCK_BC_PULL2", "1") == "1"):
         return _bc_pull2(graph, src, instrument)
     on_cuda = graph.device.type == "cuda"
-    use_pallas = on_cuda and graph.has_blocked_values
+    use_pallas = on_cuda and graph.k3_pulls
     if fused is None:
         fused = on_cuda and os.environ.get("GUNROCK_BC_FUSED", "0") == "1"
     if use_pallas and instrument is not None:

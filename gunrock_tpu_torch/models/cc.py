@@ -14,7 +14,8 @@ Afforest [Sutton/Orr/Pearce, IPDPS'18]:
      over their own edges (expand) while their edge count fits a rung of
      ``capacity_ladder(e_pad)`` below the top; past it a round hooks over
      every edge (``edge_src`` / ``col_indices``), or, on CUDA graphs
-     uploaded ``with_blocked_values``, takes the min of the component ids
+     uploaded ``with_blocked_values`` or past 2^31 edges
+     (``DeviceGraph.k3_pulls``), takes the min of the component ids
      over in-edges through kernel K3 (ids below 2^24 are exact in
      float32). One doubling step a round, until a round changes nothing.
 
@@ -213,7 +214,7 @@ def cc_device(graph: DeviceGraph, *, instrument: Optional[list] = None):
     as the JAX package's instrumented mode (``models/cc.py:313-358``);
     it keeps the hooking route."""
     on_cuda = graph.device.type == "cuda"
-    use_pallas = on_cuda and graph.has_blocked_values
+    use_pallas = on_cuda and graph.k3_pulls
     if (graph.has_pull2 and instrument is None
             and os.environ.get("GUNROCK_CC_SWEEPS", "0") == "1"):
         return _cc_sweeps(graph)

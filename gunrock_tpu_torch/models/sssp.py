@@ -22,7 +22,8 @@ carries the queue's distances and degrees through them, and their
 payload comes through kernel K5's two-array mode alone. Rounds whose
 frontier's edge volume passes
 ``E / GUNROCK_SSSP_PULL_DIV`` pull over the CSC instead (kernel K3), on
-CUDA graphs uploaded ``with_blocked_values``. ``fused`` resolves winners
+CUDA graphs uploaded ``with_blocked_values`` or past 2^31 edges
+(``DeviceGraph.k3_pulls``). ``fused`` resolves winners
 with kernels K7 and K8 after one sort (``GUNROCK_SSSP_FUSED``, CUDA).
 
 Routing follows the JAX package's, with "the graph's tensors lie on CUDA"
@@ -531,7 +532,7 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
         rungs = tuple(c for c in deep_rungs("GUNROCK_SSSP_DEEP_RUNGS",
                                             DEEP_CAP) if fcap >= 2 * c)
     pull_thresh = None
-    if on_cuda and graph.has_blocked_values:
+    if on_cuda and graph.k3_pulls:
         pull_thresh = max(1, min(graph.num_edges // _pull_divisor(), 2**30))
     cfg = _Config(mode=mode, delta=np.float32(delta), fcap=fcap,
                   caps=tuple(caps), fused=fused, pull_thresh=pull_thresh,

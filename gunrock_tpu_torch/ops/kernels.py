@@ -105,19 +105,23 @@ def unpack_bitmask(words: torch.Tensor, v_pad: int) -> torch.Tensor:
     return bits.reshape(-1)[:v_pad].bool()
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.int32 or \
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtypes: tuple = (torch.int32,)) -> None:
+    if t.device != device or t.dtype not in dtypes or \
             not t.is_contiguous() or t.dim() != 1:
-        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on "
-                         f"{device}; got {t.dtype} {tuple(t.shape)} on "
+        kinds = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be a contiguous 1-D {kinds} tensor "
+                         f"on {device}; got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
 
 
 def row_bounds32(graph) -> torch.Tensor:
-    """The CSC offsets as the int32 row bounds that K1, K3, K4, K6 and K9
+    """The CSC offsets as the int32 row bounds that K1, K4, K6 and K9
     read: as they are on an int32 graph, narrowed (v_pad + 1 entries,
     exactly) on a sizet64 graph below 2^31 edges, and refused past it,
-    where no int32 bound can name an edge."""
+    where no int32 bound can name an edge. These kernels run on the
+    blocked routes, which a sizet64 graph never takes; K3 reads int64
+    offsets as they are."""
     off = graph.csc_offsets
     if off.dtype != torch.int64:
         return off

@@ -165,12 +165,15 @@ def _check_float(name: str, t: torch.Tensor, n: int,
 
 
 def _check_graph(graph, w: Optional[torch.Tensor], kind: int,
-                 device: torch.device) -> torch.Tensor:
-    """Check the CSC and the weights; returns the int32 row bounds the
-    kernels read (:func:`~gunrock_tpu_torch.ops.kernels.row_bounds32`)."""
-    offsets = row_bounds32(graph)
+                 device: torch.device, *, wide: bool = False
+                 ) -> torch.Tensor:
+    """Check the CSC and the weights; returns the row bounds the kernels
+    read: with ``wide`` (K3) the CSC offsets as they are, int32 or
+    int64; else the int32 bounds of
+    :func:`~gunrock_tpu_torch.ops.kernels.row_bounds32`."""
+    offsets = graph.csc_offsets if wide else row_bounds32(graph)
     _check("csc_indices", graph.csc_indices, device)
-    _check("csc_offsets", offsets, device)
+    _check("csc_offsets", offsets, device, (torch.int32, torch.int64))
     if w is not None:
         _check_float("weights", w,
                      graph.e_pad if kind == _PER_EDGE else graph.n_values,
@@ -189,7 +192,10 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
     ``gunrock_tpu/ops/pull2.py:268``, and ``pull_vertex_reduce`` over the
     sharded layouts of ``gunrock_tpu/parallel/blocked.py``). ``values``
     is the (graph.n_values,) table, ``init`` (v_pad,); both are cast to
-    float32. Two launches on the same input give bitwise equal output."""
+    float32. Two launches on the same input give bitwise equal output.
+    A sizet64 graph's int64 CSC offsets go to the kernel's int64
+    instance as they are, at any edge count; its output equals the
+    int32 instance's bit for bit where both apply."""
     tensors = [values, graph.csc_indices] + ([] if init is None else [init])
     if not _route(*tensors):
         return pull_reduce2_plain(values, graph, op=op, wmode=wmode,
@@ -202,12 +208,13 @@ def pull_reduce2(values: torch.Tensor, graph, *, op: str = "sum",
     if init is not None:
         init = init.to(torch.float32).contiguous()
         _check_float("init", init, graph.v_pad, dev)
-    offsets = _check_graph(graph, w, kind, dev)
+    offsets = _check_graph(graph, w, kind, dev, wide=True)
     buf, scratch = _scratch(graph, dev)
     out = torch.empty(graph.v_pad, dtype=torch.float32, device=dev)
     _launch(_build.load().gr_pull_reduce, values.data_ptr(),
             graph.csc_indices.data_ptr(), offsets.data_ptr(),
-            graph.num_edges, graph.v_pad, graph.n_values,
+            int(offsets.dtype == torch.int64), graph.num_edges, graph.v_pad,
+            graph.n_values,
             0 if w is None else w.data_ptr(), kind, _OPS[op], _FNS[wmode],
             0 if init is None else init.data_ptr(), PULL_TILE, *scratch,
             out.data_ptr(), device=dev)

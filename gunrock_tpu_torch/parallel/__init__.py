@@ -1,9 +1,10 @@
-"""The sharded primitives on a shard mesh of one device.
+"""The sharded primitives on a shard mesh: every shard stacked on one
+device, or one shard a rank of a ``torch.distributed`` group.
 
 Counterpart of :mod:`gunrock_tpu.parallel`, with its public names: the
 mesh, partitioning, the boundary exchange, the ten sharded primitives
 and the replicated batches. See ``mesh.py`` for how the JAX package's
-``shard_map`` over a device mesh maps onto stacked tensors on one card.
+``shard_map`` over a device mesh maps onto the mesh's collectives.
 """
 
 from .mesh import make_mesh, AXIS  # noqa: F401

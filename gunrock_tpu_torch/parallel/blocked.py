@@ -75,11 +75,13 @@ class ShardedBlocked:
 def blocked_from_partition(pg, *, compact: bool = False,
                            edge_weight: Union[None, str, Callable] = None
                            ) -> ShardedBlocked:
-    """The shard views of a ``PartitionedGraph``'s CSC.
+    """The shard views of a ``PartitionedGraph``'s CSC, one a shard it
+    holds (``pg.local_shards``).
 
     ``edge_weight``: None, ``"csc"`` (the partition's
     ``csc_edge_values``, SSSP's pull-relax weights), or a callable
-    ``(src_global, dst_local, shard) -> float32`` over a shard's edges
+    ``(src_global, dst_local, local shard) -> float32`` over a shard's
+    edges
     (PageRank's 1/outdeg(src)), evaluated once here, as the JAX package
     folds it into its layout."""
     if pg.csc_offsets is None:
@@ -87,6 +89,7 @@ def blocked_from_partition(pg, *, compact: bool = False,
     if compact and not pg.has_ghosts:
         raise ValueError("compact views need partition(with_ghosts=True)")
     p, S = pg.num_shards, pg.shard_size
+    L = pg.local_shards
     ids = pg.csc_local if compact else pg.csc_indices
     weights = None
     if edge_weight == "csc":
@@ -100,7 +103,7 @@ def blocked_from_partition(pg, *, compact: bool = False,
     n_values = S + p * pg.ghost_cap if compact else p * S
     ends = pg.csc_offsets[:, -1].tolist()
     views = []
-    for i in range(p):
+    for i in range(L):
         if callable(edge_weight):
             off = pg.csc_offsets[i].long()
             dst_local = torch.repeat_interleave(

@@ -32,8 +32,8 @@ from ..graph.csr import CsrGraph
 from ..graph.device import sync
 from ..utils.info import make_info
 from .comm import ghost_exchange
-from .mesh import Mesh, info_graph, make_mesh, mesh_of
-from .partition import PartitionedGraph, flat_rows, partition
+from .mesh import Mesh, info_graph, make_mesh, mesh_info, mesh_of
+from .partition import PartitionedGraph, flat_rows, for_mesh, partition
 
 __all__ = ["cc_sharded", "cc_sharded_device", "ShardedCcResult"]
 
@@ -62,40 +62,43 @@ def cc_sharded_device(pg: PartitionedGraph, *, mesh: Optional[Mesh] = None,
                       max_iters: Optional[int] = None,
                       comm_latency: int = 0):
     """Sharded CC in relabeled id space; returns ``(comp, iters)``: the
-    ``(p*S,)`` int32 representative of every vertex on the partition's
-    device (a relabeled id) and the superstep count."""
+    ``(p*S,)`` int32 representative of every vertex on the mesh's device
+    (a relabeled id; every rank gets all of them on a process-group
+    mesh) and the superstep count. ``vmask_new`` is ``(p*S,)``."""
     if not pg.has_ghosts:
         raise ValueError("sharded CC needs partition(with_ghosts=True)")
-    mesh_of(pg, mesh)
+    mesh = mesh_of(pg, mesh)
     p, S = pg.num_shards, pg.shard_size
-    V, dev = p * S, pg.device
+    L, V, dev = pg.local_shards, p * S, pg.device
     if max_iters is None:
         # min-label propagation crosses >= one boundary edge a superstep
         max_iters = pg.num_nodes + 16
     fwd = flat_rows(pg.row_offsets, pg.col_local, S + p * pg.fwd_ghost_cap)
     vid = torch.arange(V, dtype=torch.int32, device=dev)
-    comp = torch.where(vmask_new, vid, _NONE).view(p, S)
-    base = (torch.arange(p, device=dev) * S)[:, None]
+    comp = mesh.local(torch.where(vmask_new, vid, _NONE).view(p, S))
+    lbase = (torch.arange(L, device=dev) * S)[:, None]
+    gbase = lbase + pg.shard_lo * S
 
     def local_parent(c):
-        tgt = c.long() - base
+        tgt = c.long() - gbase
         islocal = (tgt >= 0) & (tgt < S)
-        got = c.reshape(-1)[(tgt.clamp(0, S - 1) + base).reshape(-1)]
-        return torch.where(islocal, got.view(p, S), c)
+        got = c.reshape(-1)[(tgt.clamp(0, S - 1) + lbase).reshape(-1)]
+        return torch.where(islocal, got.view(L, S), c)
 
     changed, it = 1, 0
     while changed > 0 and it < max_iters:
         table = ghost_exchange(comp, pg.fwd_ghost_send_idx,
-                               comm_latency=comm_latency)
+                               comm_latency=comm_latency, mesh=mesh)
         hooked = torch.minimum(comp, fwd.reduce(table, "min"))
         jumped = _jump(hooked, local_parent)
         if it % GLOBAL_EVERY == GLOBAL_EVERY - 1:
-            snap = jumped.reshape(-1).clone()
+            snap = mesh.all_gather(jumped).reshape(-1)
             jumped = _jump(jumped, lambda c: snap[c.long().clamp(0, V - 1)])
-        changed = int((jumped != comp).sum())
+        moved = (jumped != comp).sum(dim=1)
+        changed = sum(r[0] for r in mesh.read(moved[:, None]))
         comp = jumped
         it += 1
-    return comp.reshape(-1), it
+    return mesh.all_gather(comp).reshape(-1), it
 
 
 def cc_sharded(graph: CsrGraph, *, num_shards: int = None,
@@ -112,6 +115,7 @@ def cc_sharded(graph: CsrGraph, *, num_shards: int = None,
     with timer.time("partition_ms"):
         pg, perm = partition(graph, num_shards, method=partition_method,
                              seed=seed, with_ghosts=True, device=mesh.device)
+        pg = for_mesh(pg, mesh)
         vmask = np.zeros(pg.v_global_pad, bool)
         vmask[perm] = True
         sync(mesh.device)
@@ -141,7 +145,7 @@ def cc_sharded(graph: CsrGraph, *, num_shards: int = None,
                "ghost_cap": int(pg.fwd_ghost_cap),
                "comm_bytes_per_superstep":
                    num_shards * (num_shards - 1) * pg.fwd_ghost_cap * 4,
-               "comm_latency_rounds": comm_latency},
+               "comm_latency_rounds": comm_latency, **mesh_info(mesh)},
     )
     return ShardedCcResult(components=comp, num_components=num_components,
                            info=info)

@@ -3,20 +3,23 @@ ghost exchange.
 
 Counterpart of :mod:`gunrock_tpu.parallel.comm` (the reference's
 ``enactor_helper.cuh`` PushNeighbor and ``enactor_kernel.cuh:343``
-Make_Output_Kernel). Every shard lies on one device
-(``parallel/mesh.py``), so the collectives are tensor operations over
-the leading shard axis of stacked tensors, and take no axis name:
+Make_Output_Kernel). The collectives are the mesh's
+(``parallel/mesh.py``): on the stacked mesh tensor operations over the
+leading shard axis of stacked tensors, on a process-group mesh
+``torch.distributed`` calls, one shard a rank:
 
   * ``jax.lax.all_to_all(x, tiled=True)`` of each shard's ``(p, B)``
-    buffer is ``x.transpose(0, 1)`` of the stacked ``(p, p, B)`` tensor;
-  * ``all_gather`` is a reshape of the stacked tensor;
-  * ``psum``, ``pmin`` and ``pmax`` are reductions over dim 0.
+    buffer is :meth:`Mesh.all_to_all` (a transpose of the stacked
+    ``(p, p, B)`` tensor);
+  * ``all_gather`` is :meth:`Mesh.all_gather`;
+  * ``psum``, ``pmin`` and ``pmax`` are :meth:`Mesh.psum`, ... .
 
 :func:`bucket_by_owner` works on one shard's lanes, as the JAX function
 does inside ``shard_map``; stack its outputs to exchange them. The
 primitives' push steps (``parallel/bfs.py``, ``parallel/sssp.py``) route
-every shard's lanes at once with :func:`route_by_owner`, which gives the
-same receive order without the ``(p, p, B)`` buffers.
+the local shards' lanes at once with :func:`route_by_owner` and send them
+with :meth:`Mesh.push`, which gives the same receive order without the
+``(p, p, B)`` buffers.
 """
 
 from __future__ import annotations
@@ -26,26 +29,33 @@ from typing import Sequence
 import torch
 
 from ..utils.track import inject_latency
+from .mesh import Mesh
 
-__all__ = ["bucket_by_owner", "exchange", "recv_mask", "ghost_exchange",
-           "route_by_owner", "first_per_shard", "ShardAdvance"]
+__all__ = ["shift", "bucket_by_owner", "exchange", "recv_mask",
+           "ghost_exchange", "route_by_owner", "first_per_shard",
+           "ShardAdvance"]
 
 
 def ghost_exchange(values: torch.Tensor, send_idx: torch.Tensor, *,
-                   comm_latency: int = 0) -> torch.Tensor:
-    """Boundary-only value exchange: stacked ``(p, S)`` values -> the
-    ``(p, S + p*ghost_cap)`` compact value tables that ``csc_local`` (or
-    ``col_local``) address.
+                   comm_latency: int = 0, mesh=None) -> torch.Tensor:
+    """Boundary-only value exchange: the local shards' ``(L, S)`` values
+    -> their ``(L, S + p*ghost_cap)`` compact value tables that
+    ``csc_local`` (or ``col_local``) address.
 
-    ``send_idx[i]`` is shard i's ``(p, ghost_cap)`` producer table (row j
-    = the local ids of i's vertices that shard j reads); shard j's table
-    is its own values, then what each shard i sent it, in order of i
-    (reference PushNeighbor associates, ``enactor_helper.cuh:297-405``)."""
-    p = values.shape[0]
-    rows = torch.arange(p, device=values.device)[:, None, None]
-    send = values[rows, send_idx.long()]               # (p, p, G)
-    recv = inject_latency(send.transpose(0, 1), comm_latency)
-    return torch.cat([values, recv.reshape(p, -1)], dim=1)
+    ``send_idx[i]`` is local shard i's ``(p, ghost_cap)`` producer table
+    (row j = the local ids of i's vertices that shard j reads); shard
+    j's table is its own values, then what each shard i sent it, in
+    order of i (reference PushNeighbor associates,
+    ``enactor_helper.cuh:297-405``). ``mesh``: the mesh whose
+    all-to-all carries the values (default: every shard stacked on
+    ``values``' device)."""
+    L = values.shape[0]
+    if mesh is None:
+        mesh = Mesh(device=values.device, num_shards=L)
+    rows = torch.arange(L, device=values.device)[:, None, None]
+    send = values[rows, send_idx.long()]               # (L, p, G)
+    recv = inject_latency(mesh.all_to_all(send), comm_latency)
+    return torch.cat([values, recv.reshape(L, -1)], dim=1)
 
 
 def bucket_by_owner(owner: torch.Tensor, mask: torch.Tensor,
@@ -132,33 +142,44 @@ def first_per_shard(shard: torch.Tensor, num_shards: int,
         - start[shard] < cap
 
 
+def shift(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x + k``, or ``x`` itself where ``k`` is 0: ids move between the
+    global and the local numbering only on a rank of a process-group
+    mesh, and the stacked mesh's host loops launch nothing for it."""
+    return x + k if k else x
+
+
 class ShardAdvance:
-    """Every shard's push advance at once over a partition's stacked CSR
-    (``row_offsets`` shard-local, ``col_indices`` global ids): a
+    """The local shards' push advance at once over a partition's stacked
+    CSR (``row_offsets`` shard-local, ``col_indices`` global ids): a
     frontier of global ids, grouped by shard in each shard's order,
     expands to one lane an out-edge, in frontier order and then CSR
     order, as each shard's ``_expand_csr`` orders its lanes in the JAX
-    package. ``deg`` is every vertex's out-degree, ``(p*S,)``."""
+    package. ``deg`` is every local vertex's out-degree, ``(L*S,)``
+    (``L = pg.local_shards``), indexed by global id minus ``base``."""
 
     def __init__(self, pg):
-        self.p, self.S = pg.num_shards, pg.shard_size
+        self.L, self.S = pg.local_shards, pg.shard_size
+        self.lo = pg.shard_lo
+        self.base = pg.shard_lo * pg.shard_size
         row = pg.row_offsets.long()
         e = pg.col_indices.shape[1]
         self.deg = (row[:, 1:] - row[:, :-1]).reshape(-1)
         self.start = (row[:, :-1] + torch.arange(
-            self.p, device=row.device)[:, None] * e).reshape(-1)
+            self.L, device=row.device)[:, None] * e).reshape(-1)
         self.col = pg.col_indices.reshape(-1)
 
     def expand(self, frontier: torch.Tensor):
         """``(src, dst, eid, sender, totals)``: each lane's source and
         destination (global ids; int32 and int64), its position in the
-        flattened stacked edge arrays, its sender shard, and each shard's
-        lane count (a list, read from the device once)."""
-        f = frontier.long()
+        flattened stacked edge arrays, its sender shard, and each local
+        shard's lane count (a list, read from the device once)."""
+        f = shift(frontier.long(), -self.base)
         d = self.deg[f]
-        sender_f = f // self.S
-        tot = torch.zeros(self.p, dtype=torch.int64, device=f.device)
-        tot.index_add_(0, sender_f, d)
+        local_f = f // self.S
+        tot = torch.zeros(self.L, dtype=torch.int64, device=f.device)
+        tot.index_add_(0, local_f, d)
+        sender_f = shift(local_f, self.lo)
         totals = tot.tolist()
         total = sum(totals)
         ends = torch.cumsum(d, 0)

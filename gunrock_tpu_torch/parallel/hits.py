@@ -25,8 +25,8 @@ from ..graph.csr import CsrGraph
 from ..graph.device import sync
 from ..utils.info import make_info
 from .comm import ghost_exchange
-from .mesh import Mesh, info_graph, make_mesh, mesh_of
-from .partition import PartitionedGraph, flat_rows, partition
+from .mesh import Mesh, info_graph, make_mesh, mesh_info, mesh_of
+from .partition import PartitionedGraph, flat_rows, for_mesh, partition
 
 __all__ = ["hits_sharded", "salsa_sharded", "ShardedLinkResult"]
 
@@ -43,15 +43,16 @@ def link_sharded_device(pg: PartitionedGraph, kind: str, *,
                         mesh: Optional[Mesh] = None, comm_latency: int = 0):
     """``max_iters`` HITS (``kind="hits"``) or SALSA iterations on a
     partition made ``with_csc`` and ``with_ghosts``; returns ``(hub,
-    auth)``, ``(p*S,)`` float32 on the partition's device."""
+    auth)``, ``(p*S,)`` float32 on the mesh's device (all of them on
+    every rank of a process-group mesh)."""
     if not pg.has_ghosts:
         raise ValueError(f"sharded {kind} needs partition(with_csc=True, "
                          "with_ghosts=True)")
-    mesh_of(pg, mesh)
+    mesh = mesh_of(pg, mesh)
     p, S, n = pg.num_shards, pg.shard_size, pg.num_nodes
     bwd = flat_rows(pg.csc_offsets, pg.csc_local, S + p * pg.ghost_cap)
     fwd = flat_rows(pg.row_offsets, pg.col_local, S + p * pg.fwd_ghost_cap)
-    vmask = vmask_new.view(p, S)
+    vmask = mesh.local(vmask_new.view(p, S))
     out_deg = torch.diff(pg.row_offsets, dim=1).to(torch.float32)
     in_deg = torch.diff(pg.csc_offsets, dim=1).to(torch.float32)
     inv_out = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1.0), 0.0)
@@ -61,22 +62,27 @@ def link_sharded_device(pg: PartitionedGraph, kind: str, *,
     auth = hub
 
     def normalize(x):
-        return x / torch.clamp(x.max(), min=1e-12)
+        # the largest entry over every shard (pmax)
+        top = mesh.pmax(x.amax(dim=1))
+        return x / torch.clamp(top, min=1e-12)
 
     for _ in range(max_iters):
         contrib = hub if kind == "hits" else hub * inv_out
         auth = bwd.reduce(ghost_exchange(contrib, pg.ghost_send_idx,
-                                         comm_latency=comm_latency), "sum")
+                                         comm_latency=comm_latency,
+                                         mesh=mesh), "sum")
         auth = torch.where(vmask, auth, 0.0)
         if kind == "hits":
             auth = normalize(auth)
         fcontrib = auth if kind == "hits" else auth * inv_in
         hub = fwd.reduce(ghost_exchange(fcontrib, pg.fwd_ghost_send_idx,
-                                        comm_latency=comm_latency), "sum")
+                                        comm_latency=comm_latency,
+                                        mesh=mesh), "sum")
         hub = torch.where(vmask, hub, 0.0)
         if kind == "hits":
             hub = normalize(hub)
-    return hub.reshape(-1), auth.reshape(-1)
+    return (mesh.all_gather(hub).reshape(-1),
+            mesh.all_gather(auth).reshape(-1))
 
 
 def _link_sharded(kind: str, graph: CsrGraph, *, num_shards, max_iters,
@@ -91,6 +97,7 @@ def _link_sharded(kind: str, graph: CsrGraph, *, num_shards, max_iters,
         pg, perm = partition(graph, num_shards, method=partition_method,
                              seed=seed, with_csc=True, with_ghosts=True,
                              device=mesh.device)
+        pg = for_mesh(pg, mesh)
         vmask_new = np.zeros(pg.v_global_pad, bool)
         vmask_new[perm] = True
         sync(mesh.device)
@@ -113,7 +120,7 @@ def _link_sharded(kind: str, graph: CsrGraph, *, num_shards, max_iters,
                "fwd_ghost_cap": int(pg.fwd_ghost_cap),
                "comm_bytes_per_superstep": int(bytes_per_step),
                "comm_bytes": int(bytes_per_step) * int(max_iters),
-               "comm_latency_rounds": comm_latency},
+               "comm_latency_rounds": comm_latency, **mesh_info(mesh)},
     )
     return ShardedLinkResult(hubs=hub[perm], auths=auth[perm], info=info)
 

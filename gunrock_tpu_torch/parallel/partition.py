@@ -31,7 +31,7 @@ from ..graph.csr import CsrGraph
 from ..graph.device import resolve_device, round_up
 from ..ops.segment import row_reduce_sorted
 
-__all__ = ["PartitionedGraph", "partition", "make_permutation",
+__all__ = ["PartitionedGraph", "partition", "make_permutation", "for_mesh",
            "label_propagation", "multilevel_partition",
            "boundary_fraction"]
 
@@ -46,7 +46,8 @@ _FLOATS = ("edge_values", "csc_edge_values")
 @dataclasses.dataclass(frozen=True)
 class PartitionedGraph:
     """Vertex-sharded CSR in relabeled id space, stacked on a leading
-    shard axis, every tensor on one device.
+    shard axis, every tensor on one device: every shard, or one shard
+    (a rank of a process-group mesh, :meth:`shard`).
 
     Shard ``i`` owns relabeled vertices ``[i*shard_size,
     (i+1)*shard_size)`` and stores the CSR rows of exactly those
@@ -83,10 +84,35 @@ class PartitionedGraph:
     col_local: Optional[torch.Tensor] = None       # (p, e_shard_pad) int32
     fwd_ghost_send_idx: Optional[torch.Tensor] = None
     fwd_ghost_cap: int = 0
+    # The first shard held: 0, or the shard a rank of a process-group
+    # mesh holds (:meth:`shard`). The one field the JAX
+    # ``PartitionedGraph`` lacks: it always holds every shard.
+    shard_lo: int = 0
 
     @property
     def v_global_pad(self) -> int:
         return self.num_shards * self.shard_size
+
+    @property
+    def local_shards(self) -> int:
+        """The shards held: the length of every array's leading axis."""
+        return self.row_offsets.shape[0]
+
+    def shard(self, i: int) -> "PartitionedGraph":
+        """Shard ``i`` alone, as a rank of a process-group mesh holds it:
+        row ``i`` of every stacked array (copies, so the rest can be
+        freed), with ``ghost_send_idx[i]`` the tables of what ``i`` sends
+        each peer."""
+        if self.local_shards != self.num_shards:
+            raise ValueError("shard() slices a partition holding every "
+                             "shard")
+        kw = {f.name: getattr(self, f.name)
+              for f in dataclasses.fields(self)}
+        for k in _ARRAYS:
+            if kw[k] is not None:
+                kw[k] = kw[k][i:i + 1].clone()
+        kw["shard_lo"] = int(i)
+        return PartitionedGraph(**kw)
 
     @property
     def has_ghosts(self) -> bool:
@@ -97,13 +123,16 @@ class PartitionedGraph:
         return self.row_offsets.device
 
     @classmethod
-    def from_numpy(cls, fields: dict, device="cuda") -> "PartitionedGraph":
+    def from_numpy(cls, fields: dict, device="cuda",
+                   shard: Optional[int] = None) -> "PartitionedGraph":
         """Build a partitioned graph from its fields as numpy arrays (and
         ints): the JAX ``PartitionedGraph``'s arrays, read with
         ``np.asarray``, carried across unchanged, so that both packages'
         ``*_sharded_device`` functions can run on one partition. Arrays
         take their dtype here (int32 ids and offsets, float32 values);
-        absent or None fields stay None."""
+        absent or None fields stay None. ``shard``: keep that shard's row
+        of every array alone, as a rank of a process-group mesh holds it
+        (:meth:`shard`)."""
         dev = resolve_device(device)
         kw = {k: int(fields.get(k) or 0) for k in _META}
         for k in _ARRAYS:
@@ -111,12 +140,21 @@ class PartitionedGraph:
             if a is None:
                 kw[k] = None
                 continue
+            if shard is not None:
+                a = np.asarray(a)[shard:shard + 1]
             a = np.ascontiguousarray(
                 a, dtype=np.float32 if k in _FLOATS else np.int32)
             # a JAX array read with np.asarray is read-only
             kw[k] = torch.from_numpy(
                 a if a.flags.writeable else a.copy()).to(dev)
-        return cls(**kw)
+        return cls(**kw, shard_lo=0 if shard is None else int(shard))
+
+
+def for_mesh(pg: PartitionedGraph, mesh) -> PartitionedGraph:
+    """The shards of ``pg`` that ``mesh`` holds here: all of them on the
+    stacked mesh, the rank's own on a process-group mesh (every rank
+    runs the same seeded partition and keeps its row)."""
+    return pg.shard(mesh.shard_lo) if mesh.distributed else pg
 
 
 def _expand_frontier(row: np.ndarray, col: np.ndarray,

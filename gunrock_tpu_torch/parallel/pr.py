@@ -29,8 +29,8 @@ from ..ops.pull2 import pull_reduce2
 from ..utils.info import make_info
 from .blocked import ShardedBlocked, blocked_from_partition
 from .comm import ghost_exchange
-from .mesh import Mesh, info_graph, make_mesh, mesh_of
-from .partition import PartitionedGraph, flat_rows, partition
+from .mesh import Mesh, info_graph, make_mesh, mesh_info, mesh_of
+from .partition import PartitionedGraph, flat_rows, for_mesh, partition
 
 __all__ = ["pagerank_sharded", "pagerank_sharded_device",
            "ShardedPrResult"]
@@ -45,8 +45,8 @@ class ShardedPrResult:
 
 def shard_pull_sum(table: torch.Tensor, blocked: ShardedBlocked
                    ) -> torch.Tensor:
-    """``(p, S)``: kernel K3 (sum, ``mul`` by the views' per-edge
-    weights) over each shard's row of the compact ``table``."""
+    """``(L, S)``: kernel K3 (sum, ``mul`` by the views' per-edge
+    weights) over each local shard's row of the compact ``table``."""
     return torch.stack([pull_reduce2(table[i], view, op="sum", wmode="mul")
                         for i, view in enumerate(blocked.views)])
 
@@ -65,12 +65,13 @@ def pagerank_sharded_device(pg: PartitionedGraph, *,
     (float32 out-degrees, real-vertex mask) in relabeled ids."""
     if not pg.has_ghosts:
         raise ValueError("sharded PageRank needs partition(with_ghosts=True)")
-    mesh_of(pg, mesh)
+    mesh = mesh_of(pg, mesh)
     p, S, n = pg.num_shards, pg.shard_size, pg.num_nodes
+    L = pg.local_shards
     reset = (1.0 - damping) / n if normalized else (1.0 - damping)
     csc = flat_rows(pg.csc_offsets, pg.csc_local, S + p * pg.ghost_cap)
-    out_deg = out_degrees_new.to(torch.float32).view(p, S)
-    vmask = vmask_new.view(p, S)
+    out_deg = mesh.local(out_degrees_new.to(torch.float32).view(p, S))
+    vmask = mesh.local(vmask_new.view(p, S))
     inv_deg = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1.0), 0.0)
     rank = torch.where(vmask, (1.0 / n) if normalized else (1.0 - damping),
                        0.0).to(torch.float32)
@@ -81,17 +82,18 @@ def pagerank_sharded_device(pg: PartitionedGraph, *,
             # Plain ranks over the boundary; 1/outdeg(src) is in the
             # views' edge weights.
             table = ghost_exchange(rank, pg.ghost_send_idx,
-                                   comm_latency=comm_latency)
+                                   comm_latency=comm_latency, mesh=mesh)
             incoming = shard_pull_sum(table, blocked)
         else:
             table = ghost_exchange(rank * inv_deg, pg.ghost_send_idx,
-                                   comm_latency=comm_latency)
+                                   comm_latency=comm_latency, mesh=mesh)
             incoming = csc.reduce(table, "sum")
         new_rank = torch.where(vmask, reset + damping * incoming, 0.0)
-        num_updated = int((vmask & ((new_rank - rank).abs() > thresh)).sum())
+        moved = (vmask & ((new_rank - rank).abs() > thresh)).sum(dim=1)
+        num_updated = sum(r[0] for r in mesh.read(moved[:, None]))
         rank = new_rank
         it += 1
-    return rank.reshape(-1), it
+    return mesh.all_gather(rank).reshape(-1), it
 
 
 def pagerank_sharded(graph: CsrGraph, *, num_shards: int = None,
@@ -118,6 +120,7 @@ def pagerank_sharded(graph: CsrGraph, *, num_shards: int = None,
         pg, perm = partition(graph, num_shards, method=partition_method,
                              seed=seed, with_csc=True, with_ghosts=True,
                              device=dev)
+        pg = for_mesh(pg, mesh)
         v_pad = pg.v_global_pad
         out_deg_new = np.zeros(v_pad, np.float32)
         out_deg_new[perm] = np.diff(graph.row_offsets).astype(np.float32)
@@ -155,6 +158,6 @@ def pagerank_sharded(graph: CsrGraph, *, num_shards: int = None,
                "ghost_cap": int(pg.ghost_cap),
                "comm_bytes_per_superstep": int(bytes_per_step),
                "comm_bytes": int(bytes_per_step) * int(iters),
-               "comm_latency_rounds": comm_latency},
+               "comm_latency_rounds": comm_latency, **mesh_info(mesh)},
     )
     return ShardedPrResult(ranks=ranks_old, node_ids=order, info=info)

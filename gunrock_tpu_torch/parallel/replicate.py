@@ -7,8 +7,9 @@ throughput on batched queries). The sources are padded to ``p * k`` and
 shard ``i`` takes sources ``i * k .. (i + 1) * k - 1``; each runs the
 port's single-card loop (``models.bfs.bfs_device``,
 ``models.bc.bc_device``) on the one uploaded graph, and the per-vertex
-results combine with one sum over shards. The shards share one device
-(``parallel/mesh.py``), so they run one after another.
+results combine with one sum over shards. On the stacked mesh the
+shards share one device and run one after another; on a process-group
+mesh each rank runs its own sources on its own upload.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..graph.device import DeviceGraph, sync, to_device
 from ..models.bc import bc_device
 from ..models.bfs import bfs_device
 from ..utils.info import make_info
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, make_mesh, mesh_info
 
 __all__ = ["bc_batch", "bfs_batch", "BatchBcResult", "BatchBfsResult"]
 
@@ -79,22 +80,23 @@ def bc_batch(graph: Union[CsrGraph, DeviceGraph],
     num_nodes = graph.num_nodes
     dg, table, mesh = _prep(graph, sources, mesh, timer, device)
     with timer.time("process_ms"):
-        acc = torch.zeros((mesh.num_shards, dg.v_pad), dtype=torch.float32,
+        acc = torch.zeros((mesh.local_shards, dg.v_pad), dtype=torch.float32,
                           device=mesh.device)
-        for i, shard_sources in enumerate(table.tolist()):
+        for i, shard_sources in enumerate(mesh.local(table).tolist()):
             for s in shard_sources:
                 if s >= 0:
                     vals, _, _, _ = bc_device(dg, s,
                                               queue_sizing=queue_sizing)
                     acc[i] += vals
-        vals = acc.sum(dim=0)[:num_nodes].cpu().numpy()
+        vals = mesh.psum(acc)[:num_nodes].cpu().numpy()
 
     n_src = int((table >= 0).sum())
     info = make_info(
         primitive="bc_batch", graph=dg, timer=timer,
         edges_visited=2 * dg.num_edges * n_src,
         extra={"num_sources": n_src, "num_shards": mesh.num_shards,
-               "replicated": True, "partition_method": "duplicate"},
+               "replicated": True, "partition_method": "duplicate",
+               **mesh_info(mesh)},
     )
     return BatchBcResult(bc_values=(vals * 0.5).astype(np.float32),
                          info=info)
@@ -111,18 +113,25 @@ def bfs_batch(graph: Union[CsrGraph, DeviceGraph],
     dg, table, mesh = _prep(graph, sources, mesh, timer, device)
     with timer.time("process_ms"):
         rows = []
-        for shard_sources in table.tolist():
+        for shard_sources in mesh.local(table).tolist():
             for s in shard_sources:
+                row = torch.full((num_nodes,), -1, dtype=torch.int32,
+                                 device=mesh.device)
                 if s >= 0:
-                    labels, _, _ = bfs_device(dg, s,
-                                              queue_sizing=queue_sizing)
-                    rows.append(labels[:num_nodes])
-        labels = torch.stack(rows).cpu().numpy()
+                    row = bfs_device(dg, s, queue_sizing=queue_sizing)[0]
+                rows.append(row[:num_nodes])
+        # every shard's k rows, gathered in source order; pads dropped
+        labels = mesh.all_gather(torch.stack(rows).view(
+            mesh.local_shards, -1, num_nodes)).reshape(-1, num_nodes)
+        labels = labels[torch.from_numpy(table.reshape(-1) >= 0).to(
+            labels.device)].cpu().numpy()
 
     info = make_info(
         primitive="bfs_batch", graph=dg, timer=timer,
-        edges_visited=dg.num_edges * len(rows),
-        extra={"num_sources": len(rows), "num_shards": mesh.num_shards,
-               "replicated": True, "partition_method": "duplicate"},
+        edges_visited=dg.num_edges * int(labels.shape[0]),
+        extra={"num_sources": int(labels.shape[0]),
+               "num_shards": mesh.num_shards,
+               "replicated": True, "partition_method": "duplicate",
+               **mesh_info(mesh)},
     )
     return BatchBfsResult(labels=labels, info=info)

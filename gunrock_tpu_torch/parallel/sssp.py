@@ -13,7 +13,7 @@ vertices each superstep, ``app/sssp/sssp_enactor.cuh:666``):
 Scheduling is the JAX package's: ``bellman`` relaxes every improved
 vertex next round; ``nearfar`` keeps a near/far pile whose threshold
 jumps past the global minimum active distance when the near bucket is
-empty (one ``pmin`` there, a reduction over every shard here), computed
+empty (one ``pmin`` there, a read of every shard's minimum here), computed
 in float32 as there. A superstep pulls when the frontier's out-edges
 over every shard pass ``num_edges // pull_frac`` and the shard views
 (``blocked``) are given. The loop runs on the host, one read of its
@@ -36,9 +36,9 @@ from ..ops.pull2 import pull_reduce2
 from ..utils.info import make_info
 from .blocked import ShardedBlocked, blocked_from_partition
 from .comm import (ShardAdvance, first_per_shard, ghost_exchange,
-                   route_by_owner)
-from .mesh import Mesh, info_graph, make_mesh, mesh_of
-from .partition import PartitionedGraph, partition
+                   route_by_owner, shift)
+from .mesh import Mesh, info_graph, make_mesh, mesh_info, mesh_of
+from .partition import PartitionedGraph, for_mesh, partition
 
 __all__ = ["sssp_sharded", "sssp_sharded_device", "ShardedSsspResult"]
 
@@ -74,9 +74,10 @@ def sssp_sharded_device(pg: PartitionedGraph, src_new: int, *,
     if blocked is not None and not pg.has_ghosts:
         raise ValueError("blocked pull-relax needs partition("
                          "with_ghosts=True)")
-    mesh_of(pg, mesh)
+    mesh = mesh_of(pg, mesh)
     p, S = pg.num_shards, pg.shard_size
-    V, dev = p * S, pg.device
+    L, lo, dev = pg.local_shards, pg.shard_lo, pg.device
+    base = lo * S
     fcap = max(128, int(S * min(queue_sizing, 1.0)))
     out_cap = max(128, int(pg.e_shard_pad * min(queue_sizing, 1.0)))
     per_peer_cap = max(128, int(out_cap * min(in_sizing, 1.0)))
@@ -92,46 +93,58 @@ def sssp_sharded_device(pg: PartitionedGraph, src_new: int, *,
     weights = pg.edge_values.reshape(-1)
 
     def push_step(dist, frontier):
-        """Every shard's relax -> owner-routed (dst, cand) -> scatter-min.
-        Returns (dist, improved mask, overflow, bytes sent)."""
+        """The local shards' relax -> owner-routed (dst, cand), exchanged
+        -> scatter-min. Returns (dist, improved mask, overflow, bytes
+        sent a local shard: an (L,) tensor, read with the superstep's
+        scalars)."""
         src, dst, eid, sender, tot_l = adv.expand(frontier)
-        cand = dist[src.long()] + weights[eid]
+        cand = dist[shift(src.long(), -base)] + weights[eid]
         ovf = max(tot_l, default=0) > out_cap
         if ovf:
             keep = first_per_shard(sender, p, out_cap)
             dst, cand, sender = dst[keep], cand[keep], sender[keep]
-        counts, kept = route_by_owner(sender, dst // S, p, per_peer_cap)
+        owner = dst // S
+        counts, kept = route_by_owner(sender, owner, p, per_peer_cap)
         if kept is not None:
             ovf = True
-            dst, cand = dst[kept], cand[kept]
-        sent = int(counts.clamp(max=per_peer_cap).sum()) * 8
-        new_dist = dist.clone().scatter_reduce_(0, dst, cand, "amin")
+            dst, cand, owner = dst[kept], cand[kept], owner[kept]
+        sent = counts[lo:lo + L].clamp(max=per_peer_cap).sum(dim=1) * 8
+        dst, cand = mesh.push(owner, [dst, cand])
+        new_dist = dist.clone().scatter_reduce_(0, shift(dst, -base), cand,
+                                                "amin")
         return new_dist, new_dist < dist, ovf, sent
 
     def pull_step(dist, frontier):
         """Frontier-masked distances through the boundary exchange, K3
-        min over each shard's compact in-edges."""
-        fmask = torch.zeros(V, dtype=torch.bool, device=dev)
-        fmask[frontier.long()] = True
-        masked = torch.where(fmask, dist, INF).view(p, S)
-        table = ghost_exchange(masked, pg.ghost_send_idx)
+        min over each local shard's compact in-edges."""
+        fmask = torch.zeros(L * S, dtype=torch.bool, device=dev)
+        fmask[shift(frontier.long(), -base)] = True
+        masked = torch.where(fmask, dist, INF).view(L, S)
+        table = ghost_exchange(masked, pg.ghost_send_idx, mesh=mesh)
         cand = torch.stack([
             pull_reduce2(table[i], view, op="min", wmode="add")
             for i, view in enumerate(blocked.views)]).reshape(-1)
         new_dist = torch.minimum(dist, cand)
-        return new_dist, new_dist < dist, False, \
-            p * (p - 1) * pg.ghost_cap * 4
+        return new_dist, new_dist < dist, False, torch.full(
+            (L,), (p - 1) * pg.ghost_cap * 4, dtype=torch.int64, device=dev)
 
     src_new = int(src_new)
-    dist = torch.full((V,), INF, dtype=torch.float32, device=dev)
-    dist[src_new] = 0.0
-    frontier = torch.tensor([src_new], dtype=torch.int32, device=dev)
-    active = torch.zeros(V, dtype=torch.bool, device=dev)
+    own = 0 <= src_new - base < L * S
+    dist = torch.full((L * S,), INF, dtype=torch.float32, device=dev)
+    if own:
+        dist[src_new - base] = 0.0
+    frontier = torch.tensor([src_new] if own else [], dtype=torch.int32,
+                            device=dev)
+    active = torch.zeros(L * S, dtype=torch.bool, device=dev)
     level = f32(delta if nearfar else np.inf)
     n_global, it, ovf, comm_bytes = 1, 0, False, f32(0)
+    # The frontier's out-edges over every shard, read with the
+    # superstep's scalars.
+    m_f = sum(r[0] for r in mesh.read(
+        [[int(deg[src_new - base]) if own and i == 0 else 0]
+         for i in range(L)]))
     while n_global > 0 and it < max_iters and not ovf:
-        use_pull = (blocked is not None and
-                    int(deg[frontier.long()].sum()) > pull_edges)
+        use_pull = blocked is not None and m_f > pull_edges
         dist, imp, step_ovf, sent = (pull_step if use_pull else push_step)(
             dist, frontier)
         if nearfar:
@@ -140,9 +153,10 @@ def sssp_sharded_device(pg: PartitionedGraph, src_new: int, *,
             # minimum active distance, strictly above it (near reads
             # dist < level), in float32 as the JAX package computes it.
             active = active | imp
-            any_near = bool((active & (dist < float(level))).any())
-            if not any_near:
-                gmin = f32(float(torch.where(active, dist, INF).min()))
+            near = (active & (dist < float(level))).view(L, S).any(dim=1)
+            if not any(r[0] for r in mesh.read(near.view(L, 1))):
+                least = torch.where(active, dist, INF).view(L, S).amin(dim=1)
+                gmin = f32(min(r[0] for r in mesh.read(least.view(L, 1))))
                 new_level = f32(delta32 * f32(np.floor(gmin / delta32)
                                               + f32(1.0)))
                 if not new_level > gmin:
@@ -153,16 +167,28 @@ def sssp_sharded_device(pg: PartitionedGraph, src_new: int, *,
             active = active & ~near
         else:
             near = imp
-        frontier = torch.nonzero(near).flatten().to(torch.int32)
-        shard = frontier.long() // S
-        rebuild_ovf = int(torch.bincount(shard, minlength=p).max()) > fcap
+        # Each local shard's frontier count and out-edges, summed over
+        # its rows (no atomics onto L counters).
+        slots = torch.nonzero(near).flatten()
+        n_l = near.view(L, S).sum(dim=1)
+        rebuild_ovf = int(n_l.max()) > fcap
         if rebuild_ovf:
-            frontier = frontier[first_per_shard(shard, p, fcap)]
-        n_global = frontier.shape[0]
-        ovf = ovf or step_ovf or rebuild_ovf
-        comm_bytes = f32(comm_bytes + f32(sent))
+            slots = slots[first_per_shard(slots // S, L, fcap)]
+            near = torch.zeros_like(near)
+            near[slots] = True
+            n_l = n_l.clamp(max=fcap)
+        frontier = shift(slots, base).to(torch.int32)
+        m_l = torch.where(near, deg, 0).view(L, S).sum(dim=1)
+        rows = mesh.read(torch.stack([
+            n_l, m_l, sent,
+            torch.full((L,), int(step_ovf or rebuild_ovf), device=dev)],
+            dim=1))
+        n_global = sum(r[0] for r in rows)
+        m_f = sum(r[1] for r in rows)
+        ovf = ovf or any(r[3] for r in rows)
+        comm_bytes = f32(comm_bytes + f32(sum(r[2] for r in rows)))
         it += 1
-    return dist, it, ovf, comm_bytes
+    return mesh.all_gather(dist.view(L, S)).reshape(-1), it, ovf, comm_bytes
 
 
 def sssp_sharded(graph: CsrGraph, src: int = 0, *, num_shards: int = None,
@@ -197,6 +223,7 @@ def sssp_sharded(graph: CsrGraph, src: int = 0, *, num_shards: int = None,
                              seed=seed, with_edge_values=True,
                              with_csc=use_blocked, with_ghosts=use_blocked,
                              device=mesh.device)
+        pg = for_mesh(pg, mesh)
         blocked = (blocked_from_partition(pg, compact=True,
                                           edge_weight="csc")
                    if use_blocked else None)
@@ -227,6 +254,6 @@ def sssp_sharded(graph: CsrGraph, src: int = 0, *, num_shards: int = None,
                "mode": mode, "delta": delta if mode == "nearfar" else None,
                "blocked_kernels": bool(use_blocked),
                "comm_bytes": float(comm_bytes),
-               "partition_method": partition_method},
+               "partition_method": partition_method, **mesh_info(mesh)},
     )
     return ShardedSsspResult(distances=dist_old, info=info)

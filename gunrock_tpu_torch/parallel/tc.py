@@ -23,7 +23,7 @@ from ..graph.csr import CsrGraph, from_coo
 from ..graph.device import sync
 from ..models.tc import _tc_prepare, tc_device
 from ..utils.info import make_info
-from .mesh import Mesh, info_graph, make_mesh
+from .mesh import Mesh, info_graph, make_mesh, mesh_info
 
 __all__ = ["tc_sharded", "ShardedTcResult"]
 
@@ -56,17 +56,18 @@ def tc_sharded(graph: CsrGraph, *, num_shards: int = None,
         row = torch.from_numpy(prep.row).to(dev)
         col = torch.from_numpy(prep.col).to(dev)
         esrc = torch.from_numpy(prep.esrc_full).to(dev)
-        vcounts = torch.zeros((p, prep.v_pad), dtype=torch.int64, device=dev)
-        totals = torch.zeros(p, dtype=torch.int64, device=dev)
+        L = mesh.local_shards
+        vcounts = torch.zeros((L, prep.v_pad), dtype=torch.int64, device=dev)
+        totals = torch.zeros((L, 1), dtype=torch.int64, device=dev)
         chunks = list(zip(prep.bounds, prep.bounds[1:]))
-        for i in range(p):
+        for li, i in enumerate(mesh.axis_index().tolist()):
             for a, b in chunks[i * cps:(i + 1) * cps]:
                 _, vc, tri, _ = tc_device(row, col, esrc, esrc[a:b],
                                           col[a:b])
-                vcounts[i] += vc
-                totals[i] += tri
-        tot = int(totals.sum())
-        vc = vcounts.sum(dim=0)[:g.num_nodes].cpu().numpy()
+                vcounts[li] += vc
+                totals[li] += tri
+        tot = int(mesh.psum(totals))
+        vc = mesh.psum(vcounts)[:g.num_nodes].cpu().numpy()
         sync(dev)
 
     info = make_info(
@@ -75,6 +76,6 @@ def tc_sharded(graph: CsrGraph, *, num_shards: int = None,
         extra={"num_shards": int(p), "num_triangles": tot,
                "wedges_probed": prep.wedge_total,
                "num_chunks": nchunks,
-               "chunks_per_shard": int(cps)},
+               "chunks_per_shard": int(cps), **mesh_info(mesh)},
     )
     return ShardedTcResult(total=tot, vertex_counts=vc, info=info)

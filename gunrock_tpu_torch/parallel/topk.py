@@ -21,8 +21,8 @@ from ..enactor import Timer
 from ..graph.csr import CsrGraph
 from ..graph.device import sync
 from ..utils.info import make_info
-from .mesh import Mesh, info_graph, make_mesh
-from .partition import partition
+from .mesh import Mesh, info_graph, make_mesh, mesh_info
+from .partition import for_mesh, partition
 
 __all__ = ["topk_sharded", "ShardedTopkResult"]
 
@@ -55,6 +55,7 @@ def topk_sharded(graph: CsrGraph, k: int = 10, *, num_shards: int = None,
     with timer.time("partition_ms"):
         pg, perm = partition(graph, num_shards, method=partition_method,
                              seed=seed, with_csc=True, device=dev)
+        pg = for_mesh(pg, mesh)
         vmask_new = np.zeros(pg.v_global_pad, bool)
         vmask_new[perm] = True
         sync(dev)
@@ -64,11 +65,13 @@ def topk_sharded(graph: CsrGraph, k: int = 10, *, num_shards: int = None,
     with timer.time("process_ms"):
         deg = torch.diff(pg.row_offsets, dim=1) + \
             torch.diff(pg.csc_offsets, dim=1)
-        vmask = torch.from_numpy(vmask_new).to(dev).view(p, S)
+        vmask = mesh.local(torch.from_numpy(vmask_new).to(dev).view(p, S))
         cent = torch.where(vmask, deg.to(torch.int32), -1)
-        vals, ids = _top(cent, kk)                          # (p, kk)
-        base = (torch.arange(p, device=dev) * S)[:, None]
+        vals, ids = _top(cent, kk)                          # (L, kk)
+        base = (mesh.axis_index() * S)[:, None]
         gids = torch.where(vals >= 0, ids + base, -1)
+        # every shard's candidates, pooled in shard order
+        vals, gids = mesh.all_gather(vals), mesh.all_gather(gids)
         gv, gpos = _top(vals.reshape(-1), k)
         ids_new = gids.reshape(-1)[gpos].cpu().numpy()
         gv = gv.cpu().numpy()
@@ -82,7 +85,8 @@ def topk_sharded(graph: CsrGraph, k: int = 10, *, num_shards: int = None,
         edges_visited=graph.num_edges,
         extra={"num_shards": int(num_shards), "top_nodes": int(k),
                "partition_method": partition_method,
-               "comm_bytes_per_superstep": int(p * kk * 8)},
+               "comm_bytes_per_superstep": int(p * kk * 8),
+               **mesh_info(mesh)},
     )
     return ShardedTopkResult(node_ids=ids_orig.astype(np.int32),
                              centralities=gv, info=info)

@@ -31,8 +31,8 @@ from ..graph.device import sync
 from ..models.wtf import COT_SIZE
 from ..utils.info import make_info
 from .comm import ghost_exchange
-from .mesh import Mesh, info_graph, make_mesh, mesh_of
-from .partition import PartitionedGraph, flat_rows, partition
+from .mesh import Mesh, info_graph, make_mesh, mesh_info, mesh_of
+from .partition import PartitionedGraph, flat_rows, for_mesh, partition
 
 __all__ = ["wtf_sharded", "ShardedWtfResult"]
 
@@ -53,26 +53,31 @@ def wtf_sharded_device(pg: PartitionedGraph, src_new: int, *,
     """The chain on a partition made ``with_csc`` and ``with_ghosts``;
     ``orig_id`` gives each relabeled vertex its original id (any value at
     pad slots). Returns ``(ppr, refscore, ppr_iters)``, ``(p*S,)``
-    float32 on the partition's device."""
-    mesh_of(pg, mesh)
+    float32 on the mesh's device (all of them on every rank of a
+    process-group mesh, which also selects the CoT from every shard's
+    PPR, gathered)."""
+    mesh = mesh_of(pg, mesh)
     p, S, n = pg.num_shards, pg.shard_size, pg.num_nodes
-    dev = pg.device
+    L, dev = pg.local_shards, pg.device
     bwd = flat_rows(pg.csc_offsets, pg.csc_local, S + p * pg.ghost_cap)
     fwd = flat_rows(pg.row_offsets, pg.col_local, S + p * pg.fwd_ghost_cap)
-    vmask = vmask_new.view(p, S)
+    vmask_all = vmask_new.view(p, S)
+    vmask = mesh.local(vmask_all)
     out_deg = torch.diff(pg.row_offsets, dim=1).to(torch.float32)
     inv_out = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1.0), 0.0)
     is_src = torch.zeros(p * S, dtype=torch.float32, device=dev)
     is_src[int(src_new)] = 1.0
-    is_src = is_src.view(p, S)
+    is_src = mesh.local(is_src.view(p, S))
 
     def csc_sweep(contrib):
         return bwd.reduce(ghost_exchange(contrib, pg.ghost_send_idx,
-                                         comm_latency=comm_latency), "sum")
+                                         comm_latency=comm_latency,
+                                         mesh=mesh), "sum")
 
     def fwd_sweep(contrib):
         return fwd.reduce(ghost_exchange(contrib, pg.fwd_ghost_send_idx,
-                                         comm_latency=comm_latency), "sum")
+                                         comm_latency=comm_latency,
+                                         mesh=mesh), "sum")
 
     # phase 1: personalized PageRank (wtf_functor.cuh:91,118)
     rank = torch.where(vmask, 1.0 / n, 0.0).to(torch.float32)
@@ -81,37 +86,36 @@ def wtf_sharded_device(pg: PartitionedGraph, src_new: int, *,
     while diff > thresh and it < max_iters:
         new_rank = delta * csc_sweep(rank * inv_out) + (1.0 - delta) * is_src
         new_rank = torch.where(vmask, new_rank, 0.0)
-        diff = np.float32(float((new_rank - rank).abs().sum(dim=1).sum()))
+        # the L1 change of each shard, summed over shards (a psum)
+        diff = np.float32(float(mesh.psum((new_rank - rank).abs()
+                                          .sum(dim=1)).sum()))
         rank = new_rank
         it += 1
-    ppr = rank
-
+    ppr = mesh.all_gather(rank)
     # phase 2: the CoT, by (-ppr, original id) over every real vertex
-    key = torch.where(vmask, -ppr, 2.0).reshape(-1)
-    oid = torch.where(vmask, orig_id.view(p, S), 2**30).reshape(-1)
+    key = torch.where(vmask_all, -ppr, 2.0).reshape(-1)
+    oid = torch.where(vmask_all, orig_id.view(p, S), 2**30).reshape(-1)
     by_id = torch.sort(oid, stable=True).indices
     top = by_id[torch.sort(key[by_id], stable=True).indices][:cot_cap]
     top = top[key[top] < 2.0]
     cot_f = torch.zeros(p * S, dtype=torch.float32, device=dev)
     cot_f[top] = 1.0
-    cot_f = cot_f.view(p, S)
-
+    cot_f = mesh.local(cot_f.view(p, S))
     # CoT in-degrees (CotFunctor atomicAdd, wtf_functor.cuh:219)
     cot_indeg = csc_sweep(cot_f)
     inv_cot_in = torch.where(cot_indeg > 0,
                              1.0 / cot_indeg.clamp(min=1.0), 0.0)
-
     # phase 3: personalized SALSA over CoT out-edges
     # (wtf_enactor.cuh:350-365); cot_f masks the edge sources.
     rank = is_src
-    refscore = torch.zeros((p, S), dtype=torch.float32, device=dev)
+    refscore = torch.zeros((L, S), dtype=torch.float32, device=dev)
     for _ in range(int(1.0 / alpha)):  # reference wtf_enactor.cuh:464
         refscore = csc_sweep(rank * inv_out * cot_f)
         hub = fwd_sweep(refscore * inv_cot_in)
         rank = cot_f * (is_src * alpha * inv_out * out_deg
                         + (1.0 - alpha) * hub)
     refscore = torch.where(vmask, refscore, 0.0)
-    return ppr.reshape(-1), refscore.reshape(-1), it
+    return ppr.reshape(-1), mesh.all_gather(refscore).reshape(-1), it
 
 
 def wtf_sharded(graph: CsrGraph, src: int = 0, *, delta: float = 0.85,
@@ -135,6 +139,7 @@ def wtf_sharded(graph: CsrGraph, src: int = 0, *, delta: float = 0.85,
         pg, perm = partition(graph, num_shards, method=partition_method,
                              seed=seed, with_csc=True, with_ghosts=True,
                              device=dev)
+        pg = for_mesh(pg, mesh)
         vmask_new = np.zeros(pg.v_global_pad, bool)
         vmask_new[perm] = True
         orig_id = np.full(pg.v_global_pad, 2**30, np.int32)
@@ -167,7 +172,7 @@ def wtf_sharded(graph: CsrGraph, src: int = 0, *, delta: float = 0.85,
                "ghost_cap": int(pg.ghost_cap),
                "fwd_ghost_cap": int(pg.fwd_ghost_cap),
                "comm_bytes_per_superstep": int(bytes_per_step),
-               "comm_latency_rounds": comm_latency},
+               "comm_latency_rounds": comm_latency, **mesh_info(mesh)},
     )
     return ShardedWtfResult(node_ids=order.astype(np.int32),
                             scores=ref_out[order], ppr_ranks=ppr_out,

@@ -1529,3 +1529,120 @@ def test_sharded_bfs_sssp_pagerank_on_cuda_equal_single_card(cuda):
     with pytest.raises(NotImplementedError):
         from gunrock_tpu_torch.parallel import make_mesh
         make_mesh(device=["cuda:0", "cpu"])
+
+
+def _csc_view(offsets, indices, weights, n_values):
+    """K3's graph fields over a CSC built on the card (no upload)."""
+    from gunrock_tpu_torch.parallel.blocked import ShardView
+    e = indices.shape[0]
+    return ShardView(csc_offsets=offsets, csc_indices=indices,
+                     csc_edge_values=weights, num_edges=e,
+                     v_pad=offsets.shape[0] - 1, e_pad=e, n_values=n_values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op, wmode", [("sum", "none"), ("min", "add")])
+def test_pull_reduce2_past_2_31_edges_equals_plain_in_chunks(cuda, op,
+                                                             wmode):
+    """K3's int64 instance over the circulant C(2^16; 1..2^14) (2^31
+    edges, int64 offsets) against its plain version in row chunks of
+    2^26 edges: min bitwise, sums within rtol 1e-5, atol 1e-6. About 16
+    GiB on the card (indices and weights)."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    n, h = 1 << 16, 1 << 14
+    pattern = torch.cat([torch.arange(-h, 0), torch.arange(1, h + 1)]).to(
+        cuda, torch.int32)
+    idx = torch.empty(n * 2 * h, dtype=torch.int32, device=cuda)
+    rows = idx.view(n, 2 * h)
+    for r0 in range(0, n, 2048):
+        v = torch.arange(r0, r0 + 2048, device=cuda, dtype=torch.int32)
+        rows[r0:r0 + 2048] = (v[:, None] + pattern[None, :]) & (n - 1)
+    offsets = torch.arange(n + 1, device=cuda, dtype=torch.int64) * (2 * h)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    w = None
+    if wmode == "add":
+        w = torch.randint(1, 65, (idx.shape[0],), device=cuda,
+                          generator=gen).float()
+    vals = torch.rand(n, device=cuda, generator=gen)
+    view = _csc_view(offsets, idx, w, n)
+    assert view.num_edges == 2**31
+    before = K.LAUNCHES["pull_reduce2"]
+    got = P.pull_reduce2(vals, view, op=op, wmode=wmode)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pull_reduce2"] == before + 1
+    for r0 in range(0, n, 2048):
+        e0, e1 = r0 * 2 * h, (r0 + 2048) * 2 * h
+        chunk = _csc_view(offsets[r0:r0 + 2049] - e0, idx[e0:e1],
+                          None if w is None else w[e0:e1], n)
+        want = P.pull_reduce2_plain(vals, chunk, op=op, wmode=wmode)
+        if op == "min":
+            assert torch.equal(got[r0:r0 + 2048], want)
+        else:
+            torch.testing.assert_close(got[r0:r0 + 2048], want, rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op, wmode", [("sum", "none"), ("sum", "mul"),
+                                       ("min", "add")])
+def test_pull_reduce2_int64_instance_equals_int32_at_flagship_size(
+        cuda, op, wmode):
+    """K3's int64 instance against its int32 one on a random CSC of the
+    flagship's size (2^20 rows, 2^25 edges, hub rows past a tile): the
+    same offsets in both widths give the same bits."""
+    from gunrock_tpu_torch.ops import pull2 as P
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    n = 1 << 20
+    deg = torch.randint(0, 63, (n,), device=cuda, generator=gen)
+    deg[torch.randint(0, n, (64,), device=cuda, generator=gen)] = 20000
+    off = torch.zeros(n + 1, dtype=torch.int64, device=cuda)
+    torch.cumsum(deg, 0, out=off[1:])
+    e = int(off[-1])
+    idx = torch.randint(0, n, (e,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    w = torch.rand(e, device=cuda, generator=gen)
+    vals = torch.rand(n, device=cuda, generator=gen)
+    wide = _csc_view(off, idx, w, n)
+    narrow = _csc_view(off.to(torch.int32), idx, w, n)
+    got = P.pull_reduce2(vals, wide, op=op, wmode=wmode)
+    want = P.pull_reduce2(vals, narrow, op=op, wmode=wmode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_process_group_gloo_on_the_card_equals_single_card(cuda, tmp_path):
+    """2 Gloo ranks sharing the card (``tools.shard_ranks``, the kernels
+    built here first): sharded DO-BFS (K1 on each rank's shard), SSSP
+    near-far with the pull-relax (K3 min) and PageRank (K3 sum) against
+    the single card: labels and distances equal, ranks within rtol 1e-4,
+    atol 2e-7; each rank launched its kernels."""
+    from gunrock_tpu_torch.tools.shard_ranks import build_graph, launch
+    spec_g = {"kind": "rmat", "scale": 14, "edge_factor": 16, "seed": 7,
+              "undirected": True, "weights": 3}
+    g = build_graph(spec_g)
+    src = g.largest_degree_vertex()
+    spec = {"graphs": {"g": spec_g}, "runs": [
+        {"name": "bfs", "prim": "bfs", "graph": "g", "src": src,
+         "kwargs": {"direction_optimized": True, "mark_preds": True}},
+        {"name": "sssp", "prim": "sssp", "graph": "g", "src": src,
+         "kwargs": {"mode": "nearfar", "pull_frac": 4}},
+        {"name": "pagerank", "prim": "pagerank", "graph": "g",
+         "kwargs": {}}]}
+    records, arrays = launch(spec, str(tmp_path), world=2, backend="gloo",
+                             device="cuda", deadline=300, build=True)
+    for rec in records:
+        runs = rec["runs"]
+        assert runs["bfs"]["launches"].get("pull_reached_words", 0) >= 1
+        assert runs["sssp"]["launches"].get("pull_reduce2", 0) >= 1
+        assert runs["pagerank"]["launches"]["pull_reduce2"] == \
+            runs["pagerank"]["info"]["num_iterations"]
+        assert runs["bfs"]["info"]["backend"] == "gloo"
+        assert runs["bfs"]["device"].startswith("cuda")
+    one = gtt.bfs(g, src, direction_optimized=True, device="cuda")
+    assert np.array_equal(arrays["bfs/labels"], one.labels)
+    one = gtt.sssp(g, src, mode="nearfar", device="cuda")
+    assert np.array_equal(arrays["sssp/distances"], one.distances)
+    one = gtt.pagerank(g, device="cuda")
+    np.testing.assert_allclose(arrays["pagerank/ranks"], one.ranks,
+                               rtol=1e-4, atol=2e-7)

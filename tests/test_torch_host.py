@@ -179,16 +179,18 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of gunrock_tpu_torch (the sharded ``parallel/`` and
-    ``tools/dryrun_multichip.py`` among them), chip_smoke.py and the
-    examples' twins, parsed: no import of jax or gunrock_tpu, at any
-    depth of the file."""
+    """Every module of gunrock_tpu_torch (the sharded ``parallel/``,
+    ``tools/dryrun_multichip.py`` and ``tools/shard_ranks.py``, the rank
+    entry of tests/test_torch_dist.py and chip_smoke.py's phase 32, among
+    them), chip_smoke.py and the examples' twins, parsed: no import of
+    jax or gunrock_tpu, at any depth of the file."""
     assert not _forbidden("gunrock_tpu_torch") and _forbidden("jax.numpy")
     checked, bad = 0, []
     paths = {os.path.relpath(p, _REPO) for p in _port_sources()}
     for module in ("capi.py", "utils/track.py", "utils/modularity.py",
                    "utils/baseline.py", "tools/convert.py",
                    "io/generators.py", "tools/dryrun_multichip.py",
+                   "tools/shard_ranks.py",
                    *(f"parallel/{m}.py" for m in (
                        "__init__", "mesh", "partition", "comm", "blocked",
                        "bfs", "pr", "sssp", "cc", "bc", "hits", "replicate",

@@ -140,6 +140,11 @@ def _fields(tpg):
 
 def _assert_same_partition(jpg, tpg):
     for name, val in _fields(tpg).items():
+        if name == "shard_lo":
+            # the port's one extra field: a JAX partition holds every
+            # shard
+            assert val == 0
+            continue
         want = getattr(jpg, name)
         if val is None or want is None:
             assert val is None and want is None, name
