@@ -249,6 +249,13 @@ script exits non-zero:
     direction trace, CC, TopK, TC and the batch exactly, the floats at
     phase 31's tolerances. Each rank's K1 and K3 launches, process ms,
     supersteps and ``comm_bytes``.
+33. The port installed away from the repository: a wheel built with
+    ``pip wheel --no-deps --no-build-isolation`` in a temporary copy and
+    installed with ``pip install --target``; processes that find the
+    package only there build the kernels from the installed ``csrc/``,
+    run the flagship's DO-BFS with preds (labels bitwise equal to phase
+    3's, K1 and K2 launched), the installed console script on R-MAT scale
+    8, and the C consumer against the installed header and C shim.
 
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
@@ -256,7 +263,7 @@ after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10), 28 (K2), 29 (K3 on the
 circulant's value pulls), 31 and 32 (every kernel a sharded run
 launched, summed over the ranks in 32: K1, K3, and K2 in
-``bfs_batch``). K1's entry also carries ``shard_*`` (K1 on the shard
+``bfs_batch``) and 33 (K1, K2 and K10 launched by the installed copy). K1's entry also carries ``shard_*`` (K1 on the shard
 views at the sharded DO-BFS's pull levels, summed over the levels and
 shards) and K3's ``compact_*`` (K3 on the shards' compact tables,
 summed over the shards), ``flagship_int32_ms`` and
@@ -919,14 +926,15 @@ def dijkstra(g, src):
     import numpy as np
     import scipy.sparse
     from scipy.sparse.csgraph import dijkstra as sp_dijkstra
-    es = g.edge_sources().astype(np.int64)
-    key = es * g.num_nodes + g.col_indices
-    order = np.lexsort((g.edge_values, key))
-    key, w = key[order], g.edge_values[order].astype(np.float64)
-    first = np.r_[True, key[1:] != key[:-1]]
-    a = scipy.sparse.csr_matrix(
-        (w[first], (key[first] // g.num_nodes, key[first] % g.num_nodes)),
-        shape=(g.num_nodes, g.num_nodes))
+    n = g.num_nodes
+    key = g.edge_sources().astype(np.int64) * n + g.col_indices
+    order = np.argsort(key)
+    key = key[order]
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    w = np.minimum.reduceat(g.edge_values[order].astype(np.float64), first)
+    key = key[first]
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))]
+    a = scipy.sparse.csr_matrix((w, key % n, indptr), shape=(n, n))
     return sp_dijkstra(a, directed=True, indices=src)
 
 
@@ -3309,6 +3317,181 @@ def phase_process_group(g, src, ref, card):
     return launches
 
 
+
+# Phase 33: what the installed copy runs, in a process that finds the
+# package only in the install target (argv: target, graph file, source).
+# It builds the kernels into the target's build directory, runs the
+# flagship's DO-BFS from the graph file and builds the C shim, and
+# prints one JSON line.
+INSTALLED_RUN = r"""
+import hashlib, json, os, sys, time
+import numpy as np
+import torch
+import gunrock_tpu_torch as gtt
+from gunrock_tpu_torch import capi
+from gunrock_tpu_torch.graph.native import build_dir
+from gunrock_tpu_torch.ops import _build
+from gunrock_tpu_torch.ops import kernels as K
+
+site, graph_path, src = os.path.realpath(sys.argv[1]), sys.argv[2], \
+    int(sys.argv[3])
+out = {"file": gtt.__file__, "build_dir": build_dir()}
+if os.path.dirname(os.path.dirname(os.path.realpath(gtt.__file__))) != site:
+    raise SystemExit(f"gunrock_tpu_torch imported from {gtt.__file__}, "
+                     f"not from {site}")
+t0 = time.perf_counter()
+out["library"] = _build.build()
+_build.load()
+out["build_s"] = time.perf_counter() - t0
+g = gtt.CsrGraph.read_binary(graph_path)
+t0 = time.perf_counter()
+dg = gtt.to_device(g, with_csc=True, with_blocked_csc=True, device="cuda")
+K.reset_launch_counts()
+res = gtt.bfs(dg, src=src, mark_preds=True, direction_optimized=True)
+torch.cuda.synchronize()
+out["launches"] = dict(K.LAUNCHES)
+out["run_s"] = time.perf_counter() - t0
+labels = np.ascontiguousarray(res.labels, dtype=np.int32)
+out["digest"] = hashlib.sha256(labels.tobytes()).hexdigest()
+out["edges_visited"] = int(res.info["edges_visited"])
+out["capi"] = capi.build_capi_lib()
+print(json.dumps(out))
+"""
+
+
+def _pip(cmd: list, env: dict, cwd: str) -> None:
+    r = subprocess.run(cmd, env=env, cwd=cwd, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"pip {cmd[5]} failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+
+
+def phase_installed(g, src, bfs_labels, card):
+    """Phase 33: the port installed away from the repository, on the
+    card. ``pyproject.toml``, ``README.md`` and both packages are copied
+    into a temporary directory, built into a wheel there (``pip wheel
+    --no-deps --no-build-isolation``) and installed with ``pip install
+    --no-deps --no-index --target <tmp>/site``; a host without setuptools
+    fails the phase. Processes whose
+    only path to the package is ``<tmp>/site`` then (a) build the kernels
+    from the installed ``csrc/`` into ``<tmp>/site/build/gunrock_tpu_torch``
+    and run the flagship's DO-BFS with preds (uploaded ``with_csc,
+    with_blocked_csc``): labels bitwise equal to phase 3's, K1 and K2
+    launched; (b) run the installed console script on R-MAT scale 8 on
+    the card,
+    failing on ``INCORRECT``; (c) build the C shim from the installed copy,
+    compile ``examples/capi_example_torch.c`` against the installed header
+    and run its checks. Returns the launches of (a)."""
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="gunrock_installed_")
+    try:
+        site = os.path.join(tmp, "site")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        pip = [sys.executable, "-m", "pip", "--disable-pip-version-check",
+               "--no-cache-dir"]
+        t0 = time.perf_counter()
+        work = os.path.join(tmp, "src")
+        os.makedirs(work)
+        for name in ("pyproject.toml", "README.md"):
+            shutil.copy2(os.path.join(root, name), work)
+        for pkg in ("gunrock_tpu", "gunrock_tpu_torch"):
+            shutil.copytree(os.path.join(root, pkg), os.path.join(work, pkg),
+                            ignore=shutil.ignore_patterns("__pycache__",
+                                                          "build"))
+        dist = os.path.join(tmp, "dist")
+        _pip([*pip, "wheel", "--no-deps", "--no-build-isolation",
+              "--no-index", "-w", dist, work], env, tmp)
+        (whl,) = [os.path.join(dist, n) for n in os.listdir(dist)
+                  if n.endswith(".whl")]
+        _pip([*pip, "install", "--no-deps", "--no-index", "--target", site,
+              whl], env, tmp)
+        install_s = time.perf_counter() - t0
+        print(f"[installed] wheel installed into {site} in {install_s:.3f} s")
+
+        run_env = dict(env, PYTHONPATH=site)
+        graph_path = os.path.join(tmp, "flagship.csr.npz")
+        g.write_binary(graph_path)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", INSTALLED_RUN, site,
+                            graph_path, str(src)], env=run_env, cwd=tmp,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"the installed copy's run failed "
+                                 f"({r.returncode}): {r.stderr[-3000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        child_s = time.perf_counter() - t0
+        build = os.path.join(os.path.realpath(site), "build",
+                             "gunrock_tpu_torch")
+        for key in ("library", "capi"):
+            if os.path.dirname(os.path.realpath(out[key])) != build:
+                raise AssertionError(f"{key} {out[key]} is not in {build}")
+        want = hashlib.sha256(np.ascontiguousarray(
+            bfs_labels, dtype=np.int32).tobytes()).hexdigest()
+        if out["digest"] != want:
+            raise AssertionError(f"the installed copy's labels "
+                                 f"({out['digest']}) differ from phase 3's "
+                                 f"({want})")
+        launches = out["launches"]
+        for name in BFS_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by "
+                                     "the installed copy")
+        print(f"[installed] {out['file']}: kernels built from the installed "
+              f"csrc/ into {os.path.relpath(out['library'], tmp)} in "
+              f"{out['build_s']:.3f} s; DO-BFS from {src}: labels sha256 "
+              f"{out['digest'][:16]} equal phase 3's, edges_visited "
+              f"{out['edges_visited']}, upload and run {out['run_s']:.3f} s "
+              f"({child_s:.3f} s with the process); launches {launches}")
+
+        t0 = time.perf_counter()
+        cli = os.path.join(site, "bin", "gunrock-tpu-torch")
+        r = subprocess.run([cli, "bfs", "rmat", "--rmat_scale=8",
+                            "--direction-optimized"], env=run_env, cwd=tmp,
+                           capture_output=True, text=True, timeout=300)
+        if (r.returncode != 0 or "INCORRECT" in r.stdout
+                or "bfs validation: CORRECT" not in r.stdout):
+            raise AssertionError(f"the installed CLI failed ({r.returncode})"
+                                 f": {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        cli_s = time.perf_counter() - t0
+        print(f"[installed] gunrock-tpu-torch bfs rmat "
+              f"--rmat_scale=8 --direction-optimized on the card: "
+              + "; ".join(r.stdout.strip().splitlines())
+              + f" ({cli_s:.3f} s)")
+
+        t0 = time.perf_counter()
+        exe = os.path.join(tmp, "capi_example_torch")
+        header = os.path.join(site, "gunrock_tpu_torch", "csrc")
+        subprocess.run(["gcc", os.path.join(root, "examples",
+                                            "capi_example_torch.c"),
+                        "-o", exe, f"-I{header}", out["capi"], "-lm"],
+                       check=True, capture_output=True, text=True)
+        r = subprocess.run([exe], env=env, cwd=tmp, capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0 or "ALL OK" not in r.stdout:
+            raise AssertionError(f"capi_example_torch against the installed "
+                                 f"shim failed ({r.returncode}): "
+                                 f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+        capi_s = time.perf_counter() - t0
+        print(f"[installed] the C consumer against the installed header and "
+              f"shim: ALL OK ({capi_s:.3f} s)")
+        print(f"[installed] route wheel; install {install_s:.3f} s, kernel "
+              f"build {out['build_s']:.3f} s, run {out['run_s']:.3f} s; "
+              f"launches K1 {launches['pull_reached_words']}, K2 "
+              f"{launches['bitmask_gather']}, K10 "
+              f"{launches['bitmask_gather_cumsum']}; phase 33 "
+              f"{time.perf_counter() - t_phase:.3f} s; on {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3522,6 +3705,10 @@ def main() -> int:
     for name, n in phase_process_group(g, src, ref, card).items():
         sh[name] = sh.get(name, 0) + n
 
+    # 33. The port installed away from the repository: K1, K2 (and K10
+    # where the route takes it) launched from the installed copy count in.
+    inst = phase_installed(g, src, res.labels, card)
+
     source = "gunrock_tpu_torch/csrc/bfs_kernels.cu"
     pull_source = "gunrock_tpu_torch/csrc/pull_kernels.cu"
     sssp_source = "gunrock_tpu_torch/csrc/sssp_kernels.cu"
@@ -3529,13 +3716,15 @@ def main() -> int:
         {"name": "pull_reached_words", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:257",
          "launches": launches["pull_reached_words"]
-         + sh["pull_reached_words"], "max_abs_err": k1_err,
+         + sh["pull_reached_words"] + inst["pull_reached_words"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": None,
          "device_ms": k1_device, **k1_work, **k1_shard},
         {"name": "bitmask_gather", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:71",
          "launches": launches["bitmask_gather"]
-         + s64.get("bitmask_gather", 0) + sh["bitmask_gather"], **k2},
+         + s64.get("bitmask_gather", 0) + sh["bitmask_gather"]
+         + inst["bitmask_gather"], **k2},
         {"name": "pull_reduce2", "route": "cuda", "source": pull_source,
          "replaces": "gunrock_tpu/ops/pull2.py:57",
          "launches": loop_launches["pull_reduce2"] + link_launches
@@ -3580,7 +3769,8 @@ def main() -> int:
         {"name": "bitmask_gather_cumsum", "route": "cuda", "source": source,
          "replaces": "gunrock_tpu/ops/pallas_kernels.py:829",
          "launches": k10_launches + s64["bitmask_gather_cumsum"]
-         + ring_k10 + sh["bitmask_gather_cumsum"], **k10},
+         + ring_k10 + sh["bitmask_gather_cumsum"]
+         + inst["bitmask_gather_cumsum"], **k10},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

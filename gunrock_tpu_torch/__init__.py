@@ -29,7 +29,7 @@ Quick start::
     gtt.api.tc(g.num_nodes, g.row_offsets, g.col_indices)
 """
 
-from . import api, io  # noqa: F401
+from . import api, graph, io, models, ops, parallel, utils  # noqa: F401
 from .graph.csr import CsrGraph, from_coo  # noqa: F401
 from .graph.device import DeviceGraph, to_device  # noqa: F401
 from .models.bc import bc  # noqa: F401

@@ -198,10 +198,28 @@ class DeviceGraph:
         1..2^14)), while K3 reads the int64 CSC offsets in place."""
         return self.has_blocked_values or self.num_edges > 2**31 - 1
 
+    @property
+    def has_edge_values(self) -> bool:
+        """Edge values were uploaded (``with_edge_values``)."""
+        return self.edge_values is not None
+
     def out_degrees(self) -> torch.Tensor:
         """(v_pad,) out-degree of every (padded) vertex, in the offsets'
         dtype."""
         return self.row_offsets[1:] - self.row_offsets[:-1]
+
+    def out_degree(self, v: torch.Tensor) -> torch.Tensor:
+        """Out-degrees of the vertex ids ``v`` (a tensor on the graph's
+        device), in the offsets' dtype."""
+        return self.row_offsets[v + 1] - self.row_offsets[v]
+
+    def in_degree(self, v: torch.Tensor) -> torch.Tensor:
+        """In-degrees of the vertex ids ``v``, from the CSC, in the
+        offsets' dtype."""
+        if not self.has_csc:
+            raise ValueError("in_degree() needs the CSC: "
+                             "to_device(with_csc=True)")
+        return self.csc_offsets[v + 1] - self.csc_offsets[v]
 
     def reverse(self) -> "DeviceGraph":
         """The transpose, on the same tensors: its CSR is this graph's CSC

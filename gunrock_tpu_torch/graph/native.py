@@ -7,6 +7,12 @@ into ``native/``. Every entry point returns None when the toolchain or
 the library is unavailable, and the callers then take their numpy path:
 the native code only makes the host build faster, it never changes a
 result.
+
+An installed copy (``pip install .``) has no ``native/graph_builder.cpp``
+beside it, so there every entry point returns None and ``from_coo``
+takes its numpy path, as the JAX package does when installed. The build
+directory is then ``<site-packages>/build/gunrock_tpu_torch``, where the
+CUDA kernels and the C shim are built too: it must be writable.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["build_dir", "get_lib", "native_available", "coo_to_csr_native"]
+__all__ = ["build_dir", "get_lib", "native_available", "coo_to_csr_native",
+           "parse_market_body_native"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -80,6 +87,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                       ctypes.c_int, i64p, i32p, f32p]
         lib.gr_csr_dedup.restype = i64
         lib.gr_csr_dedup.argtypes = [i64, i64p, i32p, f32p]
+        lib.gr_parse_market_body.restype = i64
+        lib.gr_parse_market_body.argtypes = [ctypes.c_char_p, i64, i64,
+                                             ctypes.c_int, i32p, i32p, f32p]
         _lib = lib
         return _lib
 
@@ -131,3 +141,27 @@ def coo_to_csr_native(num_nodes: int, src: np.ndarray, dst: np.ndarray,
         val_out = val_out[:n_out].copy()
     return row, col, val_out
 
+
+def parse_market_body_native(body: bytes, nnz_max: int, has_values: bool):
+    """Parse the numeric body of a .mtx file (the lines after the size
+    line) with the native parser. Returns ``(src, dst, vals|None)``
+    (0-based int32, float32 values), or None when the library is
+    unavailable or the body does not parse (more lines than
+    ``nnz_max``, a malformed line)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.empty(nnz_max, dtype=np.int32)
+    dst = np.empty(nnz_max, dtype=np.int32)
+    vals = np.empty(nnz_max, dtype=np.float32) if has_values else None
+    n = lib.gr_parse_market_body(
+        body, len(body), nnz_max, int(has_values),
+        _ptr(src, ctypes.c_int32), _ptr(dst, ctypes.c_int32),
+        _ptr(vals, ctypes.c_float))
+    if n < 0:
+        return None
+    src = src[:n].copy()
+    dst = dst[:n].copy()
+    if vals is not None:
+        vals = vals[:n].copy()
+    return src, dst, vals

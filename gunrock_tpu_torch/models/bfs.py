@@ -455,8 +455,8 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     API of :func:`gunrock_tpu.bfs` (reference ``gunrock_bfs``,
     ``gunrock/gunrock.h:173``) plus ``device``. A :class:`CsrGraph` is
     uploaded to ``device`` with the CSC and ``with_blocked_csc`` for DO,
-    as the JAX package uploads it; a :class:`DeviceGraph` must already be
-    there. ``queue_sizing`` sets the JAX package's queue capacity (see
+    as the JAX package uploads it; a :class:`DeviceGraph` runs where it
+    lies. ``queue_sizing`` sets the JAX package's queue capacity (see
     :func:`bfs_device`); while a run overflows it, the run is repeated
     with the sizing doubled, up to 4, and the per-iteration records
     cleared, as the JAX package regrows its queues (reference
@@ -466,10 +466,10 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     ``info["per_iteration"]``.
     """
     del idempotence
-    dev = resolve_device(device)
     timer = Timer()
     per_iter: Optional[list] = [] if instrumented else None
     if isinstance(graph, CsrGraph):
+        dev = resolve_device(device)
         if src == "largestdegree":
             src = graph.largest_degree_vertex()
         with timer.time("preprocess_ms"):
@@ -478,9 +478,8 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
                                device=dev)
             sync(dev)
     else:
-        if graph.device != dev:
-            raise ValueError(f"graph is on {graph.device}, not {dev}")
         dgraph = graph
+        dev = graph.device
     src = int(src)
     num_nodes = dgraph.num_nodes
 

@@ -60,13 +60,14 @@ def cpu_pagerank(g, damping: float = 0.85, max_iters: int = 100,
     (``tests/pr/test_pr.cu`` SimpleReferencePr); stops once the L1 change
     of an iteration is below ``tol`` (``tol=0`` runs ``max_iters``)."""
     n = g.num_nodes
-    deg = np.diff(g.row_offsets).astype(np.float64)
-    src_of_edge = g.edge_sources()
+    outdeg = np.diff(g.row_offsets)
+    deg = outdeg.astype(np.float64)
+    dst = g.col_indices.astype(np.intp)
     rank = np.full(n, 1.0 / n, dtype=np.float64)
     for _ in range(max_iters):
-        contrib = np.where(deg[src_of_edge] > 0,
-                           rank[src_of_edge] / deg[src_of_edge], 0.0)
-        incoming = np.bincount(g.col_indices, weights=contrib, minlength=n)
+        contrib = np.divide(rank, deg, out=np.zeros(n), where=deg > 0)
+        incoming = np.bincount(dst, weights=np.repeat(contrib, outdeg),
+                               minlength=n)
         new_rank = (1.0 - damping) / n + damping * incoming
         if not normalized:
             new_rank = (1.0 - damping) + damping * incoming
@@ -81,14 +82,14 @@ def cpu_hits(g, max_iters: int = 50):
     """HITS hub/authority scores (reference ``tests/hits``), each
     max-normalized per iteration."""
     n = g.num_nodes
-    src_of_edge = g.edge_sources()
+    outdeg = np.diff(g.row_offsets)
+    src_of_edge = g.edge_sources().astype(np.intp)
+    dst = g.col_indices.astype(np.intp)
     hub = np.ones(n)
     auth = np.ones(n)
     for _ in range(max_iters):
-        auth = np.bincount(g.col_indices, weights=hub[src_of_edge],
-                           minlength=n)
-        hub = np.bincount(src_of_edge, weights=auth[g.col_indices],
-                          minlength=n)
+        auth = np.bincount(dst, weights=np.repeat(hub, outdeg), minlength=n)
+        hub = np.bincount(src_of_edge, weights=auth[dst], minlength=n)
         auth /= max(auth.max(), 1e-12)
         hub /= max(hub.max(), 1e-12)
     return hub, auth
@@ -103,16 +104,18 @@ def cpu_salsa(g, max_iters: int = 50):
         hub[u]  = sum over (u,v) of auth[v] / indeg(v)
     """
     n = g.num_nodes
-    src = g.edge_sources()
-    dst = g.col_indices
-    outdeg = np.diff(g.row_offsets).astype(np.float64)
+    degs = np.diff(g.row_offsets)
+    src = g.edge_sources().astype(np.intp)
+    dst = g.col_indices.astype(np.intp)
+    outdeg = degs.astype(np.float64)
     indeg = np.bincount(dst, minlength=n).astype(np.float64)
     inv_out = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
     inv_in = np.where(indeg > 0, 1.0 / np.maximum(indeg, 1.0), 0.0)
     hub = np.full(n, 1.0 / n)
     auth = hub.copy()
     for _ in range(max_iters):
-        auth = np.bincount(dst, weights=(hub * inv_out)[src], minlength=n)
+        auth = np.bincount(dst, weights=np.repeat(hub * inv_out, degs),
+                           minlength=n)
         hub = np.bincount(src, weights=(auth * inv_in)[dst], minlength=n)
     return hub, auth
 
@@ -127,15 +130,17 @@ def cpu_wtf(g, src: int, *, delta: float = 0.85, alpha: float = 0.2,
     n = g.num_nodes
     esrc = g.edge_sources()
     edst = g.col_indices
-    outdeg = np.diff(g.row_offsets).astype(np.float64)
+    degs = np.diff(g.row_offsets)
+    outdeg = degs.astype(np.float64)
     inv_out = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
 
     # phase 1: personalized PageRank
     rank = np.full(n, 1.0 / n)
     e_src_vec = np.zeros(n)
     e_src_vec[src] = 1.0
+    dst = edst.astype(np.intp)
     for _ in range(max_iters):
-        incoming = np.bincount(edst, weights=(rank * inv_out)[esrc],
+        incoming = np.bincount(dst, weights=np.repeat(rank * inv_out, degs),
                                minlength=n)
         new_rank = delta * incoming + (1.0 - delta) * e_src_vec
         diff = np.abs(new_rank - rank).sum()

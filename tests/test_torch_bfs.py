@@ -250,6 +250,20 @@ def test_bfs_device_graph_and_errors():
                    direction_optimized=True)
 
 
+def test_bfs_device_graph_runs_where_it_lies():
+    """A DeviceGraph runs on its own device whatever ``device`` says, as
+    the other primitives run one (``gtt.bfs(dg)`` with the default
+    ``device="cuda"`` on a graph uploaded to "cuda", which lands on
+    cuda:0; the card case is in tests/test_torch_cuda.py)."""
+    g = GRAPHS["grid32"](gtt)
+    dg = gtt.to_device(g, with_csc=True, device="cpu")
+    want = gtt.bfs(g, 0, direction_optimized=True, device="cpu").labels
+    for kw in ({}, {"device": "cpu"}, {"device": torch.device("cpu")},
+               {"device": "cuda"}):
+        np.testing.assert_array_equal(
+            gtt.bfs(dg, 0, direction_optimized=True, **kw).labels, want)
+
+
 def test_bfs_unreachable():
     g = gtt.from_coo(8, [0, 1, 4], [1, 2, 5], undirected=True)
     r = gtt.bfs(g, 0, mark_preds=True, direction_optimized=True,

@@ -134,6 +134,21 @@ def test_bfs_on_cuda_equals_cpu_and_launches_kernels(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_bfs_takes_a_graph_uploaded_with_the_default_device(cuda, device):
+    """``gtt.bfs(gtt.to_device(g, ...))`` with the defaults: the upload
+    lands on cuda:0 and ``device="cuda"`` names that card."""
+    g = gtt.io.rmat(scale=10, edge_factor=8, seed=42, undirected=True)
+    want = gtt.bfs(g, "largestdegree", mark_preds=True,
+                   direction_optimized=True, device="cpu")
+    dg = gtt.to_device(g, with_csc=True, with_blocked_csc=True)
+    kw = {} if device is None else {"device": device}
+    got = gtt.bfs(dg, g.largest_degree_vertex(), mark_preds=True,
+                  direction_optimized=True, **kw)
+    np.testing.assert_array_equal(got.labels, want.labels)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 127, (1 << 20) + 3, "rmat"])
 def test_bitmask_gather_cumsum_kernel_equals_plain(cuda, n):
     """K10 against its plain version, exactly: short and ragged lengths,
