@@ -9,17 +9,126 @@ plain Python numbers. The port's tensors are exact-size, so nothing
 dispatches by capacity; :func:`capacity_ladder` stays as host arithmetic
 because the JAX package's choices of push rung (and with them the
 direction vote's inputs) are defined by it.
+
+Tracing. :func:`span` marks a stretch of host work by name. Spans are
+recorded only inside :func:`tracing`, each as ``(id, parent, query,
+name, start_ns, end_ns, attrs)`` on ``time.time_ns()``, the clock that
+``torch.profiler`` stamps its events with, so that a profile of the
+device can be read by them; ``query`` is the id of the outermost open
+span (each public call's root span). Outside :func:`tracing`,
+:func:`span` hands out one shared no-op context: a call and a branch,
+no clock read and no record. The tracer never waits for the device.
+The splits of a :class:`Timer` named by its primitive (``bfs()``'s) are
+spans too. Always on, and process-wide: :data:`COUNTS` (the host loops'
+blocking device-to-host reads, :func:`host_read`, and the levels
+:func:`record_iteration` counts) and :data:`SPLITS` (the calls and
+seconds of every named :class:`Timer`'s splits by span name).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import os
 import time
 from typing import Optional
 
 __all__ = ["LoopStats", "record_iteration", "capacity_ladder", "ladder_rung",
-           "deep_rungs", "sweep_to_fixpoint", "Timer"]
+           "deep_rungs", "sweep_to_fixpoint", "Timer", "span", "tracing",
+           "host_read", "COUNTS", "SPLITS"]
+
+# Process-wide counts since import: "host_reads", the blocking
+# device-to-host reads of the host loops (a ``.tolist()``, an ``int()``
+# of a device value, a ``nonzero`` size, a boolean-mask index or
+# assignment), and "levels", the iterations record_iteration counted.
+COUNTS = {"host_reads": 0, "levels": 0}
+# Every split of a named Timer since import by span name: [calls,
+# seconds].
+SPLITS: dict[str, list] = {}
+
+# The open trace's records, None while tracing is off; the open spans,
+# innermost last.
+_TRACE: Optional[list] = None
+_OPEN: list = []
+_IDS = itertools.count(1)
+
+
+def host_read(n: int = 1) -> None:
+    """Count ``n`` blocking device-to-host reads in :data:`COUNTS`."""
+    COUNTS["host_reads"] += n
+
+
+class _NoSpan:
+    """The one span :func:`span` hands out while tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "query", "start", "trace")
+
+    def __init__(self, name: str, attrs: dict) -> None:
+        self.name, self.attrs, self.trace = name, attrs, _TRACE
+
+    def __enter__(self):
+        self.id = next(_IDS)
+        outer = _OPEN[-1] if _OPEN else None
+        self.parent = outer.id if outer else None
+        self.query = outer.query if outer else self.id
+        _OPEN.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if _OPEN and _OPEN[-1] is self:
+            _OPEN.pop()
+        # A span still open when its trace closed is dropped.
+        if self.trace is _TRACE:
+            self.trace.append((self.id, self.parent, self.query, self.name,
+                               self.start, end, self.attrs))
+        return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only after the span opened."""
+        self.attrs.update(attrs)
+
+
+def span(name: str, **attrs):
+    """A context that records ``name`` with ``attrs`` from its entry to
+    its exit while :func:`tracing` is open; the shared no-op otherwise.
+    Either has ``set(**attrs)``."""
+    if _TRACE is None:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record every span opened inside the block; yields the list of
+    records, complete when the block ends. Not reentrant."""
+    global _TRACE
+    if _TRACE is not None:
+        raise RuntimeError("tracing() is already open")
+    _TRACE = records = []
+    try:
+        yield records
+    finally:
+        _TRACE = None
+        _OPEN.clear()
 
 
 @dataclasses.dataclass
@@ -47,6 +156,7 @@ def record_iteration(stats: LoopStats, *, frontier_len: int,
                      edges: int, overflow: bool = False) -> None:
     """Account one finished iteration (in place)."""
     stats.iteration += 1
+    COUNTS["levels"] += 1
     stats.nodes_queued += frontier_len
     stats.edges_queued += edges
     stats.overflow = stats.overflow or overflow
@@ -122,20 +232,26 @@ def sweep_to_fixpoint(graph, init, *, wmode: str, rounds: int,
 class Timer:
     """Wall-clock timing split matching the reference's Info record
     (load / preprocess / process / postprocess, ``util/info.cuh``).
-    Callers fence device work themselves before a split ends."""
+    Callers fence device work themselves before a split ends. Given a
+    ``primitive``, a split ``<name>_ms`` is also the span
+    ``<primitive>.<name>`` and adds to :data:`SPLITS`; without one it is
+    only timed."""
 
-    def __init__(self) -> None:
+    def __init__(self, primitive: str = "") -> None:
         self.splits: dict[str, float] = {}
+        self.primitive = primitive
 
+    @contextlib.contextmanager
     def time(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                timer.splits[name] = timer.splits.get(name, 0.0) + (
-                    time.perf_counter() - self.t0)
-
-        return _Ctx()
+        label = f"{self.primitive}.{name.removesuffix('_ms')}"
+        with span(label) if self.primitive else _NO_SPAN:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self.splits[name] = self.splits.get(name, 0.0) + dt
+                if self.primitive:
+                    total = SPLITS.setdefault(label, [0, 0.0])
+                    total[0] += 1
+                    total[1] += dt

@@ -63,8 +63,9 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..enactor import (LoopStats, Timer, capacity_ladder, deep_rungs,
-                       ladder_rung, record_iteration, sweep_to_fixpoint)
+from ..enactor import (COUNTS, LoopStats, Timer, capacity_ladder, deep_rungs,
+                       host_read, ladder_rung, record_iteration, span,
+                       sweep_to_fixpoint)
 from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand
@@ -108,6 +109,7 @@ def _count(mask: torch.Tensor, deg: torch.Tensor) -> tuple[int, int]:
     """(number of set lanes, degree sum over them), in one host read."""
     n, m_f = torch.stack([mask.sum(),
                           torch.where(mask, deg, 0).sum()]).tolist()
+    host_read()
     return n, m_f
 
 
@@ -141,6 +143,7 @@ def _single_source_step(graph: DeviceGraph, cap: int, state: _State,
     slice, with no expansion or dedup. Leaves the queue unmaterialized.
     Returns the edge count (an overflow where it passes ``cap``)."""
     start, end = graph.row_offsets[v:v + 2].tolist()
+    host_read()
     nbr = graph.col_indices[start:end]
     is_new = _unvisited(state.labels, nbr)
     scatter_set(state.labels, nbr, depth, mask=is_new)
@@ -164,6 +167,7 @@ def _push_step(graph: DeviceGraph, caps: list, fcap: int, state: _State,
         frontier0, n0 = state.frontier, state.n
     cap = ladder_rung(caps, max(state.m_f, state.n))
     if may_rebuild and n0 == 1:
+        host_read()
         edges = _single_source_step(graph, cap, state, int(frontier0[0]),
                                     depth)
         return edges, edges > cap
@@ -191,6 +195,7 @@ def _push_step(graph: DeviceGraph, caps: list, fcap: int, state: _State,
     state.frontier, state.n = compact(ex.dst, keep)
     d = state.frontier.long()
     state.m_f = int((graph.row_offsets[d + 1] - graph.row_offsets[d]).sum())
+    host_read()
     state.fvalid = True
     return ex.total, overflow or state.n > fcap
 
@@ -209,11 +214,14 @@ def _micro_round(graph: DeviceGraph, state: _State, depth: int,
     keep = key_s < _PAST
     keep[1:] &= key_s[1:] != key_s[:-1]
     new = key_s[keep]
+    host_read()
     state.labels[new.long()] = depth
     if state.preds is not None:
         state.preds[new.long()] = ex.src[order][keep]
+        host_read()
     state.frontier, state.n = new, new.shape[0]
     state.m_f = int(deg[new.long()].sum())
+    host_read()
     return ex.total
 
 
@@ -235,8 +243,10 @@ def _deep_stretch(graph: DeviceGraph, state: _State, rung: int,
            and state.stats.iteration < max_iters
            and not state.stats.overflow):
         dispatch = max(state.m_f, state.n)
-        edges = _micro_round(graph, state, state.stats.iteration + 1, deg)
-        record_iteration(state.stats, frontier_len=state.n, edges=edges)
+        with span("bfs.level", kind="micro"):
+            edges = _micro_round(graph, state, state.stats.iteration + 1,
+                                 deg)
+            record_iteration(state.stats, frontier_len=state.n, edges=edges)
         on_level(dispatch)
 
 
@@ -283,10 +293,12 @@ def _fill_preds(graph: DeviceGraph, labels: torch.Tensor,
         return labels.index_select(0, graph.csc_indices[lo:hi]) + 1 == \
             labels.index_select(0, graph.csc_edge_dst[lo:hi])
 
-    last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
-    ok = (labels > 0) & (preds == INVALID) & (last >= 0)
-    fill = graph.csc_indices[last.clamp(min=0)]
-    preds[ok] = fill[ok]
+    with span("bfs.fill_preds"):
+        last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+        ok = (labels > 0) & (preds == INVALID) & (last >= 0)
+        fill = graph.csc_indices[last.clamp(min=0)]
+        preds[ok] = fill[ok]
+        host_read(2)
     return preds
 
 
@@ -388,6 +400,7 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     labels[src] = 0
     preds = torch.full_like(labels, INVALID) if mark_preds else None
     start, end = graph.row_offsets[src:src + 2].tolist()
+    host_read()
     state = _State(labels=labels, preds=preds,
                    frontier=torch.tensor([src], dtype=torch.int32,
                                          device=dev),
@@ -422,22 +435,25 @@ def bfs_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
             rung = next(c for c in rungs if dispatch <= c)
             _deep_stretch(graph, state, rung, max_iters, deg, on_level)
             continue
-        depth = state.stats.iteration + 1
-        use_pull, overflow = False, False
-        if direction_optimized:
-            thresh = thresh_valid if state.fvalid else thresh_lazy
-            vote = f32(state.m_f) * f32(alpha) > thresh
-            sticky = state.use_pull and (
-                f32(state.n) * f32(beta) > f32(graph.num_nodes))
-            use_pull = bool(vote or sticky)
-        if use_pull:
-            edges = _pull_step(graph, state, depth)
-        else:
-            edges, overflow = _push_step(graph, caps, fcap, state, depth,
-                                         may_rebuild=direction_optimized)
-        state.use_pull = use_pull
-        record_iteration(state.stats, frontier_len=state.n, edges=edges,
-                         overflow=overflow)
+        with span("bfs.level") as level:
+            depth = state.stats.iteration + 1
+            use_pull, overflow = False, False
+            if direction_optimized:
+                thresh = thresh_valid if state.fvalid else thresh_lazy
+                vote = f32(state.m_f) * f32(alpha) > thresh
+                sticky = state.use_pull and (
+                    f32(state.n) * f32(beta) > f32(graph.num_nodes))
+                use_pull = bool(vote or sticky)
+            if use_pull:
+                level.set(kind="pull")
+                edges = _pull_step(graph, state, depth)
+            else:
+                level.set(kind="push")
+                edges, overflow = _push_step(graph, caps, fcap, state, depth,
+                                             may_rebuild=direction_optimized)
+            state.use_pull = use_pull
+            record_iteration(state.stats, frontier_len=state.n, edges=edges,
+                             overflow=overflow)
         on_level(dispatch)
     if mark_preds and direction_optimized:
         _fill_preds(graph, state.labels, state.preds)
@@ -464,54 +480,68 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     ``idempotence`` is accepted for parity and has no effect: the claim
     filter is exact. ``instrumented`` collects per-iteration records into
     ``info["per_iteration"]``.
+
+    Each call is the root span ``bfs``. Its run record holds the splits
+    ``process_ms`` (the traversal), ``copy_ms`` (labels and preds to the
+    host) and ``record_ms`` (the degree sum and the run record, set
+    after :func:`make_info` returns), and ``host_reads``, the traversal's
+    blocking device-to-host reads (:data:`~gunrock_tpu_torch.enactor.COUNTS`).
     """
     del idempotence
-    timer = Timer()
-    per_iter: Optional[list] = [] if instrumented else None
-    if isinstance(graph, CsrGraph):
-        dev = resolve_device(device)
-        if src == "largestdegree":
-            src = graph.largest_degree_vertex()
-        with timer.time("preprocess_ms"):
-            dgraph = to_device(graph, with_csc=direction_optimized,
-                               with_blocked_csc=direction_optimized,
-                               device=dev)
+    with span("bfs"):
+        timer = Timer("bfs")
+        per_iter: Optional[list] = [] if instrumented else None
+        if isinstance(graph, CsrGraph):
+            dev = resolve_device(device)
+            if src == "largestdegree":
+                src = graph.largest_degree_vertex()
+            with timer.time("preprocess_ms"):
+                dgraph = to_device(graph, with_csc=direction_optimized,
+                                   with_blocked_csc=direction_optimized,
+                                   device=dev)
+                sync(dev)
+        else:
+            dgraph = graph
+            dev = graph.device
+        src = int(src)
+        num_nodes = dgraph.num_nodes
+
+        with timer.time("process_ms"):
+            sizing = queue_sizing
+            reads0 = COUNTS["host_reads"]
+            while True:
+                labels, preds, stats = bfs_device(
+                    dgraph, src, mark_preds=mark_preds,
+                    direction_optimized=direction_optimized, alpha=alpha,
+                    beta=beta, queue_sizing=sizing, max_iters=max_iters,
+                    instrument=per_iter)
+                if not stats.overflow or sizing >= 4.0:
+                    break
+                sizing = min(sizing * 2.0, 4.0)
+                if per_iter is not None:
+                    per_iter.clear()
+            host_reads = COUNTS["host_reads"] - reads0
             sync(dev)
-    else:
-        dgraph = graph
-        dev = graph.device
-    src = int(src)
-    num_nodes = dgraph.num_nodes
 
-    with timer.time("process_ms"):
-        sizing = queue_sizing
-        while True:
-            labels, preds, stats = bfs_device(
-                dgraph, src, mark_preds=mark_preds,
-                direction_optimized=direction_optimized, alpha=alpha,
-                beta=beta, queue_sizing=sizing, max_iters=max_iters,
-                instrument=per_iter)
-            if not stats.overflow or sizing >= 4.0:
-                break
-            sizing = min(sizing * 2.0, 4.0)
-            if per_iter is not None:
-                per_iter.clear()
-        sync(dev)
-
-    labels_np = labels[:num_nodes].cpu().numpy()
-    preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None
-    # Edges visited = out-degree sum over reached vertices (the
-    # reference's DOBFS accounting for m_teps, util/info.cuh:1431).
-    degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
-                   .astype(np.int64))
-    edges_visited = int(degs[labels_np >= 0].sum())
-    info = make_info(
-        primitive="bfs", graph=dgraph, stats=stats, timer=timer,
-        edges_visited=edges_visited,
-        extra={"src": src, "mark_predecessors": mark_preds,
-               "direction_optimized": direction_optimized,
-               "instrumented": instrumented,
-               "search_depth": int(labels_np.max(initial=0)),
-               **({"per_iteration": per_iter} if instrumented else {})},
-    )
-    return BfsResult(labels=labels_np, preds=preds_np, info=info)
+        with timer.time("copy_ms"):
+            labels_np = labels[:num_nodes].cpu().numpy()
+            preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None
+        with timer.time("record_ms"):
+            # Edges visited = out-degree sum over reached vertices (the
+            # reference's DOBFS accounting for m_teps, util/info.cuh:1431).
+            degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
+                           .astype(np.int64))
+            edges_visited = int(degs[labels_np >= 0].sum())
+            info = make_info(
+                primitive="bfs", graph=dgraph, stats=stats, timer=timer,
+                edges_visited=edges_visited,
+                extra={"src": src, "mark_predecessors": mark_preds,
+                       "direction_optimized": direction_optimized,
+                       "instrumented": instrumented,
+                       "search_depth": int(labels_np.max(initial=0)),
+                       "host_reads": host_reads,
+                       **({"per_iteration": per_iter}
+                          if instrumented else {})},
+            )
+        info["record_ms"] = timer.splits["record_ms"] * 1000.0
+        return BfsResult(labels=labels_np, preds=preds_np, info=info)

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ..enactor import host_read
 from ..graph.device import DeviceGraph
 from .segment import row_reduce_sorted
 
@@ -58,7 +59,10 @@ def _expand_csr(offsets: torch.Tensor, indices: torch.Tensor,
     start = offsets[f].long()
     deg = offsets[f + 1].long() - start
     ends = torch.cumsum(deg, 0)
-    total = int(ends[-1]) if ends.numel() else 0
+    total = 0
+    if ends.numel():
+        total = int(ends[-1])
+        host_read()
     rank = torch.repeat_interleave(
         torch.arange(f.shape[0], device=f.device), deg, output_size=total)
     # eid[j] = start[rank] + (j - seg_start[rank])

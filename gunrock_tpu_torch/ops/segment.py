@@ -23,6 +23,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..enactor import host_read
+
 __all__ = ["scatter_min", "scatter_max", "scatter_add", "scatter_set",
            "dedup_winners", "compact", "frontier_from_mask",
            "mask_from_frontier", "row_reduce_sorted", "last_hit_in_rows"]
@@ -39,6 +41,7 @@ def _select(idx: torch.Tensor, vals, mask: Optional[torch.Tensor]):
     vals = vals.expand(idx.shape)
     if mask is not None:
         idx, vals = idx[mask], vals[mask]
+        host_read(2)
     return idx.long(), vals
 
 
@@ -96,12 +99,14 @@ def compact(vals: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor,
     """Stream-compact ``vals[mask]`` (the reference's CUB DeviceSelect,
     ``util/select_utils.cuh:47``); returns (values, count)."""
     out = vals[mask]
+    host_read()
     return out, int(out.shape[0])
 
 
 def frontier_from_mask(mask: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Dense vertex mask -> ascending int32 frontier + its length."""
     verts = torch.nonzero(mask).flatten().to(torch.int32)
+    host_read()
     return verts, int(verts.shape[0])
 
 

@@ -4,8 +4,8 @@ Counterpart of :mod:`gunrock_tpu.utils.info`: primitive name, graph
 shape, timing splits (``info.cuh:1309``),
 ``m_teps = edges_visited / (elapsed_ms * 1000)`` (``info.cuh:1431``),
 per-iteration frontier sizes (``info.cuh:684-709``), and the device the
-run went to, taken from torch (name, and power limit where
-``nvidia-smi`` is present).
+run went to, taken from torch. A record starts no process but the one
+cached ``git rev-parse`` of a process's first.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ import datetime
 import json
 import os
 import platform
-import shutil
 import subprocess
 import sys
 from typing import Optional
@@ -43,20 +42,6 @@ def _git_sha() -> str:
     return _GIT_SHA
 
 
-def _power_limit() -> Optional[str]:
-    """The card's power limit as ``nvidia-smi`` reports it, or None."""
-    if shutil.which("nvidia-smi") is None:
-        return None
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=10).stdout
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.splitlines()[0].strip() if out.strip() else None
-
-
 def device_info(device: torch.device) -> dict:
     """Name, platform and count of the device a run went to."""
     if device.type != "cuda":
@@ -64,8 +49,7 @@ def device_info(device: torch.device) -> dict:
                 "platform": device.type, "num_devices": 1}
     return {"name": torch.cuda.get_device_name(device),
             "platform": "gpu",
-            "num_devices": torch.cuda.device_count(),
-            "power_limit": _power_limit()}
+            "num_devices": torch.cuda.device_count()}
 
 
 def make_info(*, primitive: str, graph, stats=None, timer=None,

@@ -134,6 +134,34 @@ def test_bfs_on_cuda_equals_cpu_and_launches_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_bfs_k1_launches_lie_in_pull_level_spans(cuda):
+    """The program's spans on the profiler's clock: every K1 launch of
+    a DO-BFS (its runtime call, matched by correlation id) lies inside a
+    ``bfs.level`` span of kind ``pull``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gunrock_tpu_torch.enactor import tracing
+    g = gtt.io.rmat(scale=14, edge_factor=16, seed=7, undirected=True)
+    src = g.largest_degree_vertex()
+    dg = gtt.to_device(g, with_csc=True, with_blocked_csc=True, device=cuda)
+    gtt.bfs(dg, src, mark_preds=True, direction_optimized=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing() as spans:
+            gtt.bfs(dg, src, mark_preds=True, direction_optimized=True)
+    evs = list(prof.profiler.kineto_results.events())
+    launch = {e.correlation_id(): e.start_ns() for e in evs
+              if e.device_type() != DeviceType.CUDA
+              and e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    k1 = [launch.get(e.correlation_id()) for e in evs
+          if e.device_type() == DeviceType.CUDA
+          and "pull_reached_words_kernel" in e.name()]
+    pulls = [(s, e) for _, _, _, name, s, e, attrs in spans
+             if name == "bfs.level" and attrs.get("kind") == "pull"]
+    assert k1 and pulls and None not in k1
+    assert all(any(s <= t <= e for s, e in pulls) for t in k1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
 def test_bfs_takes_a_graph_uploaded_with_the_default_device(cuda, device):
     """``gtt.bfs(gtt.to_device(g, ...))`` with the defaults: the upload
