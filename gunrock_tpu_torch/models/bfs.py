@@ -483,9 +483,11 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
 
     Each call is the root span ``bfs``. Its run record holds the splits
     ``process_ms`` (the traversal), ``copy_ms`` (labels and preds to the
-    host) and ``record_ms`` (the degree sum and the run record, set
-    after :func:`make_info` returns), and ``host_reads``, the traversal's
-    blocking device-to-host reads (:data:`~gunrock_tpu_torch.enactor.COUNTS`).
+    host) and ``record_ms`` (the out-degree sum and search depth,
+    reduced on the graph's device and read at once, and the run record;
+    set after :func:`make_info` returns), and ``host_reads``, the
+    traversal's blocking device-to-host reads
+    (:data:`~gunrock_tpu_torch.enactor.COUNTS`).
     """
     del idempotence
     with span("bfs"):
@@ -528,17 +530,21 @@ def bfs(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
             preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None
         with timer.time("record_ms"):
             # Edges visited = out-degree sum over reached vertices (the
-            # reference's DOBFS accounting for m_teps, util/info.cuh:1431).
-            degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
-                           .astype(np.int64))
-            edges_visited = int(degs[labels_np >= 0].sum())
+            # reference's DOBFS accounting for m_teps, util/info.cuh:1431)
+            # and the search depth, reduced where the labels lie and read
+            # in one copy; an integral sum is int64, exact past 2^31.
+            lab = labels[:num_nodes]
+            deg = dgraph.out_degrees()[:num_nodes]
+            edges_visited, search_depth = torch.stack([
+                torch.where(lab >= 0, deg, 0).sum(),
+                lab.max().clamp(min=0)]).tolist()
             info = make_info(
                 primitive="bfs", graph=dgraph, stats=stats, timer=timer,
                 edges_visited=edges_visited,
                 extra={"src": src, "mark_predecessors": mark_preds,
                        "direction_optimized": direction_optimized,
                        "instrumented": instrumented,
-                       "search_depth": int(labels_np.max(initial=0)),
+                       "search_depth": search_depth,
                        "host_reads": host_reads,
                        **({"per_iteration": per_iter}
                           if instrumented else {})},

@@ -272,6 +272,52 @@ def test_bfs_unreachable():
     np.testing.assert_array_equal(r.preds, [-1, 0, 1, -1, -1, -1, -1, -1])
 
 
+def _grid_and_path():
+    """A 6 x 6 grid (vertices 0-35) and, apart from it, the path
+    36-37-38."""
+    idx = np.arange(36).reshape(6, 6)
+    src = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel(), [36, 37]])
+    dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel(), [37, 38]])
+    return gtt.from_coo(39, src, dst, undirected=True)
+
+
+# (graph, src, sizet64, (edges_visited, search_depth) counted by hand)
+RECORD_CASES = {
+    # 8 vertices under a larger v_pad: the padding's labels are not summed
+    "padded": (lambda: gtt.from_coo(8, [0, 1, 4], [1, 2, 5], undirected=True),
+               0, None, (4, 2)),
+    # directed: vertex 2 has in-edges and no out-edges
+    "root_out_degree_0": (lambda: gtt.from_coo(8, [0, 1], [1, 2]), 2, None,
+                          (0, 0)),
+    "outside_largest": (_grid_and_path, 37, None, (4, 1)),
+    # the doubled edge 0-1 counts twice in both out-degrees
+    "multigraph": (lambda: gtt.from_coo(6, [0, 0, 0, 1, 1, 2, 3],
+                                        [1, 1, 2, 2, 3, 3, 4], dedup=False,
+                                        undirected=True), 0, None, (14, 3)),
+    # int64 offsets; 900 vertices under v_pad 1024
+    "sizet64": (lambda: _grid(gtt, 30), 0, True, (3480, 58)),
+}
+
+
+@pytest.mark.parametrize("do", [False, True])
+@pytest.mark.parametrize("case", list(RECORD_CASES))
+def test_bfs_run_record_equals_numpy(case, do):
+    """``edges_visited`` and ``search_depth``, reduced on the graph's
+    device, equal the numpy formula over the host CSR: the out-degree sum
+    over reached vertices and the largest label."""
+    make, src, sizet64, want = RECORD_CASES[case]
+    g = make()
+    dg = gtt.to_device(g, with_csc=True, sizet64=sizet64, device="cpu")
+    assert dg.v_pad > g.num_nodes
+    assert dg.row_offsets.dtype == (torch.int64 if sizet64 else torch.int32)
+    r = gtt.bfs(dg, src, mark_preds=True, direction_optimized=do,
+                device="cpu")
+    deg = np.diff(g.row_offsets.astype(np.int64))
+    got = (r.info["edges_visited"], r.info["search_depth"])
+    assert got == (int(deg[r.labels >= 0].sum()), int(r.labels.max(initial=0)))
+    assert all(type(x) is int for x in got) and got == want
+
+
 def test_cli_bfs_correct(capsys, tmp_path):
     K.reset_launch_counts()
     out = tmp_path / "info.json"

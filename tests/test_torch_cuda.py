@@ -162,6 +162,27 @@ def test_bfs_k1_launches_lie_in_pull_level_spans(cuda):
 
 
 @pytest.mark.cuda
+def test_bfs_run_record_on_the_card_at_flagship_size(cuda):
+    """``edges_visited`` and ``search_depth``, reduced on the card, equal
+    the numpy formula on the flagship R-MAT (scale 20, edge factor 32)
+    uploaded with int32 offsets and as sizet64; a second call's record
+    (one read of both, then ``make_info``) takes under 5 ms."""
+    g = gtt.io.rmat(scale=20, edge_factor=32, seed=1, undirected=True)
+    src = g.largest_degree_vertex()
+    deg = np.diff(g.row_offsets.astype(np.int64))
+    for kw in ({"with_blocked_csc": True}, {"sizet64": True}):
+        dg = gtt.to_device(g, with_csc=True, device=cuda, **kw)
+        assert dg.row_offsets.dtype == (torch.int64 if "sizet64" in kw
+                                        else torch.int32)
+        for _ in range(2):
+            r = gtt.bfs(dg, src, mark_preds=True, direction_optimized=True)
+            assert (r.info["edges_visited"], r.info["search_depth"]) == (
+                int(deg[r.labels >= 0].sum()), int(r.labels.max(initial=0)))
+        assert r.info["record_ms"] < 5.0
+        del dg
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
 def test_bfs_takes_a_graph_uploaded_with_the_default_device(cuda, device):
     """``gtt.bfs(gtt.to_device(g, ...))`` with the defaults: the upload
