@@ -9,6 +9,12 @@ at random. The edge list's own shuffle is left out: the program and the
 reference both sort the edges. Self-loops and duplicates are kept here;
 the program's build removes them, as its users build graphs, and the
 reference removes them on its own.
+
+With ``"drop_isolated": true`` (LDBC Graphalytics' ``graph500-*``
+datasets, which leave out the vertices without an edge) the vertices
+that have an edge, self-loops not counted, are numbered ``0..n'-1`` in
+id order after every draw, and the self-loops of the others go with
+them; the graph is otherwise the one drawn without the key.
 """
 
 from __future__ import annotations
@@ -33,6 +39,18 @@ def kronecker_edges(scale: int, num_edges: int, initiator, gen, device):
     return src, dst
 
 
+def drop_isolated(n: int, src: torch.Tensor, dst: torch.Tensor):
+    """(n', src, dst): the vertices that have an edge other than a
+    self-loop, renumbered in id order, and the edges between them."""
+    has = torch.zeros(n, dtype=torch.bool, device=src.device)
+    loop = src == dst
+    has[src[~loop]] = True
+    has[dst[~loop]] = True
+    new_id = torch.cumsum(has, 0) - 1
+    keep = has[src]
+    return int(has.sum()), new_id[src[keep]], new_id[dst[keep]]
+
+
 def generate(cfg: dict, seed: int, device: torch.device) -> dict:
     """The configuration's graph as a host COO: ``num_nodes``, ``src``
     and ``dst`` (int32 numpy arrays)."""
@@ -44,6 +62,8 @@ def generate(cfg: dict, seed: int, device: torch.device) -> dict:
                                cfg["initiator"], gen, device)
     perm = torch.randperm(n, generator=gen, device=device)
     src, dst = perm[src], perm[dst]
+    if cfg.get("drop_isolated", False):
+        n, src, dst = drop_isolated(n, src, dst)
     return {"num_nodes": n,
             "src": src.to(torch.int32).cpu().numpy(),
             "dst": dst.to(torch.int32).cpu().numpy()}

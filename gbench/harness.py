@@ -13,14 +13,26 @@ The program is reached only through the dotted names of the traffic
 file, which must lie in :data:`PROGRAM`:
 
 - ``build``: ``call(num_nodes, src, dst, undirected=..., **kwargs)``, the
-  host graph from the COO;
+  host graph from the COO, with ``values=`` where the configuration
+  draws edge values (``edge_values``, see :func:`make_graph`);
 - ``upload``: ``call(host_graph, device=..., **kwargs)``, the graph on
   the device;
 - ``entry``: ``call(device_graph, **{root_kwarg: root}, **kwargs)``, one
-  query; ``answer`` names the attributes
+  query, or ``call(device_graph, **kwargs)`` where ``root_kwarg`` is
+  null: a whole-graph entry, whose traffic's one root is None (every
+  query is then the same call); ``answer`` names the attributes
   of its result that are judged (host arrays, as the public calls return
   them), and ``span`` the key of ``result.info`` that holds the
   program's own span of the work.
+
+The reference is built from the same COO, with ``values=`` where the
+configuration draws edge values and the configuration's ``algorithm``
+object as keyword arguments where it has one (the parameters its
+guarantee states). Its module's ``LIMITS`` are counts summed over the
+answers compared, each printed beside its limit; any other number its
+``judge`` gives is a reading, printed in the aside line as its largest
+over the answers. ``CONTROLS`` names its control variants
+(``tools/control.py``).
 """
 
 from __future__ import annotations
@@ -114,7 +126,7 @@ class Bench:
 
 @dataclasses.dataclass
 class Query:
-    root: int
+    root: Optional[int]  # None for a whole-graph entry
     wall_s: float        # call to return, the answer on the host
     span_ms: float       # the program's own span (result.info[span])
     work: int = 0        # by the traffic's work rule, set after judging
@@ -152,18 +164,70 @@ def power_limit() -> str:
     return out.splitlines()[0] if out else "not read"
 
 
-def draw_roots(refmod, tr: dict, graph: dict, undirected: bool, seed: int,
-               device: torch.device) -> np.ndarray:
-    """The run's roots by the traffic's rule; where the rule needs the
+def make_graph(gen, cfg: dict, seed: int, device: torch.device) -> dict:
+    """The configuration's graph from the seed (``gen.generate``), and
+    where the configuration has ``edge_values``, ``values``: float32,
+    one a generated COO edge, from the seed's own stream
+    (``traffic.edge_values``)."""
+    graph = gen.generate(cfg, seed, device)
+    if "edge_values" in cfg:
+        graph["values"] = traffic_mod.edge_values(
+            cfg["edge_values"], graph["src"].size, seed, device)
+    return graph
+
+
+def reference(refmod, cfg: dict, graph: dict, undirected: bool,
+              device: torch.device):
+    """The plain reference over the benchmark's COO, with the edge values
+    and the configuration's ``algorithm`` parameters where it has them."""
+    kwargs = dict(cfg.get("algorithm", {}))
+    if "values" in graph:
+        kwargs["values"] = graph["values"]
+    return refmod.Reference(graph["num_nodes"], graph["src"], graph["dst"],
+                            undirected=undirected, device=device, **kwargs)
+
+
+def draw_roots(refmod, cfg: dict, tr: dict, graph: dict, undirected: bool,
+               seed: int, device: torch.device) -> list:
+    """The run's roots by the traffic's rule, as ints; ``[None]`` where
+    the rule is null (a whole-graph entry). Where the rule needs the
     components, the reference works them out and is freed."""
+    if tr["roots"] is None:
+        return [None]
     comp = None
     if "outside_largest" in tr["roots"]:
-        ref = refmod.Reference(graph["num_nodes"], graph["src"],
-                               graph["dst"], undirected=undirected,
-                               device=device)
+        ref = reference(refmod, cfg, graph, undirected, device)
         comp = ref.components().cpu().numpy()
         del ref
-    return traffic_mod.draw_roots(tr["roots"], graph, undirected, seed, comp)
+    return traffic_mod.draw_roots(tr["roots"], graph, undirected, seed,
+                                  comp).tolist()
+
+
+def root_kwargs(entry: dict, root: Optional[int]) -> dict:
+    """The entry's keyword for ``root``: none for a whole-graph entry."""
+    return {} if root is None else {entry["root_kwarg"]: root}
+
+
+def sample(tr: dict, seed: int) -> traffic_mod.Sample:
+    """The traffic's ``check``: which answers of the window are compared."""
+    check = tr["check"]
+    return traffic_mod.Sample(int(check.get("roots", 1)), seed,
+                              int(check.get("answers", 1)))
+
+
+def judge(refmod, ref, checked) -> tuple[dict, dict]:
+    """(counts, readings) of the ``(root, answer)`` pairs ``checked`` (an
+    iterable, read once): each of the reference module's ``LIMITS``
+    summed over the answers, and the largest of each other number its
+    ``judge`` gives."""
+    counts, readings = dict.fromkeys(refmod.LIMITS, 0), {}
+    for root, answer in checked:
+        for k, v in ref.judge(root, answer).items():
+            if k in counts:
+                counts[k] += v
+            else:
+                readings[k] = max(readings.get(k, v), v)
+    return counts, readings
 
 
 def run_cell(bench: Bench, name: str, seed: int, seconds: float,
@@ -192,9 +256,9 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
     # The benchmark's own graph and roots, timed apart from set-up.
     t = now()
     spans["start_s"] = t - t_process
-    graph = gen.generate(cfg, seed, device)
+    graph = make_graph(gen, cfg, seed, device)
     n = graph["num_nodes"]
-    roots = draw_roots(refmod, tr, graph, undirected, seed, device)
+    roots = draw_roots(refmod, cfg, tr, graph, undirected, seed, device)
     if device.type == "cuda":
         gc.collect()
         torch.cuda.synchronize(device)
@@ -211,8 +275,9 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
     entry = resolve(tr["entry"]["call"])
     spans["import_s"] = now() - t
     t = now()
+    values = {"values": graph["values"]} if "values" in graph else {}
     host = build(n, graph["src"], graph["dst"], undirected=undirected,
-                 **tr["build"].get("kwargs", {}))
+                 **values, **tr["build"].get("kwargs", {}))
     spans["build_s"] = now() - t
     t = now()
     dg = upload(host, device=device, **tr["upload"].get("kwargs", {}))
@@ -221,15 +286,14 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
     del host
     ent = tr["entry"]
     kwargs = dict(ent.get("kwargs", {}))
-    root_kw, answer_keys, span_key = ent["root_kwarg"], ent["answer"], \
-        ent["span"]
+    answer_keys, span_key = ent["answer"], ent["span"]
 
-    def call(root: int):
+    def call(root: Optional[int]):
         t0 = now()
-        res = entry(dg, **{root_kw: int(root)}, **kwargs)
+        res = entry(dg, **root_kwargs(ent, root), **kwargs)
         answer = {k: getattr(res, k) for k in answer_keys}
         wall = now() - t0
-        return Query(root=int(root), wall_s=wall,
+        return Query(root=root, wall_s=wall,
                      span_ms=float(res.info[span_key])), answer
 
     t = now()
@@ -243,7 +307,7 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
           file=log, flush=True)
 
     # The window: a closed loop of one caller through the roots.
-    sample = traffic_mod.Sample(int(tr["check"]["roots"]), seed)
+    checks_due = sample(tr, seed)
     queries: list = []
     errors: list = []
     sent = [0]
@@ -256,7 +320,7 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
         except Exception as e:  # a failed query is counted, not fatal
             errors.append(f"root {root}: {type(e).__name__}: {e}")
             return None
-        sample.offer(q.wall_s, q.root, (q.root, answer))
+        checks_due.offer(q.wall_s, q.root, (q.root, answer))
         return q
 
     t0 = now()
@@ -284,22 +348,18 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
         torch.cuda.empty_cache()
 
     t = now()
-    ref = refmod.Reference(n, graph["src"], graph["dst"],
-                           undirected=undirected, device=device)
-    works = dict(zip((int(r) for r in roots), ref.work(tr["work"], roots)))
+    ref = reference(refmod, cfg, graph, undirected, device)
+    works = dict(zip(roots, ref.work(tr["work"], roots)))
     for q in queries:
         q.work = works[q.root]
     aside["reference_s"] = now() - t
     t = now()
-    counts = {k: 0 for k in refmod.LIMITS}
-    checked = sample.items()
-    for root, answer in checked:
-        for k, v in ref.judge(root, answer).items():
-            counts[k] += v
+    checked = checks_due.items()
+    counts, readings = judge(refmod, ref, checked)
     aside["judge_s"] = now() - t
     compared = len(checked)
     graph_info = {"num_nodes": n, "num_edges": ref.num_edges}
-    del ref, sample, checked
+    del ref, checks_due, checked
     gc.collect()
 
     run = Run(workload=wl, config=cfg, traffic=tr, device=device,
@@ -334,6 +394,7 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float,
                  traced_queries=trace.queries if trace else 0,
                  traced_launches=trace.program_launches() if trace else {},
                  num_edges=graph_info["num_edges"], errors=errors[:5],
+                 readings=readings,
                  **_spread_of_queries(queries))
     return result, aside
 

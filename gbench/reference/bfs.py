@@ -18,6 +18,8 @@ import torch
 
 # What judge() counts, and the most of each a correct run may have.
 LIMITS = {"label_mismatch": 0, "bad_pred": 0}
+# The control variants (Reference.control), each of which must fail.
+CONTROLS = ("no_tree", "one_level_short")
 
 
 class Reference:

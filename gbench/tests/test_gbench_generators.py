@@ -137,3 +137,68 @@ def test_roots_are_uniform_among_vertices_of_nonzero_degree():
     np.testing.assert_array_equal(
         roots, traffic.draw_roots({"rule": "nonzero_degree", "count": 64},
                                   graph, True, 2**31 + 3))
+
+
+def test_drop_isolated_keeps_the_edges_relabelled():
+    """With ``drop_isolated`` no vertex of degree 0 is left (self-loops
+    not counted), and the edges between the others are the same set,
+    renumbered in id order."""
+    cfg = {"scale": 10, "edge_factor": 2, "initiator": list(INIT)}
+    cpu = torch.device("cpu")
+    full = KRON.generate(cfg, 2**31 + 7, cpu)
+    cut = KRON.generate(dict(cfg, drop_isolated=True), 2**31 + 7, cpu)
+    n = full["num_nodes"]
+    loop = full["src"] == full["dst"]
+    has = np.zeros(n, bool)
+    has[full["src"][~loop]] = has[full["dst"][~loop]] = True
+    assert 0 < cut["num_nodes"] == has.sum() < n
+    assert cut["src"].dtype == np.int32
+    cut_loop = cut["src"] == cut["dst"]
+    deg = (np.bincount(cut["src"][~cut_loop], minlength=cut["num_nodes"])
+           + np.bincount(cut["dst"][~cut_loop], minlength=cut["num_nodes"]))
+    assert deg.min() > 0
+    old = np.flatnonzero(has)   # new id -> old id, in id order
+    edges = lambda s, d: sorted(zip(s.tolist(), d.tolist()))
+    keep = has[full["src"]]
+    assert edges(old[cut["src"]], old[cut["dst"]]) == edges(
+        full["src"][keep], full["dst"][keep])
+    # Only the self-loops of dropped vertices went.
+    assert np.all(loop[~keep])
+
+
+def test_edge_values_come_from_their_own_stream():
+    from gbench import traffic
+    rule = {"rule": "uniform", "lo": 0.5, "hi": 2.0}
+    cpu = torch.device("cpu")
+    a = traffic.edge_values(rule, 5000, 2**31 + 3, cpu)
+    assert a.dtype == np.float32 and a.shape == (5000,)
+    assert 0.5 <= a.min() and a.max() < 2.0 and a.std() > 0.3
+    np.testing.assert_array_equal(
+        a, traffic.edge_values(rule, 5000, 2**31 + 3, cpu))
+    assert not np.array_equal(
+        a, traffic.edge_values(rule, 5000, 2**31 + 4, cpu))
+    assert traffic.VALUES not in (traffic.ROOTS, traffic.CHECK)
+    with pytest.raises(ValueError):
+        traffic.edge_values({"rule": "normal"}, 10, 1, cpu)
+
+
+def test_draw_compares_answers_of_a_whole_graph_mix():
+    """``answers`` of the offered answers, drawn from the seed, and the
+    longest query's besides; the same seed draws the same."""
+    from gbench import traffic
+
+    def draw(seed, offered=300, longest=123):
+        d = traffic.Sample(roots=1, seed=seed, answers=2)
+        for i in range(offered):
+            d.offer(wall=float(i == longest), root=None, item=i)
+        return d.items()
+
+    items = draw(2**31 + 5)
+    assert len(items) == 3 and items[-1] == 123 and len(set(items)) == 3
+    assert draw(2**31 + 5) == items
+    assert any(draw(s)[:2] != items[:2] for s in range(6))
+    # Every answer is drawn alike: the first and the last half of the
+    # window are both drawn.
+    firsts = [min(draw(s, longest=299)[:2]) < 150 for s in range(200)]
+    assert 0.5 < sum(firsts) / 200 < 0.9
+    assert draw(1, offered=1, longest=0) == [0]

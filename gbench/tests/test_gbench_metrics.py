@@ -132,3 +132,24 @@ def test_trace_readers():
     for name in ("k1_roofline", "device_idle_pct", "host_syncs_per_query",
                  "operator_device_ms_per_query"):
         assert _read(name, _run(None)) is None
+
+
+def test_k3_roofline_reads_its_three_passes():
+    """K3 a launch: the prologue, pass 1 and pass 2, counted by pass 2;
+    its bytes are the CSC's indices and three vectors of a row each."""
+    dev = [("void csc_tile_rows_kernel<2048, int>(...)", 0.0, 10.0),
+           ("void pull_tiles_kernel<int>(PullArgsT<int>)", 10.0, 900.0),
+           ("void pull_finish_kernel<int>(PullArgsT<int>, FinishArgs)",
+            900.0, 950.0)] * 3 + [
+           ("void at::native::index_elementwise_kernel", 1000.0, 1300.0)]
+    t = trace.Trace(queries=1, window=(0.0, 2000.0), device=dev,
+                    runtime=collections.Counter(), busy_us=1250.0,
+                    idle_by_host=[])
+    run = _run(t)
+    e, n = 128 << 20, 1 << 22
+    need = roofline.bound(3 * (4 * e + 3 * 4 * n))
+    assert _read("k3_roofline", run) == pytest.approx(
+        100 * need["bound_ms"] / (3 * 0.950))
+    t.device = dev[-1:]
+    assert _read("k3_roofline", run) is None
+    assert _read("k3_roofline", _run(None)) is None

@@ -5,12 +5,14 @@ with one guarantee broken, judged as a run judges the program.
         [--variants no_tree one_level_short]
 
 For each seed: the cell's graph and roots as a run makes them, then as
-many answers as a run compares at most (one a root for the traffic's
-``check.roots`` roots, and the longest query's), each from the control
-``variant`` of the reference (``Reference.control``) over the roots in
-the window's order, judged by the reference. Prints one JSON line a seed and variant with each count
-and whether a run would call it correct. A control must come out not
-correct on every seed. Needs the card, as a run does.
+many answers as a run compares at most (``check.answers`` a root for
+the traffic's ``check.roots`` roots, and the longest query's), each from
+the control ``variant`` of the reference (``Reference.control``) over
+the roots in the window's order, judged by the reference.
+``--variants`` defaults to the reference module's ``CONTROLS``. Prints
+one JSON line a seed and variant with each count, the reference's
+readings, and whether a run would call it correct. A control must come
+out not correct on every seed. Needs the card, as a run does.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--variants", nargs="+",
-                   default=["no_tree", "one_level_short"])
+    p.add_argument("--variants", nargs="+")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -48,29 +49,27 @@ def main(argv=None) -> int:
     gen = bench.plugin("graphs", cfg["generator"])
     refmod = bench.plugin("reference", tr["reference"])
     undirected = bool(cfg.get("undirected", False))
-    answers = min(int(tr["check"]["roots"]), int(tr["roots"]["count"])) + 1
+    check = tr["check"]
     all_failed = True
     for seed in args.seeds:
-        graph = gen.generate(cfg, seed, device)
-        roots = harness.draw_roots(refmod, tr, graph, undirected, seed,
+        graph = harness.make_graph(gen, cfg, seed, device)
+        roots = harness.draw_roots(refmod, cfg, tr, graph, undirected, seed,
                                    device)
-        ref = refmod.Reference(graph["num_nodes"], graph["src"],
-                               graph["dst"], undirected=undirected,
-                               device=device)
+        ref = harness.reference(refmod, cfg, graph, undirected, device)
         del graph
-        for variant in args.variants:
-            counts = {k: 0 for k in refmod.LIMITS}
-            for i in range(answers):
-                root = int(roots[i % len(roots)])
-                for k, v in ref.judge(root, ref.control(root,
-                                                        variant)).items():
-                    counts[k] += v
+        answers = min(int(check.get("roots", 1)), len(roots)) * int(
+            check.get("answers", 1)) + 1
+        for variant in args.variants or refmod.CONTROLS:
+            order = [roots[i % len(roots)] for i in range(answers)]
+            counts, readings = harness.judge(
+                refmod, ref, ((r, ref.control(r, variant)) for r in order))
             correct = all(counts[k] <= lim
                           for k, lim in refmod.LIMITS.items())
             all_failed &= not correct
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "variant": variant, "compared": answers,
-                              "counts": counts, "correct": correct}),
+                              "counts": counts, "readings": readings,
+                              "correct": correct}),
                   flush=True)
         del ref
         if device.type == "cuda":

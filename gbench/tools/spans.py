@@ -4,7 +4,8 @@
         [--queries 20] [--traced 2] [--repeats 3] [--out build/gbench/spans]
 
 Set-up as ``gbench/run.py`` makes it (the cell's graph, roots, build,
-upload and one warm-up query), then:
+upload and one warm-up query; a whole-graph entry's one root is None,
+the same call each time), then:
 
 - ``--queries`` queries through the roots, each with its wall and the
   ``info`` keys ``process_ms``, ``copy_ms``, ``record_ms``,
@@ -95,15 +96,16 @@ def main(argv=None) -> int:
     cfg = bench.config(wl["config"])
     tr = bench.traffic(wl["traffic"])
     undirected = bool(cfg.get("undirected", False))
-    graph = bench.plugin("graphs", cfg["generator"]).generate(
-        cfg, args.seed, device)
+    graph = harness.make_graph(bench.plugin("graphs", cfg["generator"]),
+                               cfg, args.seed, device)
     refmod = bench.plugin("reference", tr["reference"])
-    roots = harness.draw_roots(refmod, tr, graph, undirected, args.seed,
-                               device)
+    roots = harness.draw_roots(refmod, cfg, tr, graph, undirected,
+                               args.seed, device)
     entry = harness.resolve(tr["entry"]["call"])
+    values = {"values": graph["values"]} if "values" in graph else {}
     host = harness.resolve(tr["build"]["call"])(
         graph["num_nodes"], graph["src"], graph["dst"],
-        undirected=undirected, **tr["build"].get("kwargs", {}))
+        undirected=undirected, **values, **tr["build"].get("kwargs", {}))
     del graph
     dg = harness.resolve(tr["upload"]["call"])(
         host, device=device, **tr["upload"].get("kwargs", {}))
@@ -114,10 +116,10 @@ def main(argv=None) -> int:
     infos: list = []
 
     def query() -> None:
-        root = int(roots[cursor[0] % len(roots)])
+        root = roots[cursor[0] % len(roots)]
         cursor[0] += 1
         t = time.perf_counter()
-        res = entry(dg, **{ent["root_kwarg"]: root}, **kwargs)
+        res = entry(dg, **harness.root_kwargs(ent, root), **kwargs)
         wall = (time.perf_counter() - t) * 1e3
         infos.append({"root": root, "wall_ms": wall,
                       **{k: res.info[k] for k in INFO_KEYS

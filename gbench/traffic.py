@@ -8,19 +8,23 @@ last one returns.
 
 - ``build``, ``upload``, ``entry``: the program's calls, as dotted names
   with keyword arguments (see ``harness.py``).
-- ``roots``: the root rule. ``"nonzero_degree"`` draws ``count``
-  distinct vertices of nonzero degree (self-loops not counted) from the
-  seed; the window cycles through them in the order drawn. With
-  ``"outside_largest": k`` it draws ``k`` of them outside the largest
-  connected component and the rest inside it, in an order drawn from
-  the seed, so that every seed sends the same mix of whole-graph and
-  small-component searches.
-- ``work``: the rule by which the reference counts a query's work.
+- ``roots``: the root rule, or null for a whole-graph entry that takes
+  no root (its one root is then None, and every query the same call).
+  ``"nonzero_degree"`` draws ``count`` distinct vertices of nonzero
+  degree (self-loops not counted) from the seed; the window cycles
+  through them in the order drawn. With ``"outside_largest": k`` it
+  draws ``k`` of them outside the largest connected component and the
+  rest inside it, in an order drawn from the seed, so that every seed
+  sends the same mix of whole-graph and small-component searches.
+- ``work``: the rule by which the reference counts each root's work.
 - ``reference``: the plain reference, ``reference/<name>.py``.
-- ``check``: ``roots``, how many of the distinct roots the window served
-  have an answer compared, drawn from the seed where it served more;
-  each such root's answer is drawn from the seed among its queries. The
-  longest query's answer is compared besides.
+- ``check``: ``roots`` (default 1), how many of the distinct roots the
+  window served have answers compared, drawn from the seed where it
+  served more, and ``answers`` (default 1), how many of each such
+  root's answers, drawn from the seed among its queries. The longest
+  query's answer is compared besides (:class:`Sample`). A rootless mix
+  has one root, None, so ``answers`` is how many of the window's
+  answers are compared.
 - ``trace``: ``queries``, the whole queries of the traced stretch,
   ``label_queries``, those of the stretch whose host operators are
   recorded, and ``spans``, the program's functions the benchmark wraps
@@ -30,13 +34,28 @@ last one returns.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Streams of the seed, one a use, so that one use never shifts another.
-ROOTS, CHECK = 1, 2
+ROOTS, CHECK, VALUES = 1, 2, 3
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([seed % 2**64, stream])
+
+
+def edge_values(rule: dict, num_edges: int, seed: int,
+                device: torch.device) -> np.ndarray:
+    """A configuration's ``edge_values``: ``num_edges`` float32 values,
+    one a generated COO edge, drawn on ``device`` from the seed's
+    :data:`VALUES` stream. ``"uniform"`` draws from [``lo``, ``hi``)."""
+    if rule["rule"] != "uniform":
+        raise ValueError(f"unknown edge value rule {rule['rule']!r}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng(seed, VALUES).integers(2**63)))
+    lo, hi = float(rule["lo"]), float(rule["hi"])
+    vals = torch.rand(num_edges, generator=gen, device=device)
+    return (lo + (hi - lo) * vals).cpu().numpy()
 
 
 def degrees(num_nodes: int, src: np.ndarray, dst: np.ndarray,
@@ -80,23 +99,29 @@ def _choose(gen: np.random.Generator, cand: np.ndarray,
 
 
 class Sample:
-    """The answers to compare: one for each of ``roots`` distinct roots
-    of those offered (all where fewer were offered), each drawn from the
-    seed among the root's answers, and the longest query's besides."""
+    """The answers to compare: ``answers`` for each of ``roots`` distinct
+    roots of those offered (all where fewer were offered), each drawn
+    from the seed among the root's answers (a reservoir: every answer
+    offered is kept with equal chance, whatever the window's length),
+    and the longest query's besides. A rootless mix offers every answer
+    under its one root, None."""
 
-    def __init__(self, roots: int, seed: int):
-        self.roots = roots
+    def __init__(self, roots: int, seed: int, answers: int = 1):
+        self.roots, self.answers = roots, answers
         self.rng = rng(seed, CHECK)
-        self.kept: dict = {}      # root -> [answers offered, item kept]
+        self.kept: dict = {}      # root -> [answers offered, items kept]
         self.longest = None
 
-    def offer(self, wall: float, root: int, item) -> None:
+    def offer(self, wall: float, root, item) -> None:
         if self.longest is None or wall > self.longest[0]:
             self.longest = (wall, item)
-        slot = self.kept.setdefault(root, [0, None])
+        slot = self.kept.setdefault(root, [0, []])
         slot[0] += 1
-        if int(self.rng.integers(0, slot[0])) == 0:
-            slot[1] = item
+        i = int(self.rng.integers(0, slot[0]))
+        if len(slot[1]) < self.answers:
+            slot[1].append(item)
+        elif i < self.answers:
+            slot[1][i] = item
 
     def items(self) -> list:
         """The answers to compare, the longest query's among them once."""
@@ -105,7 +130,7 @@ class Sample:
             pick = self.rng.choice(len(served), size=self.roots,
                                    replace=False)
             served = [served[i] for i in sorted(pick)]
-        out = [self.kept[r][1] for r in served]
+        out = [it for r in served for it in self.kept[r][1]]
         if self.longest is not None and not any(
                 it is self.longest[1] for it in out):
             out.append(self.longest[1])
