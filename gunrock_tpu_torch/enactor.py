@@ -20,8 +20,8 @@ span (each public call's root span). Outside :func:`tracing`,
 no clock read and no record. The tracer never waits for the device.
 The splits of a :class:`Timer` named by its primitive (``bfs()``'s) are
 spans too. Always on, and process-wide: :data:`COUNTS` (the host loops'
-blocking device-to-host reads, :func:`host_read`, and the levels
-:func:`record_iteration` counts) and :data:`SPLITS` (the calls and
+blocking device-to-host reads, :func:`host_read`, and the levels and
+edges :func:`record_iteration` counts) and :data:`SPLITS` (the calls and
 seconds of every named :class:`Timer`'s splits by span name).
 """
 
@@ -41,8 +41,10 @@ __all__ = ["LoopStats", "record_iteration", "capacity_ladder", "ladder_rung",
 # Process-wide counts since import: "host_reads", the blocking
 # device-to-host reads of the host loops (a ``.tolist()``, an ``int()``
 # of a device value, a ``nonzero`` size, a boolean-mask index or
-# assignment), and "levels", the iterations record_iteration counted.
-COUNTS = {"host_reads": 0, "levels": 0}
+# assignment), "levels", the iterations record_iteration counted, and
+# "edges", their edges (the edges an SSSP round relaxes; a full pull
+# round counts every edge).
+COUNTS = {"host_reads": 0, "levels": 0, "edges": 0}
 # Every split of a named Timer since import by span name: [calls,
 # seconds].
 SPLITS: dict[str, list] = {}
@@ -157,6 +159,7 @@ def record_iteration(stats: LoopStats, *, frontier_len: int,
     """Account one finished iteration (in place)."""
     stats.iteration += 1
     COUNTS["levels"] += 1
+    COUNTS["edges"] += edges
     stats.nodes_queued += frontier_len
     stats.edges_queued += edges
     stats.overflow = stats.overflow or overflow
@@ -216,6 +219,7 @@ def sweep_to_fixpoint(graph, init, *, wmode: str, rounds: int,
     while True:
         dist, chg = pull_min_sweeps(graph, dist, sweeps=rounds, wmode=wmode)
         chg = chg.tolist()
+        host_read()
         changed.extend(chg)
         total += rounds
         if instrument is not None:

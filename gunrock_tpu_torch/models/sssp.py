@@ -37,6 +37,23 @@ far pile are updated in place. Every relaxation rounds ``dist[u] + w`` as
 a float32 add, and every route reaches the same fixpoint, so the
 distances of all routes are bitwise equal and :func:`_fill_preds`
 recovers parents by exact equality.
+
+The predecessors form a shortest-path tree rooted at the source: each
+reached vertex but the source names an in-neighbour ``u`` with
+``dist[u] + w == dist[v]`` whose chain of predecessors ends at the
+source; the source and the unreached vertices name -1. A weight of 0,
+or one below half an ulp of the distance it is added to, makes two
+neighbours equally far, each a hit for the other; the fill takes a
+strictly nearer in-neighbour first, and settles such ties only on
+vertices already in the tree (:func:`_fill_preds`), where the JAX
+package's fill can point the two at each other.
+
+Tracing (:mod:`~gunrock_tpu_torch.enactor`): a public call is the root
+span ``sssp`` with the splits ``sssp.process``, ``sssp.copy`` and
+``sssp.record``; each round of the loop is an ``sssp.round`` span whose
+``kind`` is ``push``, ``pull`` or ``deep``, and the fill an
+``sssp.fill_preds`` span. Every blocking read of the loop is counted
+(:func:`~gunrock_tpu_torch.enactor.host_read`).
 """
 
 from __future__ import annotations
@@ -49,11 +66,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..enactor import (LoopStats, Timer, capacity_ladder, deep_rungs,
-                       ladder_rung, record_iteration, sweep_to_fixpoint)
+from ..enactor import (COUNTS, LoopStats, Timer, capacity_ladder, deep_rungs,
+                       host_read, ladder_rung, record_iteration, span,
+                       sweep_to_fixpoint)
 from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
-from ..ops.advance import expand
+from ..ops.advance import expand, expand_inverse
 from ..ops.kernels import (reduce_by_dst_sorted, sample_sorted,
                            sample_sorted2, scatter_sorted)
 from ..ops.pull2 import pull_vertex_reduce
@@ -108,6 +126,7 @@ def _degree_sum(graph: DeviceGraph, verts: torch.Tensor) -> int:
     ``_laddered_mf`` (``models/sssp.py:73-94``), whose rung ladder only
     bounds a fixed-width gather; here the list is exact-size."""
     v = verts.long()
+    host_read()
     return int((graph.row_offsets[v + 1] - graph.row_offsets[v]).sum())
 
 
@@ -150,6 +169,7 @@ def _winner_minimize(dist: torch.Tensor, dst: torch.Tensor,
     head[1:] = sd[1:] != sd[:-1]
     win = head & (sc < dist[sd.long()])
     dist[sd[win].long()] = sc[win]
+    host_read(2)
     return sd, win, sc
 
 
@@ -187,10 +207,12 @@ def _relax(graph: DeviceGraph, cfg: _Config, st: _State, cap: int):
         ids, count = _winner_minimize_fused(st.dist, dst, cand,
                                             min(cap, graph.v_pad))
         n_next = int(count)
+        host_read()
         nf = ids[:min(n_next, cfg.fcap)]
     else:
         sd, win, _ = _winner_minimize(st.dist, dst, cand)
         winners = sd[win]
+        host_read()
         n_next = winners.shape[0]
         nf = winners[:cfg.fcap]
     overflow = ex.total > cap or st.n > in_cap or n_next > cfg.fcap
@@ -227,6 +249,7 @@ def _bisect(dist: torch.Tensor, delta: np.float32, level: np.float32,
     any_near, any_active, least = torch.stack([
         near.any().float(), active.any().float(),
         torch.where(active, dist, INF).min()]).tolist()
+    host_read()
     if any_near or not any_active:
         return level, near, active
     least = np.float32(least)
@@ -285,6 +308,7 @@ def _split_near(cfg: _Config, st: _State, dq: torch.Tensor):
     past the least queued distance in one shot, in float32."""
     near = dq < float(st.level)
     any_near, least = torch.stack([near.any().float(), dq.min()]).tolist()
+    host_read()
     if not any_near:
         least = np.float32(least)
         k = np.maximum(np.floor((least - st.level) / cfg.delta) + _F32_ONE,
@@ -314,6 +338,7 @@ def _micro_round(graph: DeviceGraph, cfg: _Config, st: _State) -> None:
         sd, win, _ = _winner_minimize(st.dist, dst, dsrc + w)
         far = q[:0] if near is None else q[~near]
         q = torch.unique(torch.cat([far, sd[win]]))
+        host_read(2 if near is None else 4)
         edges = ex.total
     st.frontier, st.n = q, q.shape[0]
     st.m_f = _degree_sum(graph, q)
@@ -343,6 +368,7 @@ def _micro_round_carry(graph: DeviceGraph, cfg: _Config, st: _State,
             nq, ndq, far = q, qd, torch.zeros_like(q, dtype=torch.bool)
         else:
             nidx = torch.nonzero(near).squeeze(1)
+            host_read()
             nq, ndq, far = q[nidx], qd[nidx], ~near
         ex = expand(graph, nq, with_dst=False)
         dst, w = sample_sorted2(graph.col_indices, graph.edge_values, ex.eid)
@@ -359,6 +385,7 @@ def _micro_round_carry(graph: DeviceGraph, cfg: _Config, st: _State,
         keep = sid < _SENTINEL
         keep[:-1] &= sid[:-1] != sid[1:]
         kidx = torch.nonzero(keep).squeeze(1)
+        host_read()
         o = order[kidx]
         q = sid[kidx]
         qd = torch.cat([qd, sc])[o]
@@ -366,6 +393,7 @@ def _micro_round_carry(graph: DeviceGraph, cfg: _Config, st: _State,
         edges = ex.total
     st.frontier, st.n = q, q.shape[0]
     st.m_f = int(qg.sum())
+    host_read()
     record_iteration(st.stats, frontier_len=st.n, edges=edges)
     return qd, qg
 
@@ -395,14 +423,17 @@ def _deep_stretch(graph: DeviceGraph, cfg: _Config, st: _State, C: int,
         qd, qg = st.dist[q], deg[q]
     while (0 < st.n <= C and st.m_f <= C and not st.stats.overflow
            and st.stats.iteration < cfg.max_iters):
-        if cfg.carry:
-            qd, qg = _micro_round_carry(graph, cfg, st, qd, qg, deg)
-        else:
-            _micro_round(graph, cfg, st)
-        refill = cfg.mode == "nearfar" and st.n == 0 and \
-            bool(st.active.any())
-        if refill:
-            _refill(graph, cfg, st)
+        with span("sssp.round", kind="deep"):
+            if cfg.carry:
+                qd, qg = _micro_round_carry(graph, cfg, st, qd, qg, deg)
+            else:
+                _micro_round(graph, cfg, st)
+            refill = False
+            if cfg.mode == "nearfar" and st.n == 0:
+                refill = bool(st.active.any())
+                host_read()
+            if refill:
+                _refill(graph, cfg, st)
         _record(instrument, st, "deep", t0)
         if refill:
             return
@@ -427,21 +458,66 @@ def _pull_divisor() -> int:
     return max(1, int(os.environ.get("GUNROCK_SSSP_PULL_DIV", "16")))
 
 
-def _fill_preds(graph: DeviceGraph, dist: torch.Tensor) -> torch.Tensor:
-    """Shortest-path-tree parents (``models/sssp.py:623-638``): pred(v) =
-    the last in-neighbour u in CSC order with ``dist[u] + w(u, v) ==
-    dist[v]``, exact because every distance was produced as such a sum;
-    -1 at the source, at distance 0 and where unreached. Chunked with
-    int64 positions, as BFS's fill (``models/bfs.py``)."""
-    def hit(lo: int, hi: int) -> torch.Tensor:
-        return dist.index_select(0, graph.csc_indices[lo:hi]) + \
-            graph.csc_edge_values[lo:hi] == \
-            dist.index_select(0, graph.csc_edge_dst[lo:hi])
+def _fill_preds(graph: DeviceGraph, dist: torch.Tensor,
+                src: int) -> torch.Tensor:
+    """Shortest-path-tree parents (the JAX package's
+    ``models/sssp.py:623-638``, repaired): pred(v) = the last in-neighbour
+    u in CSC order that is strictly nearer, ``dist[u] < dist[v]``, with
+    ``dist[u] + w(u, v) == dist[v]``, exact because every distance was
+    produced as such a sum; -1 at ``src`` and where unreached. Along
+    such parents the distance falls, so they form no cycle. A reached
+    vertex with no such hit has only equally far ones (a weight of 0, or
+    one the float32 add absorbs): :func:`_fill_ties` gives it a parent
+    already in the tree. Chunked with int64 positions, as BFS's fill
+    (``models/bfs.py``)."""
+    with span("sssp.fill_preds"):
+        def hit(lo: int, hi: int) -> torch.Tensor:
+            du = dist.index_select(0, graph.csc_indices[lo:hi])
+            dv = dist.index_select(0, graph.csc_edge_dst[lo:hi])
+            return (du < dv) & (du + graph.csc_edge_values[lo:hi] == dv)
 
-    last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
-    ok = torch.isfinite(dist) & (dist > 0) & (last >= 0)
-    fill = graph.csc_indices[last.clamp(min=0)]
-    return torch.where(ok, fill, -1).to(torch.int32)
+        last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+        reached = torch.isfinite(dist)
+        reached[src] = False
+        fill = graph.csc_indices[last.clamp(min=0)]
+        preds = torch.where(reached & (last >= 0), fill, -1).to(torch.int32)
+        ties = torch.nonzero(reached & (last < 0)).squeeze(1)
+        host_read()
+        if ties.numel():
+            _fill_ties(graph, dist, preds, ties)
+    return preds
+
+
+def _fill_ties(graph: DeviceGraph, dist: torch.Tensor, preds: torch.Tensor,
+               ties: torch.Tensor) -> None:
+    """Parents for the reached vertices ``ties`` that have no strictly
+    nearer hit (updates ``preds`` in place): in rounds over just those
+    vertices, each takes the last in-neighbour in CSC order with
+    ``dist[u] + w == dist[v]`` that is not itself among the ties still
+    open at the round's start (the source, a vertex with a strictly
+    nearer parent, or a tie settled in an earlier round), so no round
+    closes a cycle. Every such distance was last lowered from a vertex
+    that held it already, so each round settles at least one tie; a
+    round that settles none (distances no relaxation produced) leaves
+    the rest at -1."""
+    open_ = torch.zeros(dist.shape[0], dtype=torch.bool, device=dist.device)
+    open_[ties] = True
+    while ties.numel():
+        ex = expand_inverse(graph, ties.to(torch.int32))
+        ok = (dist[ex.dst.long()] + graph.csc_edge_values[ex.eid]
+              == dist[ties[ex.rank]]) & ~open_[ex.dst.long()]
+        best = torch.full(ties.shape, -1, dtype=torch.int64,
+                          device=dist.device)
+        best.scatter_reduce_(0, ex.rank, torch.where(ok, ex.eid, -1), "amax")
+        settled = best >= 0
+        preds[ties] = torch.where(settled,
+                                  graph.csc_indices[best.clamp(min=0)], -1)
+        open_[ties] = ~settled
+        left = ties[~settled]
+        host_read()
+        if left.numel() == ties.numel():
+            return
+        ties = left
 
 
 def _sssp_pull_sweeps(graph: DeviceGraph, src: int, *,
@@ -511,8 +587,8 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
                                 instrument=instrument)
         if out is not None:
             dist, stats = out
-            return (dist, _fill_preds(graph, dist) if mark_preds else None,
-                    stats)
+            return (dist, _fill_preds(graph, dist, src) if mark_preds
+                    else None, stats)
         # The high-diameter bail-out: near-far takes the traversal over.
         mode, route = "nearfar", "bailed_to_nearfar"
     sizing = min(queue_sizing, 1.0)
@@ -543,6 +619,7 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
     dist = torch.full((graph.v_pad,), INF, device=dev)
     dist[src] = 0.0
     start, end = graph.row_offsets[src:src + 2].tolist()
+    host_read()
     st = _State(dist=dist, frontier=torch.tensor([src], dtype=torch.int32,
                                                  device=dev),
                 n=1, m_f=min(end - start, 2**31 - 1),
@@ -557,8 +634,11 @@ def sssp_device(graph: DeviceGraph, src: int, *, mark_preds: bool = False,
             C = next(c for c in rungs if size <= c)
             _deep_stretch(graph, cfg, st, C, instrument, t0)
         else:
-            _record(instrument, st, _general_round(graph, cfg, st), t0)
-    preds = _fill_preds(graph, st.dist) if mark_preds else None
+            with span("sssp.round") as rnd:
+                phase = _general_round(graph, cfg, st)
+                rnd.set(kind=phase)
+            _record(instrument, st, phase, t0)
+    preds = _fill_preds(graph, st.dist, src) if mark_preds else None
     return st.dist, preds, st.stats
 
 
@@ -575,44 +655,60 @@ def sssp(graph: Union[CsrGraph, DeviceGraph], src: Union[int, str] = 0, *,
     the JAX package does; a :class:`DeviceGraph` runs where it lies, with
     ``delta`` 1.0. ``instrumented`` collects per-round records into
     ``info["per_iteration"]``; ``deep_carry`` goes to
-    :func:`sssp_device`."""
-    timer = Timer()
-    per_iter: Optional[list] = [] if instrumented else None
-    num_nodes = graph.num_nodes
-    delta = 1.0
-    if isinstance(graph, CsrGraph):
-        dev = resolve_device(device)
-        if src == "largestdegree":
-            src = graph.largest_degree_vertex()
-        if graph.edge_values is None:
-            graph.random_edge_values()
-        if graph.num_edges:
-            delta = delta_factor * float(np.mean(graph.edge_values))
-        with timer.time("preprocess_ms"):
-            dgraph = to_device(graph, with_edge_values=True,
-                               with_csc=mark_preds, device=dev)
-            sync(dev)
-    else:
-        dgraph = graph
-    src = int(src)
-    if not 0 <= src < num_nodes:
-        raise ValueError(f"src {src} out of range [0, {num_nodes})")
-    with timer.time("process_ms"):
-        dist, preds, stats = sssp_device(
-            dgraph, src, mark_preds=mark_preds, mode=mode, delta=delta,
-            queue_sizing=queue_sizing, max_iters=max_iters,
-            instrument=per_iter, deep_carry=deep_carry)
-        sync(dgraph.device)
-    dist_np = dist[:num_nodes].cpu().numpy()
-    preds_np = preds[:num_nodes].cpu().numpy() if mark_preds else None
-    degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
-                   .astype(np.int64))
-    info = make_info(
-        primitive="sssp", graph=dgraph, stats=stats, timer=timer,
-        edges_visited=int(degs[np.isfinite(dist_np)].sum()),
-        extra={"src": src, "mark_paths": mark_preds, "mode": mode,
-               "instrumented": instrumented,
-               "search_depth": stats.iteration,
-               **({"per_iteration": per_iter} if instrumented else {})},
-    )
-    return SsspResult(distances=dist_np, preds=preds_np, info=info)
+    :func:`sssp_device`.
+
+    Each call is the root span ``sssp``. Its run record holds the splits
+    ``process_ms`` (the traversal and the fill), ``copy_ms`` (distances
+    and preds to the host) and ``record_ms`` (the edges visited and the
+    run record; set after :func:`make_info` returns), and
+    ``host_reads``, the traversal's blocking device-to-host reads
+    (:data:`~gunrock_tpu_torch.enactor.COUNTS`)."""
+    with span("sssp"):
+        timer = Timer("sssp")
+        per_iter: Optional[list] = [] if instrumented else None
+        num_nodes = graph.num_nodes
+        delta = 1.0
+        if isinstance(graph, CsrGraph):
+            dev = resolve_device(device)
+            if src == "largestdegree":
+                src = graph.largest_degree_vertex()
+            if graph.edge_values is None:
+                graph.random_edge_values()
+            if graph.num_edges:
+                delta = delta_factor * float(np.mean(graph.edge_values))
+            with timer.time("preprocess_ms"):
+                dgraph = to_device(graph, with_edge_values=True,
+                                   with_csc=mark_preds, device=dev)
+                sync(dev)
+        else:
+            dgraph = graph
+        src = int(src)
+        if not 0 <= src < num_nodes:
+            raise ValueError(f"src {src} out of range [0, {num_nodes})")
+        with timer.time("process_ms"):
+            reads0 = COUNTS["host_reads"]
+            dist, preds, stats = sssp_device(
+                dgraph, src, mark_preds=mark_preds, mode=mode, delta=delta,
+                queue_sizing=queue_sizing, max_iters=max_iters,
+                instrument=per_iter, deep_carry=deep_carry)
+            host_reads = COUNTS["host_reads"] - reads0
+            sync(dgraph.device)
+        with timer.time("copy_ms"):
+            dist_np = dist[:num_nodes].cpu().numpy()
+            preds_np = preds[:num_nodes].cpu().numpy() if mark_preds \
+                else None
+        with timer.time("record_ms"):
+            degs = np.diff(dgraph.row_offsets[:num_nodes + 1].cpu().numpy()
+                           .astype(np.int64))
+            info = make_info(
+                primitive="sssp", graph=dgraph, stats=stats, timer=timer,
+                edges_visited=int(degs[np.isfinite(dist_np)].sum()),
+                extra={"src": src, "mark_paths": mark_preds, "mode": mode,
+                       "instrumented": instrumented,
+                       "search_depth": stats.iteration,
+                       "host_reads": host_reads,
+                       **({"per_iteration": per_iter}
+                          if instrumented else {})},
+            )
+        info["record_ms"] = timer.splits["record_ms"] * 1000.0
+        return SsspResult(distances=dist_np, preds=preds_np, info=info)

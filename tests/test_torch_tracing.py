@@ -1,8 +1,10 @@
 """The port's tracer and always-on figures on the CPU: spans recorded
-only inside ``tracing()`` and on the profiler's clock, the span tree of
-a ``bfs()`` call, the counted host reads, the timed splits of the run
-record, and no process started by a call after a process's first."""
+only inside ``tracing()`` and on the profiler's clock, the span trees of
+a ``bfs()`` and an ``sssp()`` call, the counted host reads and relaxed
+edges, the timed splits of the run record, and no process started by a
+call after a process's first."""
 
+import copy
 import subprocess
 import time
 
@@ -31,6 +33,23 @@ def grid():
     dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
     g = gtt.from_coo(idx.size, src, dst, undirected=True)
     return g, gtt.to_device(g, with_csc=True, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def weighted(rmat, grid):
+    """The two graphs with edge values, uploaded as ``sssp(mark_preds)``
+    needs them."""
+    out = {}
+    for name, (g, _) in (("rmat", rmat), ("grid", grid)):
+        g = copy.copy(g)
+        g.random_edge_values(seed=5)
+        out[name] = gtt.to_device(g, with_edge_values=True, with_csc=True,
+                                  device="cpu")
+    return out
+
+
+def _sssp(dg, src):
+    return gtt.sssp(dg, src, mark_preds=True, device="cpu")
 
 
 def _do_bfs(dg, src):
@@ -100,6 +119,73 @@ def test_span_tree_of_two_calls(graph, request):
                 assert r[1] == id_
     kinds = {r[6]["kind"] for r in records if r[3] == "bfs.level"}
     assert "pull" in kinds if graph == "rmat" else kinds == {"micro"}
+
+
+@pytest.mark.parametrize("graph", ["rmat", "grid"])
+def test_sssp_span_tree(graph, weighted):
+    dg = weighted[graph]
+    with E.tracing() as records:
+        res = _sssp(dg, 3)
+    by_id = {r[0]: r for r in records}
+    (root,) = [r for r in records if r[1] is None]
+    assert root[3] == "sssp" and all(r[2] == root[0] for r in records)
+    names = [r[3] for r in records]
+    rounds = [r for r in records if r[3] == "sssp.round"]
+    assert len(rounds) == res.info["num_iterations"] > 0
+    kinds = {r[6]["kind"] for r in rounds}
+    assert kinds <= {"push", "pull", "deep"}
+    # On the CPU no round pulls (K3 pulls need the card); the grid's
+    # small wavefronts run in the deep micro-loop.
+    assert kinds == ({"push", "deep"} if graph == "grid" else {"push"})
+    for name in ("sssp.process", "sssp.fill_preds", "sssp.copy",
+                 "sssp.record"):
+        assert names.count(name) == 1, name
+    process = next(r for r in records if r[3] == "sssp.process")
+    for r in records:
+        if r[1] is not None:
+            p = by_id[r[1]]
+            assert p[4] <= r[4] <= r[5] <= p[5], r
+        if r[3] in ("sssp.round", "sssp.fill_preds"):
+            assert r[1] == process[0]
+        if r[3] in ("sssp.process", "sssp.copy", "sssp.record"):
+            assert r[1] == root[0]
+
+
+def test_sssp_tracing_off_reads_no_clock_and_changes_nothing(
+        weighted, monkeypatch):
+    dg = weighted["rmat"]
+    with E.tracing() as records:
+        on = _sssp(dg, 9)
+    assert records
+
+    def no_clock():
+        raise AssertionError("a span read the clock with tracing off")
+    monkeypatch.setattr(E.time, "time_ns", no_clock)
+    off = _sssp(dg, 9)
+    assert on.info["host_reads"] == off.info["host_reads"]
+    np.testing.assert_array_equal(on.distances, off.distances)
+    np.testing.assert_array_equal(on.preds, off.preds)
+
+
+@pytest.mark.parametrize("graph,src", [("rmat", 0), ("grid", 20100)])
+def test_sssp_counts_reads_relaxed_edges_and_splits(graph, src, weighted):
+    dg = weighted[graph]
+    counts = dict(E.COUNTS)
+    splits = {k: list(v) for k, v in E.SPLITS.items()}
+    runs = [_sssp(dg, src) for _ in range(2)]
+    info = runs[0].info
+    assert runs[1].info["host_reads"] == info["host_reads"] >= \
+        info["num_iterations"] > 0
+    assert E.COUNTS["host_reads"] - counts["host_reads"] == \
+        2 * info["host_reads"]
+    assert E.COUNTS["levels"] - counts["levels"] == \
+        2 * info["num_iterations"]
+    assert E.COUNTS["edges"] - counts["edges"] == 2 * info["edges_queued"]
+    assert info["edges_queued"] >= info["edges_visited"] > 0
+    for key in ("process_ms", "copy_ms", "record_ms"):
+        assert info[key] >= 0.0, key
+    for name in ("sssp.process", "sssp.copy", "sssp.record"):
+        assert E.SPLITS[name][0] == splits.get(name, [0])[0] + 2, name
 
 
 def test_program_span_shares_the_profilers_clock():
