@@ -62,7 +62,11 @@ script exits non-zero:
     ``gunrock_tpu_torch.sssp(g, mark_preds=True, device="cuda")`` on the
     host graph (bellman push). Distances bitwise equal to phase 11's,
     predecessors valid by exact float32 equality on an edge; K5 (and K3
-    where a round pulled) launched in every run.
+    where a round pulled) launched in every run, K14 once by the run
+    with predecessors. Then K14 with the SSSP test on phase 11's graph
+    and distances, exactly equal to its plain version run on CPU copies
+    of the same inputs and over two launches; median times (its plain
+    version's on the card), device time and bound.
 13. The grid of ``bench_all.py:225-263`` (1024 x 1024,
     ``random_edge_values(seed=1)``, ``with_blocked_values``): SSSP from 0
     with delta 256 (the sweep route bails out to near-far and its deep
@@ -107,8 +111,10 @@ script exits non-zero:
 
 21. The rest of BFS: DO-BFS with predecessors through ``bfs_device`` on
     the flagship uploaded ``with_csc`` only (no blocked CSC), so that
-    every pull level runs kernel K10 once and K1 never; labels equal
-    phase 3's, predecessors valid. Then the deep micro-loop: DO-BFS with
+    every pull level runs kernel K10 once and K1 never, and the pred
+    fill K14 once; labels equal phase 3's, predecessors valid. K14 with
+    the BFS test on those labels, checked and timed as in phase 12.
+    Then the deep micro-loop: DO-BFS with
     predecessors on the grid from 0, every level a micro round (phase
     "deep"), labels against scipy's depths, predecessors valid.
 22. K10 against its plain version, exactly, at the shapes of every pull
@@ -263,7 +269,14 @@ after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K7, K8), 11 (K6), 16 (K9), 21, 28 and 29 (K10), 28 (K2), 29 (K3 on the
 circulant's value pulls), 31 and 32 (every kernel a sharded run
 launched, summed over the ranks in 32: K1, K3, and K2 in
-``bfs_batch``) and 33 (K1, K2 and K10 launched by the installed copy). K1's entry also carries ``shard_*`` (K1 on the shard
+``bfs_batch``), 33 (K1, K2, K10 and K14 launched by the installed copy)
+and 12, 21 (the flagship's run) and 28 (K14, the pred fills' kernel:
+one a DO-BFS with predecessors that pulled or an SSSP with
+predecessors; its own checks' launches are not counted).
+K14's entry (``replaces`` null: the JAX package's fills are XLA's
+``cummax``) gives the BFS test at phase 21's shapes and, under
+``sssp_*``, the SSSP test at phase 12's. K1's entry also carries
+``shard_*`` (K1 on the shard
 views at the sharded DO-BFS's pull levels, summed over the levels and
 shards) and K3's ``compact_*`` (K3 on the shards' compact tables,
 summed over the shards), ``flagship_int32_ms`` and
@@ -283,7 +296,8 @@ of its library call (:func:`_device_ms`), K2 its ``device_ms`` at the
 main path's launch (whose shape its row gives, ``ids``) and, under
 ``random_*``, all its numbers at 2^22 random ids, with
 ``pack_device_ms``, the device time of the mask's packing; K1 and K10
-their ``device_ms`` summed over the pull levels, K4 its ``device_ms`` and
+their ``device_ms`` summed over the pull levels, K14 its ``device_ms`` a
+call, K4 its ``device_ms`` and
 ``build_device_ms``, the device time of its tile rows a call, K5 the
 device time of a round's pair and K7 that of its min with aux and
 (``ring_device_ms``) of BC's ring sum. A device time that the profiler
@@ -966,10 +980,62 @@ def check_sssp_preds(g, src, dist, preds):
         raise AssertionError("dist[pred] + w != dist[v] on a tree edge")
 
 
+def check_last_hit(dg, vals, weights, what):
+    """K14 on the card against its plain version on CPU copies of the
+    same inputs, bit for bit, and two launches against each other; its
+    time a call, the plain version's on the card, its device time and its
+    bound (csc_indices, and the weights, an edge; the offsets and the
+    values a row; an 8-byte word written a row). Returns K14's JSON
+    fields."""
+    import types
+    import torch
+    from gunrock_tpu_torch.ops import kernels as K
+
+    def call():
+        return K.last_hit_rows(dg, vals, weights)
+
+    K.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    if K.LAUNCHES["last_hit_rows"] != 1:
+        raise AssertionError(f"K14 {what}: {K.LAUNCHES['last_hit_rows']} "
+                             "launches for one call")
+    host = types.SimpleNamespace(
+        csc_indices=dg.csc_indices.cpu(), csc_edge_dst=dg.csc_edge_dst.cpu(),
+        csc_offsets=dg.csc_offsets.cpu(), num_edges=dg.num_edges)
+    want = K.last_hit_rows_plain(
+        host, vals.cpu(), None if weights is None else weights.cpu())
+    got = got.cpu()
+    err = _max_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K14 {what} differs from its plain version "
+                             f"(max abs err {err})")
+    if not torch.equal(call().cpu(), got):
+        raise AssertionError(f"K14 {what}: two launches differ")
+    ms = _median_ms(call)
+    plain = _median_ms(
+        lambda: K.last_hit_rows_plain(dg, vals, weights), reps=5)
+    device = _device_ms(call)
+    streams = 1 if weights is None else 2
+    work = bound(4 * streams * dg.num_edges
+                 + dg.csc_offsets.numel() * dg.csc_offsets.element_size()
+                 + (4 + 8) * dg.v_pad)
+    print(f"[kernels] K14 last_hit_rows, {what} test, {dg.num_edges} edges,"
+          f" {dg.csc_offsets.dtype} offsets: bitwise equal to the plain "
+          f"version on the CPU and over two launches, {int((got >= 0).sum())}"
+          f" rows hit; {ms:.4f} ms vs plain {plain:.4f} ms on the card; "
+          f"device {device:.4f} ms; bound {work['bound_ms']:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "device_ms": device, **work}
+
+
 def phase_sssp(gtt, g, src, dev, card):
     """Phases 11 and 12: SSSP on the flagship, the sweep route and the
-    push routes. Returns the uploaded graph, the sweep route's distances
-    and the main-path launch counts of K3, K5, K6, K7 and K8."""
+    push routes, then K14 with the SSSP test on the sweep route's
+    distances against its plain version (:func:`check_last_hit`).
+    Returns the uploaded graph, the sweep route's distances, the
+    main-path launch counts of K3, K5, K6, K7, K8 and K14, and K14's
+    SSSP fields."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.models.sssp import sssp_device
@@ -1042,13 +1108,17 @@ def phase_sssp(gtt, g, src, dev, card):
                              "the sweep route's")
     if n["sample_sorted"] <= 0 or n["sample_sorted2"] <= 0:
         raise AssertionError("K5 was not launched on the host graph")
+    if n["last_hit_rows"] != 1:
+        raise AssertionError(f"K14 launched {n['last_hit_rows']} times by "
+                             "one SSSP with preds")
     check_sssp_preds(g, src, res.distances, res.preds)
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
     launches["pull_min_sweeps"] = sweep_launches["pull_min_sweeps"]
     print("[sssp] distances bitwise equal over the sweep, near-far, fused "
           "and bellman-push routes; preds valid")
-    return dg, dist_t, launches
+    k14 = check_last_hit(dg, dist_t, dg.csc_edge_values, "SSSP")
+    return dg, dist_t, launches, k14
 
 
 def phase_grid(gtt, g, src, dg, bfs_labels, dev):
@@ -1624,9 +1694,11 @@ def phase_bc_timing(g, src, dg, dgc, card):
 
 def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
     """Phase 21: DO-BFS with predecessors on the flagship uploaded
-    ``with_csc`` only (pull levels through K10), then DO-BFS with
-    predecessors on the grid (the deep micro-loop). Returns the K10
-    graph, the frontier depth of each pull level and K10's launches."""
+    ``with_csc`` only (pull levels through K10, the fill through K14),
+    K14 with the BFS test on its labels against its plain version
+    (:func:`check_last_hit`), then DO-BFS with predecessors on the grid
+    (the deep micro-loop). Returns the K10 graph, the frontier depth of
+    each pull level, K10's launches and K14's BFS fields."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.models.bfs import bfs_device
@@ -1659,13 +1731,18 @@ def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
     if launches["pull_reached_words"]:
         raise AssertionError("K1 was launched on a graph without the "
                              "blocked CSC")
+    if launches["last_hit_rows"] != 1:
+        raise AssertionError(f"K14 launched {launches['last_hit_rows']} "
+                             "times by one DO-BFS with preds")
     n = g.num_nodes
     lab = labels[:n].cpu().numpy()
     if not np.array_equal(lab, bfs_labels):
         raise AssertionError("K10 route's labels differ from phase 3's")
     check_preds(g, src, lab, preds[:n].cpu().numpy())
     print("[bfs-k10] labels equal phase 3's; preds valid; K10 once a pull "
-          "level, K1 never")
+          "level, K1 never, K14 once")
+    k14 = {**check_last_hit(dgk, labels, None, "BFS"),
+           "launches": launches["last_hit_rows"]}
 
     K.reset_launch_counts()
     records = []
@@ -1687,7 +1764,7 @@ def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
     check_labels(gg, 0, lab)
     check_preds(gg, 0, lab, preds[:gg.num_nodes].cpu().numpy())
     print("[bfs-deep] labels equal scipy's depths; preds valid")
-    return dgk, pull_depths, launches["bitmask_gather_cumsum"]
+    return dgk, pull_depths, launches["bitmask_gather_cumsum"], k14
 
 
 def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
@@ -2183,7 +2260,8 @@ def phase_sizet64(gtt, g, src, dev, card):
                    "upload differ too: atomic sums)")
         print(f"[sizet64] {name}: {how}; kernel launches {n}")
     for name in ("bitmask_gather_cumsum", "bitmask_gather", "sample_sorted2",
-                 "reduce_by_dst_sorted", "scatter_sorted", "pull_reduce2"):
+                 "reduce_by_dst_sorted", "scatter_sorted", "pull_reduce2",
+                 "last_hit_rows"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the sizet64 "
                                  "graph")
@@ -3658,7 +3736,7 @@ def main() -> int:
 
     # 11-12. SSSP; 13. the grid and non-DO BFS; 14. K5-K8 against their
     # plain versions; 15. timing.
-    dgs, dist, sssp_launches = phase_sssp(gtt, g, src, dev, card)
+    dgs, dist, sssp_launches, k14_sssp = phase_sssp(gtt, g, src, dev, card)
     gg, dgw = phase_grid(gtt, g, src, dgs, res.labels, dev)
     sk = phase_sssp_kernels(dgs, src, dist, dev)
     phase_sssp_timing(g, src, dgs, gg, dgw, card)
@@ -3672,8 +3750,8 @@ def main() -> int:
 
     # 21. The rest of BFS: K10 and the deep micro-loop; 22. K10 against
     # its plain version; 23. timing.
-    dgk, pull_depths, k10_launches = phase_bfs_rest(gtt, g, src, res.labels,
-                                                    gg, dgw, dev)
+    dgk, pull_depths, k10_launches, k14 = phase_bfs_rest(
+        gtt, g, src, res.labels, gg, dgw, dev)
     k10 = phase_k10_kernel(dgk, res.labels, pull_depths, dev)
     phase_bfs_timing(src, info["edges_visited"], dgb, dgk, gg, dgw, card)
     del dgk, dgb
@@ -3771,6 +3849,12 @@ def main() -> int:
          "launches": k10_launches + s64["bitmask_gather_cumsum"]
          + ring_k10 + sh["bitmask_gather_cumsum"]
          + inst["bitmask_gather_cumsum"], **k10},
+        {"name": "last_hit_rows", "route": "cuda", "source": source,
+         "replaces": None,
+         "launches": k14.pop("launches") + sssp_launches["last_hit_rows"]
+         + s64.get("last_hit_rows", 0) + sh.get("last_hit_rows", 0)
+         + inst.get("last_hit_rows", 0), **k14,
+         **{f"sssp_{k}": v for k, v in k14_sssp.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@
 // kernels, whose row loop never matches such an id.
 //
 // K1 and K10 test one frontier bit for every CSC source, K2 one for
-// every id it is given. The TPU kernels keep the whole mask in VMEM (a
+// every id it is given; K14 finds each CSC row's last in-neighbour that
+// passes the predecessor fills' test, in K1's warp tiles. The TPU kernels keep the whole mask in VMEM (a
 // constant (R, 128) block); here it is held on chip too. K1 and K10 run
 // a persistent grid of one block of 32 warps an SM and stream their ids
 // with 16-byte loads and the evict-first hint, the next tile's loads
@@ -32,6 +33,7 @@
 #include <cstdint>
 #include <cstring>
 #include <initializer_list>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "tiles.cuh"
@@ -592,14 +594,233 @@ gather_cumsum_kernel(CumsumArgs a) {
   }
 }
 
+// K14: the last hit of every CSC row, for the predecessor fills of BFS
+// and SSSP (models/bfs.py and models/sssp.py _fill_preds): out[v] = the
+// largest CSC position p in row v whose in-neighbour u = indices[p]
+// passes the fill's test, or -1. The test (parent_hit): u's label is
+// v's less one (BFS, int32 labels); or u is strictly nearer than v and
+// its distance plus the edge's weight, one float32 add rounded to
+// nearest, is v's (SSSP). Positions are 64-bit whatever the offsets'
+// type, so the fill stays exact past 2^31 edges.
+//
+// Replaces no TPU kernel: the JAX package's fills are XLA's cummax over
+// the hit positions of every CSC edge (gunrock_tpu/models/bfs.py:373-386,
+// models/sssp.py:623-638). The port's plain version
+// (ops/kernels.py last_hit_rows_plain) takes a float64 segment_reduce over
+// every row for each chunk of 2^24 edges: about 43 ms at Graph500 scale
+// 22 on the H100 (PERF.md, section 5).
+//
+// Bound on the H100: csc_indices streamed once (4 bytes an edge, 513 MB
+// at Graph500 scale 22), the offsets and the values (2 x 16.8 MB) and an
+// 8-byte word written a row: about 0.58 GB, 0.17 ms at 3.35 TB/s; SSSP
+// adds csc_edge_values (another 513 MB): 0.34 ms. The gathers of vals[u]
+// land in the 50 MB L2.
+//
+// Kronecker rows hold 0 to about 10^5 in-edges, so work is split by
+// edges, not rows: each warp takes a contiguous run of warp tiles of
+// kHitTile edges (lane l holds edges 8 l .. 8 l + 7 of a tile, loaded 16
+// bytes at a time, the next tile's loads issued first) and finds the row
+// of its first edge once, by a binary search of the offsets. A tile
+// marks in the warp's 1 KB of shared memory the position of each
+// nonempty row that starts inside it, reading the offsets 32 rows a step
+// from the row it carries over (that of the edge before it); a lane's
+// first row is the largest start before its edges (a warp max-scan), as
+// in K1. No tile-rows prologue runs, and csc_edge_dst is not read. A hit
+// is its row's last in the tile when the tile's next hit lies in another
+// row (the next lane with a hit found by a ballot). Rows strictly
+// between the tile's first and last rows lie wholly inside it and get
+// one plain store; those two get atomicMax, as other tiles may hold hits
+// of them. A max does not depend on the order of the updates, so two
+// launches agree bit for bit. The entry point sets the output to -1 (all
+// bytes 0xff) before the launch.
+constexpr int kHitQuads = 2;
+constexpr int kHitItems = 4 * kHitQuads;    // 8 edges a lane
+constexpr int kHitTile = 32 * kHitItems;    // 256 edges a warp tile
+static_assert(kHitQuads == 2, "last_hit_rows_kernel unpacks two quads");
+
+template <typename Off>
+struct HitArgs {
+  const Off* offsets;       // csc_offsets, (rows + 1,)
+  const int32_t* indices;   // csc_indices
+  const void* vals;         // (rows,) int32 labels or float32 distances
+  const float* weights;     // csc_edge_values (SSSP's test only)
+  int64_t rows;
+  int64_t num_edges;
+  int64_t ntiles;
+  int64_t tiles_per_warp;
+  long long* out;           // (rows,), -1 before the launch
+};
+
+// int32 arithmetic wraps, as the plain version's does.
+__device__ __forceinline__ bool parent_hit(int32_t du, int32_t dv, float) {
+  return (uint32_t)du + 1u == (uint32_t)dv;
+}
+
+__device__ __forceinline__ bool parent_hit(float du, float dv, float w) {
+  return du < dv && __fadd_rn(du, w) == dv;
+}
+
+// A row's last hit in a tile: a plain store for a row wholly inside the
+// tile, atomicMax for the tile's first and last rows.
+__device__ __forceinline__ void put_hit(long long* __restrict__ out,
+                                        int32_t r, int64_t pos,
+                                        int32_t first, int32_t last) {
+  if (r != first && r != last) {
+    out[r] = pos;
+  } else {
+    atomicMax(out + r, (long long)pos);
+  }
+}
+
+template <bool kWeighted, typename Off>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+last_hit_rows_kernel(HitArgs<Off> a) {
+  using T = typename std::conditional<kWeighted, float, int32_t>::type;
+  __shared__ __align__(16) int32_t block_starts[kBlockWarps * kHitTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int32_t* const starts = block_starts + warp * kHitTile;
+  int4* const mine = reinterpret_cast<int4*>(starts + kHitItems * lane);
+  const T* const vals = static_cast<const T*>(a.vals);
+  const int32_t* const wbits = reinterpret_cast<const int32_t*>(a.weights);
+  const bool vec = ((reinterpret_cast<uintptr_t>(a.indices) |
+                     reinterpret_cast<uintptr_t>(a.weights)) & 15) == 0;
+  int64_t t = ((int64_t)blockIdx.x * kBlockWarps + warp) * a.tiles_per_warp;
+  const int64_t t_end = min(t + a.tiles_per_warp, a.ntiles);
+  if (t >= t_end) return;
+  // The row of the warp's first edge: the last row that starts at or
+  // before it (a nonempty one).
+  int64_t lo_r = 0, hi_r = a.rows;
+  while (hi_r - lo_r > 1) {
+    const int64_t mid = (lo_r + hi_r) >> 1;
+    if ((int64_t)__ldg(a.offsets + mid) <= t * kHitTile) {
+      lo_r = mid;
+    } else {
+      hi_r = mid;
+    }
+  }
+  // The row carried into a tile: that of the edge before it (of its
+  // first edge, in the warp's first tile). Every later nonempty row
+  // starts inside the tile or past it.
+  int32_t row = (int32_t)lo_r;
+  int4 cur[kHitQuads], wcur[kHitQuads] = {};
+#pragma unroll
+  for (int q = 0; q < kHitQuads; ++q) {
+    const int64_t e = t * kHitTile + kHitItems * lane + 4 * q;
+    cur[q] = load4(a.indices, a.num_edges, e, vec);
+    if constexpr (kWeighted) wcur[q] = load4(wbits, a.num_edges, e, vec);
+  }
+  for (; t < t_end; ++t) {
+    const int64_t lo = t * kHitTile;
+    const int64_t hi = min(lo + kHitTile, a.num_edges);
+    const int rest = (int)(hi - lo) - kHitItems * lane;
+    const int n = rest < 0 ? 0 : (rest < kHitItems ? rest : kHitItems);
+    // The next tile's edges go out first.
+    int4 nxt[kHitQuads] = {}, wnxt[kHitQuads] = {};
+    if (t + 1 < t_end) {
+#pragma unroll
+      for (int q = 0; q < kHitQuads; ++q) {
+        const int64_t e = lo + kHitTile + kHitItems * lane + 4 * q;
+        nxt[q] = load4(a.indices, a.num_edges, e, vec);
+        if constexpr (kWeighted) wnxt[q] = load4(wbits, a.num_edges, e, vec);
+      }
+    }
+    // The in-neighbours' values (edges past the end read -1: none).
+    const int32_t u[kHitItems] = {cur[0].x, cur[0].y, cur[0].z, cur[0].w,
+                                  cur[1].x, cur[1].y, cur[1].z, cur[1].w};
+    const int32_t wb[kHitItems] = {wcur[0].x, wcur[0].y, wcur[0].z,
+                                   wcur[0].w, wcur[1].x, wcur[1].y,
+                                   wcur[1].z, wcur[1].w};
+    T du[kHitItems];
+#pragma unroll
+    for (int k = 0; k < kHitItems; ++k) {
+      du[k] = u[k] >= 0 ? __ldg(vals + u[k]) : T(0);
+    }
+    // Mark the nonempty rows that start inside the tile, 32 rows a step
+    // from the one after the carried row, up to the first at or past hi.
+#pragma unroll
+    for (int q = 0; q < kHitQuads; ++q) mine[q] = make_int4(-1, -1, -1, -1);
+    __syncwarp();
+    for (int64_t base = (int64_t)row + 1;; base += 32) {
+      const int64_t r = base + lane;
+      bool past = r >= a.rows;
+      if (!past) {
+        const int64_t s = __ldg(a.offsets + r);
+        past = s >= hi;
+        if (!past && (int64_t)__ldg(a.offsets + r + 1) > s) {
+          starts[s - lo] = (int32_t)r;
+        }
+      }
+      if (__any_sync(kFull, past)) break;
+    }
+    __syncwarp();
+    int32_t st[kHitItems];
+    int32_t own = -1;
+#pragma unroll
+    for (int q = 0; q < kHitQuads; ++q) {
+      const int4 s4 = mine[q];
+      st[4 * q] = s4.x;
+      st[4 * q + 1] = s4.y;
+      st[4 * q + 2] = s4.z;
+      st[4 * q + 3] = s4.w;
+      own = max(own, max(max(s4.x, s4.y), max(s4.z, s4.w)));
+    }
+    int32_t incl = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t o = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl = max(incl, o);
+    }
+    const int32_t before = __shfl_up_sync(kFull, incl, 1);
+    // The rows of the tile's first and last edges.
+    const int32_t first = max(row, __shfl_sync(kFull, st[0], 0));
+    const int32_t last = max(row, __shfl_sync(kFull, incl, 31));
+    // The lane's edges in order: a hit followed by one in another row is
+    // its row's last in the tile.
+    int32_t r = lane > 0 ? max(row, before) : row;
+    T dv = __ldg(vals + r);
+    int32_t prow = -1, frow = -1;
+    int64_t ppos = -1;
+#pragma unroll
+    for (int k = 0; k < kHitItems; ++k) {
+      if (st[k] >= 0) {
+        r = st[k];
+        dv = __ldg(vals + r);
+      }
+      if (k < n && parent_hit(du[k], dv, __int_as_float(wb[k]))) {
+        if (prow >= 0 && prow != r) put_hit(a.out, prow, ppos, first, last);
+        if (frow < 0) frow = r;
+        prow = r;
+        ppos = lo + kHitItems * lane + k;
+      }
+    }
+    // The lane's last hit is its row's last unless the next lane with a
+    // hit has its first in the same row.
+    const unsigned with_hits = __ballot_sync(kFull, prow >= 0);
+    const unsigned later = lane == 31 ? 0u : with_hits & (~0u << (lane + 1));
+    const int32_t next_row =
+        __shfl_sync(kFull, frow, later ? __ffs(later) - 1 : lane);
+    if (prow >= 0 && (later == 0 || next_row != prow)) {
+      put_hit(a.out, prow, ppos, first, last);
+    }
+    row = last;
+#pragma unroll
+    for (int q = 0; q < kHitQuads; ++q) {
+      cur[q] = nxt[q];
+      wcur[q] = wnxt[q];
+    }
+  }
+}
+
 unsigned int blocks_for(int64_t threads) {
   int64_t b = (threads + kThreads - 1) / kThreads;
   return (unsigned int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
 // Once a device: K10's shared variant may take the mask's shared memory
-// and prefers the whole carveout; K1, K2 and K10's L1 variant prefer the
-// least, so that L1 keeps the mask.
+// and prefers the whole carveout; K1, K2, K10's L1 variant and K14
+// prefer the least, so that L1 keeps the mask (K14: the values it
+// gathers).
 void configure_tiles() {
   static bool done[64] = {};
   int dev = 0;
@@ -614,7 +835,11 @@ void configure_tiles() {
                        cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   for (const void* k : {(const void*)gather_cumsum_kernel<false>,
                         (const void*)bitmask_gather_kernel,
-                        (const void*)pull_reached_words_kernel}) {
+                        (const void*)pull_reached_words_kernel,
+                        (const void*)last_hit_rows_kernel<false, int32_t>,
+                        (const void*)last_hit_rows_kernel<false, int64_t>,
+                        (const void*)last_hit_rows_kernel<true, int32_t>,
+                        (const void*)last_hit_rows_kernel<true, int64_t>}) {
     cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                          0);
   }
@@ -625,6 +850,26 @@ void configure_tiles() {
 unsigned int persistent_grid(int64_t blocks) {
   const int64_t sms = sm_count();
   return (unsigned int)(blocks < sms ? blocks : sms);
+}
+
+template <bool kWeighted, typename Off>
+void launch_last_hit(const void* offsets, const void* indices,
+                     const void* vals, const void* weights, int64_t rows,
+                     int64_t num_edges, void* out, cudaStream_t s) {
+  HitArgs<Off> a;
+  a.offsets = (const Off*)offsets;
+  a.indices = (const int32_t*)indices;
+  a.vals = vals;
+  a.weights = (const float*)weights;
+  a.rows = rows;
+  a.num_edges = num_edges;
+  a.ntiles = (num_edges + kHitTile - 1) / kHitTile;
+  const unsigned int grid =
+      persistent_grid((a.ntiles + kBlockWarps - 1) / kBlockWarps);
+  const int64_t warps = (int64_t)grid * kBlockWarps;
+  a.tiles_per_warp = (a.ntiles + warps - 1) / warps;
+  a.out = (long long*)out;
+  last_hit_rows_kernel<kWeighted, Off><<<grid, kBlockThreads, 0, s>>>(a);
 }
 
 }  // namespace
@@ -722,6 +967,38 @@ int gr_bitmask_gather_cumsum(const void* words, int64_t nbits,
   } else {
     gather_cumsum_kernel<false><<<persistent_grid(ntiles), kBlockThreads, 0,
                                   s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K14. offsets64: csc_offsets are int64, else int32. weights: null for
+// BFS's test on int32 labels, csc_edge_values for SSSP's on float32
+// distances. out: (rows,) int64, set to -1 here, then the last hits.
+int gr_last_hit_rows(const void* offsets, int offsets64, const void* indices,
+                     const void* vals, const void* weights, int64_t rows,
+                     int64_t num_edges, void* out, void* stream) {
+  if (rows < 0 || rows > INT_MAX || num_edges < 0 ||
+      (num_edges > 0 && rows == 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(out, 0xff, (size_t)rows * sizeof(long long), s);
+  if (num_edges == 0) return (int)cudaGetLastError();
+  configure_tiles();
+  if (weights == nullptr) {
+    if (offsets64) {
+      launch_last_hit<false, int64_t>(offsets, indices, vals, weights, rows,
+                                      num_edges, out, s);
+    } else {
+      launch_last_hit<false, int32_t>(offsets, indices, vals, weights, rows,
+                                      num_edges, out, s);
+    }
+  } else if (offsets64) {
+    launch_last_hit<true, int64_t>(offsets, indices, vals, weights, rows,
+                                   num_edges, out, s);
+  } else {
+    launch_last_hit<true, int32_t>(offsets, indices, vals, weights, rows,
+                                   num_edges, out, s);
   }
   return (int)cudaGetLastError();
 }

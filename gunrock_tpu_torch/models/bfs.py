@@ -70,9 +70,10 @@ from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand
 from ..ops.kernels import (bitmask_gather, bitmask_gather_cumsum,
-                           pack_bitmask, pull_reached_words, unpack_bitmask)
+                           last_hit_rows, pack_bitmask, pull_reached_words,
+                           unpack_bitmask)
 from ..ops.segment import (compact, dedup_winners, frontier_from_mask,
-                           last_hit_in_rows, scatter_max, scatter_set)
+                           scatter_max, scatter_set)
 from ..utils.info import make_info
 
 __all__ = ["bfs", "BfsResult", "bfs_device"]
@@ -282,23 +283,19 @@ def _fill_preds(graph: DeviceGraph, labels: torch.Tensor,
                 preds: torch.Tensor) -> torch.Tensor:
     """Post-hoc predecessors for vertices discovered in pull levels:
     pred(v) = the last in-neighbor (CSC order) with label(v) - 1
-    (``models/bfs.py:373-386``). Updates ``preds`` in place.
+    (``models/bfs.py:373-386``). Updates ``preds`` in place, with no
+    read to the host.
 
     The JAX package numbers the CSC slots with an int32 ``arange(e_pad)``
     and takes a ``cummax`` over all of them; here
-    :func:`~gunrock_tpu_torch.ops.segment.last_hit_in_rows` walks the
-    edges in chunks with int64 positions, so the fill stays exact past
-    2^31 edges and makes no edge-scale temporary."""
-    def hit(lo: int, hi: int) -> torch.Tensor:
-        return labels.index_select(0, graph.csc_indices[lo:hi]) + 1 == \
-            labels.index_select(0, graph.csc_edge_dst[lo:hi])
-
+    :func:`~gunrock_tpu_torch.ops.kernels.last_hit_rows` finds each row's
+    last hit with int64 positions (kernel K14 on the card), so the fill
+    stays exact past 2^31 edges and makes no edge-scale temporary."""
     with span("bfs.fill_preds"):
-        last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+        last = last_hit_rows(graph, labels)
         ok = (labels > 0) & (preds == INVALID) & (last >= 0)
-        fill = graph.csc_indices[last.clamp(min=0)]
-        preds[ok] = fill[ok]
-        host_read(2)
+        preds.copy_(torch.where(ok, graph.csc_indices[last.clamp(min=0)],
+                                preds))
     return preds
 
 

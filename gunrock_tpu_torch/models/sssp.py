@@ -72,10 +72,10 @@ from ..enactor import (COUNTS, LoopStats, Timer, capacity_ladder, deep_rungs,
 from ..graph.csr import CsrGraph
 from ..graph.device import DeviceGraph, resolve_device, sync, to_device
 from ..ops.advance import expand, expand_inverse
-from ..ops.kernels import (reduce_by_dst_sorted, sample_sorted,
-                           sample_sorted2, scatter_sorted)
+from ..ops.kernels import (last_hit_rows, reduce_by_dst_sorted,
+                           sample_sorted, sample_sorted2, scatter_sorted)
 from ..ops.pull2 import pull_vertex_reduce
-from ..ops.segment import frontier_from_mask, last_hit_in_rows
+from ..ops.segment import frontier_from_mask
 from ..utils.info import make_info
 
 __all__ = ["sssp", "SsspResult", "sssp_device"]
@@ -468,15 +468,12 @@ def _fill_preds(graph: DeviceGraph, dist: torch.Tensor,
     such parents the distance falls, so they form no cycle. A reached
     vertex with no such hit has only equally far ones (a weight of 0, or
     one the float32 add absorbs): :func:`_fill_ties` gives it a parent
-    already in the tree. Chunked with int64 positions, as BFS's fill
+    already in the tree. The last hits come from
+    :func:`~gunrock_tpu_torch.ops.kernels.last_hit_rows` with int64
+    positions (kernel K14 on the card), as BFS's fill
     (``models/bfs.py``)."""
     with span("sssp.fill_preds"):
-        def hit(lo: int, hi: int) -> torch.Tensor:
-            du = dist.index_select(0, graph.csc_indices[lo:hi])
-            dv = dist.index_select(0, graph.csc_edge_dst[lo:hi])
-            return (du < dv) & (du + graph.csc_edge_values[lo:hi] == dv)
-
-        last = last_hit_in_rows(graph.csc_offsets, graph.num_edges, hit)
+        last = last_hit_rows(graph, dist, graph.csc_edge_values)
         reached = torch.isfinite(dist)
         reached[src] = False
         fill = graph.csc_indices[last.clamp(min=0)]

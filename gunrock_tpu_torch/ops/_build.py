@@ -51,6 +51,7 @@ SIGNATURES = {
     "gr_sample_sorted": "ppqpiqppp",
     "gr_reduce_by_dst_sorted": "pppqiiqppppp",
     "gr_scatter_sorted": "pqppqpqiip",
+    "gr_last_hit_rows": "pipppqqpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int,
            "f": ctypes.c_float}

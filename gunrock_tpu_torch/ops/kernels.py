@@ -5,6 +5,8 @@ Counterpart of :mod:`gunrock_tpu.ops.pallas_kernels` for the functions
 the ported paths call: ``words_for``, ``pack_bitmask``,
 ``unpack_bitmask``, ``bitmask_gather``, ``pull_reached_words`` and
 ``bitmask_gather_cumsum`` (K2, K1, K10; ``csrc/bfs_kernels.cu``),
+``last_hit_rows`` (K14, the predecessor fills' kernel, which has no
+Pallas counterpart; the same file),
 ``sample_sorted`` and ``sample_sorted2``
 (K5), ``reduce_by_dst_sorted`` (K7) and ``scatter_sorted`` (K8; all
 three in ``csrc/sssp_kernels.cu``).
@@ -37,18 +39,19 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "words_for", "pack_bitmask",
            "sample_sorted", "sample_sorted_plain", "sample_sorted2",
            "sample_sorted2_plain", "reduce_by_dst_sorted",
            "reduce_by_dst_sorted_plain", "scatter_sorted",
-           "scatter_sorted_plain", "row_bounds32", "REDUCE_TILE", "WARP_TILE",
-           "GATHER_CUMSUM_TILE", "SHARED_MASK_WORDS"]
+           "scatter_sorted_plain", "last_hit_rows", "last_hit_rows_plain",
+           "row_bounds32", "REDUCE_TILE", "WARP_TILE",
+           "GATHER_CUMSUM_TILE", "SHARED_MASK_WORDS", "HIT_CHUNK"]
 
 # Kernel launches per wrapper since the last reset_launch_counts(), for
-# every CUDA kernel of the port: K1, K2, K10, K5 (both wrappers), K7 and
-# K8 here, K3, K4, K6 and K9 (both phases) in ops/pull2.py.
+# every CUDA kernel of the port: K1, K2, K10, K5 (both wrappers), K7, K8
+# and K14 here, K3, K4, K6 and K9 (both phases) in ops/pull2.py.
 LAUNCHES = {"pull_reached_words": 0, "bitmask_gather": 0,
             "bitmask_gather_cumsum": 0,
             "pull_reduce2": 0, "pull_power_iters": 0, "pull_min_sweeps": 0,
             "sample_sorted": 0, "sample_sorted2": 0,
             "reduce_by_dst_sorted": 0, "scatter_sorted": 0,
-            "brandes_levels": 0}
+            "brandes_levels": 0, "last_hit_rows": 0}
 
 # Stream lanes a block of K7 reduces (kReduceTile in
 # csrc/sssp_kernels.cu, which refuses any other). It fixes the order of
@@ -69,6 +72,10 @@ GATHER_CUMSUM_TILE = 16384
 # csrc/bfs_kernels.cu, which refuses larger masks in shared memory). K1
 # reads its mask through L1 at every size.
 SHARED_MASK_WORDS = 57856
+
+# Edges :func:`last_hit_rows_plain` takes at a time: its temporaries
+# (about 30 bytes an edge) stay near 512 MiB whatever the graph's size.
+HIT_CHUNK = 1 << 24
 
 
 def reset_launch_counts() -> None:
@@ -553,3 +560,92 @@ def scatter_sorted(dense: torch.Tensor, ids: torch.Tensor,
             _SCATTER_OPS[op], device=dev)
     LAUNCHES["scatter_sorted"] += 1
     return dense
+
+
+def _check_hit(graph, vals: torch.Tensor,
+               weights: Optional[torch.Tensor]) -> None:
+    if not graph.has_csc:
+        raise ValueError("last_hit_rows needs to_device(with_csc=True)")
+    _check("vals", vals, vals.device,
+           (torch.int32 if weights is None else torch.float32,))
+    if vals.shape[0] < graph.v_pad:
+        raise ValueError(f"vals holds {vals.shape[0]} entries, fewer than "
+                         f"the graph's {graph.v_pad} rows")
+    if weights is not None:
+        _check("weights", weights, weights.device, (torch.float32,))
+        if weights.shape[0] < graph.num_edges:
+            raise ValueError(f"weights holds {weights.shape[0]} entries, "
+                             f"fewer than the graph's {graph.num_edges} "
+                             "edges")
+
+
+def last_hit_rows_plain(graph, vals: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """:func:`last_hit_rows` in PyTorch, each edge's row from
+    ``csc_edge_dst``.
+
+    The JAX package takes a ``cummax`` of the hit positions over every
+    edge and samples it at the row ends; here each chunk of
+    :data:`HIT_CHUNK` edges takes a segmented max of its hit positions
+    over the rows clipped to the chunk (``torch.segment_reduce``, in
+    float64, exact for positions below 2^53), folded into the rows'
+    running max. So the walk makes no edge-scale temporary, and its
+    positions are 64-bit whatever the offsets' dtype. (A chunked
+    ``cummax`` with a carry took 6.4 s over 2^31 edges on an H100, this
+    about 0.09 s: ``PERF.md``, section 6.)"""
+    src, dst = graph.csc_indices, graph.csc_edge_dst
+    off = graph.csc_offsets.long()
+    dev = off.device
+    last = torch.full((off.shape[0] - 1,), -1.0, dtype=torch.float64,
+                      device=dev)
+    for lo in range(0, graph.num_edges, HIT_CHUNK):
+        hi = min(lo + HIT_CHUNK, graph.num_edges)
+        du = vals.index_select(0, src[lo:hi])
+        dv = vals.index_select(0, dst[lo:hi])
+        if weights is None:
+            hit = du + 1 == dv
+        else:
+            hit = (du < dv) & (du + weights[lo:hi] == dv)
+        pos = torch.where(hit, torch.arange(lo, hi, dtype=torch.float64,
+                                            device=dev), -1.0)
+        best = torch.segment_reduce(pos, "max", offsets=off.clamp(lo, hi) - lo,
+                                    initial=-1.0)
+        last = torch.maximum(last, best)
+    return last.long()
+
+
+def last_hit_rows(graph, vals: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(v_pad,) int64: for each CSC row v of the DeviceGraph ``graph``,
+    the last position p in CSC order whose in-neighbour
+    u = ``csc_indices[p]`` passes the predecessor fills' test, or -1.
+    Without ``weights`` (BFS, int32 labels): ``vals[u] + 1 ==
+    vals[v]``. With them (SSSP, float32 distances and the CSC's float32
+    weights): ``vals[u] < vals[v]`` and ``vals[u] + weights[p] ==
+    vals[v]``, one float32 add. Positions are 64-bit whatever the
+    offsets' type.
+
+    Kernel K14 (no Pallas counterpart: the JAX package's fills take
+    XLA's ``cummax``, ``gunrock_tpu/models/bfs.py:373-386``): a fill of
+    the output with -1 and one pass over the CSC's edges in balanced
+    warp tiles, rows from ``csc_offsets`` (int32 or int64, as uploaded);
+    ``csc_edge_dst`` is not read. It raises on a ``vals`` or ``weights``
+    of another type, shape or layout, on either route."""
+    _check_hit(graph, vals, weights)
+    tensors = [vals, graph.csc_indices, graph.csc_offsets]
+    if weights is not None:
+        tensors.append(weights)
+    if not _route(*tensors):
+        return last_hit_rows_plain(graph, vals, weights)
+    dev = graph.csc_indices.device
+    _check("csc_indices", graph.csc_indices, dev)
+    _check("csc_offsets", graph.csc_offsets, dev, (torch.int32, torch.int64))
+    out = torch.empty(graph.v_pad, dtype=torch.int64, device=dev)
+    _launch(_build.load().gr_last_hit_rows, graph.csc_offsets.data_ptr(),
+            int(graph.csc_offsets.dtype == torch.int64),
+            graph.csc_indices.data_ptr(), vals.data_ptr(),
+            0 if weights is None else weights.data_ptr(), graph.v_pad,
+            graph.num_edges, out.data_ptr(), device=dev)
+    LAUNCHES["last_hit_rows"] += 1
+    return out

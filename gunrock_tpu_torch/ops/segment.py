@@ -19,7 +19,7 @@ order (the JAX package's scatter is last-wins).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Optional, Union
 
 import torch
 
@@ -27,11 +27,7 @@ from ..enactor import host_read
 
 __all__ = ["scatter_min", "scatter_max", "scatter_add", "scatter_set",
            "dedup_winners", "compact", "frontier_from_mask",
-           "mask_from_frontier", "row_reduce_sorted", "last_hit_in_rows"]
-
-# Edges :func:`last_hit_in_rows` takes at a time: its temporaries (about
-# 30 bytes an edge) stay near 512 MiB whatever the graph's size.
-HIT_CHUNK = 1 << 24
+           "mask_from_frontier", "row_reduce_sorted"]
 
 
 def _select(idx: torch.Tensor, vals, mask: Optional[torch.Tensor]):
@@ -150,34 +146,3 @@ def row_reduce_sorted(vals: torch.Tensor, row_offsets: torch.Tensor, *,
                 identity = info.max if op == "min" else info.min
         out = torch.where(off[1:] > off[:-1], out, identity)
     return out.to(vals.dtype)
-
-
-def last_hit_in_rows(offsets: torch.Tensor, num_edges: int,
-                     hit: Callable[[int, int], torch.Tensor]) -> torch.Tensor:
-    """(rows,) int64: for each row of ``offsets`` (rows + 1 entries over
-    ``num_edges`` edges), the last edge position p of the row at which
-    ``hit`` holds, or -1. ``hit(lo, hi)`` returns the (hi - lo,) bool
-    hits of edges lo .. hi - 1.
-
-    The JAX package takes a ``cummax`` of the hit positions over every
-    edge and samples it at the row ends; here each chunk of
-    :data:`HIT_CHUNK` edges takes a segmented max of its hit positions
-    over the rows clipped to the chunk (``torch.segment_reduce``, in
-    float64, exact for positions below 2^53), folded into the rows'
-    running max. So the walk makes no edge-scale temporary, and its
-    positions are 64-bit whatever the offsets' dtype. (A chunked
-    ``cummax`` with a carry took 6.4 s over 2^31 edges on an H100, this
-    about 0.09 s: ``PERF.md``, section 6.)"""
-    dev = offsets.device
-    off = offsets.long()
-    last = torch.full((off.shape[0] - 1,), -1.0, dtype=torch.float64,
-                      device=dev)
-    for lo in range(0, num_edges, HIT_CHUNK):
-        hi = min(lo + HIT_CHUNK, num_edges)
-        pos = torch.where(hit(lo, hi),
-                          torch.arange(lo, hi, dtype=torch.float64,
-                                       device=dev), -1.0)
-        best = torch.segment_reduce(pos, "max", offsets=off.clamp(lo, hi) - lo,
-                                    initial=-1.0)
-        last = torch.maximum(last, best)
-    return last.long()

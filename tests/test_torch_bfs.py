@@ -384,3 +384,67 @@ def test_pull_step_matches_jax_mid_traversal(level):
     assert (state.n, state.m_f, edges) == \
         (int(want[3]), int(want[4]), int(want[6]))
     assert state.n > 0 and not state.fvalid
+
+
+def _fill_graph(mod):
+    """A hub (vertex 299) joined to 0-198, a path 200-219 hung from vertex
+    3, vertices 220-298 without edges (empty CSC rows), three copies of
+    3-299 and two of 5-6 (a multigraph), and a weight-0 edge 10-11, with
+    weights from a seed."""
+    hub = 299
+    src = [np.full(199, hub), np.array([3] + list(range(200, 219))),
+           np.array([3, 3, 5, 10])]
+    dst = [np.arange(199), np.arange(200, 220), np.array([hub, hub, 6, 11])]
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    w = np.random.default_rng(4).uniform(0.1, 1.0, src.shape[0]).astype(
+        np.float32)
+    w[-1] = 0.0
+    return mod.from_coo(300, src, dst, values=w, undirected=True,
+                        dedup=False)
+
+
+@pytest.mark.parametrize("case", ["bfs", "sssp", "dtype", "layout"])
+def test_last_hit_rows_on_the_cpu(case):
+    """The fills' wrapper routes CPU tensors to the plain version (no
+    launch) and gives the JAX package's predecessors for DO-BFS and SSSP
+    on a graph with a hub, empty rows, multigraph copies and a weight-0
+    edge; it raises on a wrong dtype and on a tensor that is not
+    contiguous."""
+    gj, gp = _fill_graph(gt), _fill_graph(gtt)
+    dg = gtt.to_device(gp, with_csc=True, with_edge_values=True,
+                       device="cpu")
+    before = K.LAUNCHES["last_hit_rows"]
+    if case == "bfs":
+        want = gt.bfs(gj, 299, mark_preds=True, direction_optimized=True,
+                      alpha=0.5)
+        got = gtt.bfs(dg, 299, mark_preds=True, direction_optimized=True,
+                      alpha=0.5, device="cpu")
+        assert "pull" in [r["phase"] for r in gtt.bfs(
+            dg, 299, direction_optimized=True, alpha=0.5, instrumented=True,
+            device="cpu").info["per_iteration"]]
+        np.testing.assert_array_equal(got.labels, want.labels)
+    elif case == "sssp":
+        want = gt.sssp(gj, 299, mark_preds=True)
+        got = gtt.sssp(dg, 299, mark_preds=True, device="cpu")
+        np.testing.assert_array_equal(got.distances, want.distances)
+        assert got.distances[11] == got.distances[10]
+    if case in ("bfs", "sssp"):
+        np.testing.assert_array_equal(got.preds, want.preds)
+        assert (got.preds[220:299] == -1).all()
+        assert K.LAUNCHES["last_hit_rows"] == before
+        return
+    labels = torch.zeros(dg.v_pad, dtype=torch.int32)
+    dist = torch.zeros(dg.v_pad)
+    w = dg.csc_edge_values
+    if case == "dtype":
+        bad = [(labels.long(), None), (labels.float(), None),
+               (dist, w.double()), (dist.double(), w)]
+    else:
+        bad = [(torch.zeros(2 * dg.v_pad, dtype=torch.int32)[::2], None),
+               (dist, torch.zeros(2 * w.shape[0])[::2]),
+               (labels[:dg.v_pad - 1], None)]
+    for vals, weights in bad:
+        with pytest.raises(ValueError):
+            K.last_hit_rows(dg, vals, weights)
+    assert torch.equal(K.last_hit_rows(dg, labels),
+                       K.last_hit_rows_plain(dg, labels))

@@ -291,6 +291,37 @@ def reach_graph(name, device):
                          with_csc=True, device=device)
 
 
+# K14's tile cases (also modelled on the CPU in
+# tests/test_torch_hit_tiles.py): K1's, and R-MAT graphs cut to edge
+# counts at residues 0, 1 and 255 of its 256-edge warp tile.
+HIT_CASES = REACH_CASES + ["rmat0", "rmat1", "rmat255"]
+
+
+def hit_graph(name, scale):
+    """A directed host graph of ``HIT_CASES`` (the R-MAT cases at
+    ``scale``, edge factor 16: hubs whose rows span many tiles, empty
+    rows), built ``from_coo(dedup=False)`` with float32 weights in [0, 1),
+    a tenth of them 0 and a tenth 2^-26 (absorbed by most adds), so that
+    ties occur."""
+    if name.startswith("rmat"):
+        g = gtt.io.rmat(scale=scale, edge_factor=16, seed=7, undirected=True)
+        n = g.num_nodes
+        dst = np.repeat(np.arange(n), np.diff(g.row_offsets))
+        src = g.col_indices.astype(np.int64)
+        tile = 256
+        keep = src.shape[0] - (src.shape[0] - int(name[4:])) % tile
+        src, dst = src[:keep], dst[:keep]
+    else:
+        n, src, dst = reach_case(name)
+    rng = np.random.default_rng(len(name))
+    w = rng.random(src.shape[0]).astype(np.float32)
+    pick = rng.random(src.shape[0])
+    w[pick < 0.1] = 0.0
+    w[(pick >= 0.1) & (pick < 0.2)] = np.float32(2.0**-26)
+    return gtt.from_coo(n, src, dst, values=w, remove_self_loops=False,
+                        dedup=False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.001, 0.3])
 @pytest.mark.parametrize("name", REACH_CASES)
@@ -1710,3 +1741,86 @@ def test_process_group_gloo_on_the_card_equals_single_card(cuda, tmp_path):
     one = gtt.pagerank(g, device="cuda")
     np.testing.assert_allclose(arrays["pagerank/ranks"], one.ranks,
                                rtol=1e-4, atol=2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizet64", [False, True])
+@pytest.mark.parametrize("test", ["bfs", "sssp"])
+@pytest.mark.parametrize("name", HIT_CASES)
+def test_last_hit_rows_kernel_equals_plain(cuda, name, test, sizet64):
+    """K14 bit for bit against its plain version on the tile cases (the
+    R-MAT ones at scale 17: hub rows over hundreds of tiles), with BFS
+    labels and with SSSP distances over weights of 0 and of 2^-26, on
+    int32 and int64 offsets; two launches agree, one launch a call."""
+    g = hit_graph(name, scale=17)
+    dg = gtt.to_device(g, with_csc=True, with_edge_values=True,
+                       sizet64=sizet64, device=cuda)
+    assert (dg.csc_offsets.dtype == torch.int64) == sizet64
+    root = int(torch.argmax(dg.row_offsets[1:] - dg.row_offsets[:-1]))
+    if test == "bfs":
+        vals, _, _ = gtt.models.bfs_device(dg, root)
+        w = None
+    else:
+        vals, _, _ = gtt.models.sssp_device(dg, root)
+        w = dg.csc_edge_values
+    before = K.LAUNCHES["last_hit_rows"]
+    got = K.last_hit_rows(dg, vals, w)
+    again = K.last_hit_rows(dg, vals, w)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["last_hit_rows"] == before + 2
+    want = K.last_hit_rows_plain(dg, vals, w)
+    assert got.dtype == torch.int64 and got.shape == (dg.v_pad,)
+    assert (want >= 0).any() and (want < 0).any()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    with pytest.raises(ValueError, match="int32|float32"):
+        K.last_hit_rows(dg, vals.double(), w)
+
+
+@pytest.mark.cuda
+def test_fills_on_cuda_equal_cpu_and_launch_k14(cuda):
+    """DO-BFS and SSSP with preds on the card give the CPU run's preds,
+    one K14 launch a call."""
+    g = gtt.io.rmat(scale=14, edge_factor=16, seed=3, undirected=True)
+    g.random_edge_values(seed=3)
+    src = g.largest_degree_vertex()
+    dg = gtt.to_device(g, with_csc=True, with_blocked_csc=True,
+                       with_edge_values=True, device=cuda)
+    for run in (lambda d: gtt.bfs(d, src, mark_preds=True,
+                                  direction_optimized=True),
+                lambda d: gtt.sssp(d, src, mark_preds=True)):
+        want = run(gtt.to_device(g, with_csc=True, with_blocked_csc=True,
+                                 with_edge_values=True, device="cpu"))
+        before = K.LAUNCHES["last_hit_rows"]
+        got = run(dg)
+        assert K.LAUNCHES["last_hit_rows"] == before + 1
+        np.testing.assert_array_equal(got.preds, want.preds)
+
+
+@pytest.mark.cuda
+def test_fill_kernel_lies_in_the_fill_span(cuda):
+    """A traced DO-BFS: K14's launch lies inside the ``bfs.fill_preds``
+    span, and no tile-rows prologue (``csc_tile_rows_kernel``, which the
+    K1 and K3 roofline readers count) is launched there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gunrock_tpu_torch.enactor import tracing
+    g = gtt.io.rmat(scale=14, edge_factor=16, seed=7, undirected=True)
+    src = g.largest_degree_vertex()
+    dg = gtt.to_device(g, with_csc=True, with_blocked_csc=True, device=cuda)
+    gtt.bfs(dg, src, mark_preds=True, direction_optimized=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing() as spans:
+            gtt.bfs(dg, src, mark_preds=True, direction_optimized=True)
+    evs = list(prof.profiler.kineto_results.events())
+    launch = {e.correlation_id(): e.start_ns() for e in evs
+              if e.device_type() != DeviceType.CUDA
+              and e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    fills = [(s, e) for _, _, _, name, s, e, _ in spans
+             if name == "bfs.fill_preds"]
+    assert len(fills) == 1
+    (s, e), = fills
+    inside = [ev.name() for ev in evs if ev.device_type() == DeviceType.CUDA
+              and s <= launch.get(ev.correlation_id(), -1) <= e]
+    assert sum("last_hit_rows_kernel" in n for n in inside) == 1
+    assert not any("csc_tile_rows_kernel" in n or "SegmentedReduce" in n
+                   for n in inside)

@@ -106,6 +106,10 @@ def _wrapper_calls(name, g):
         "scatter_sorted": lambda: K.scatter_sorted(
             f32, i32, torch.rand(100),
             count=torch.tensor(7, dtype=torch.int32)),
+        "last_hit_rows": lambda: K.last_hit_rows(
+            g, torch.zeros(g.v_pad, dtype=torch.int32)),
+        "last_hit_rows_sssp": lambda: K.last_hit_rows(g, f32,
+                                                      g.csc_edge_values),
     }[name]
 
 
@@ -127,6 +131,8 @@ WRAPPERS = {
     "reduce_by_dst_sorted": ("gr_reduce_by_dst_sorted",
                              "reduce_by_dst_sorted"),
     "scatter_sorted": ("gr_scatter_sorted", "scatter_sorted"),
+    "last_hit_rows": ("gr_last_hit_rows", "last_hit_rows"),
+    "last_hit_rows_sssp": ("gr_last_hit_rows", "last_hit_rows"),
 }
 
 
@@ -216,6 +222,28 @@ def test_reach_scratch_fits_the_tiles(dry_launch):
     assert args[4] == g.v_pad and args[5] == g.num_edges
     assert args[7] == -(-g.num_edges // K.WARP_TILE) + 1
     assert g.csc_edge_dst.data_ptr() not in args
+
+
+@pytest.mark.parametrize("sizet64", [False, True])
+def test_last_hit_args(sizet64, dry_launch):
+    """K14's arguments: the CSC's offsets with their width, its indices,
+    the values, the weights (none for BFS's test), v_pad rows and the
+    edge count, and an int64 output of v_pad; not csc_edge_dst."""
+    g = gtt.to_device(gtt.io.rmat(scale=8, edge_factor=4, seed=3),
+                      with_csc=True, with_edge_values=True, sizet64=sizet64,
+                      device="cpu")
+    labels = torch.zeros(g.v_pad, dtype=torch.int32)
+    dist = torch.zeros(g.v_pad)
+    for vals, w in ((labels, None), (dist, g.csc_edge_values)):
+        out = K.last_hit_rows(g, vals, w)
+        # offsets, offsets64, indices, vals, weights, rows, edges, out
+        args = dry_launch[-1][1]
+        assert args == (g.csc_offsets.data_ptr(), int(sizet64),
+                        g.csc_indices.data_ptr(), vals.data_ptr(),
+                        0 if w is None else w.data_ptr(), g.v_pad,
+                        g.num_edges, out.data_ptr())
+        assert out.shape == (g.v_pad,) and out.dtype == torch.int64
+        assert g.csc_edge_dst.data_ptr() not in args
 
 
 def test_profile_pull_tool_runs_on_cpu(capsys):

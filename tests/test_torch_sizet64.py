@@ -44,7 +44,6 @@ from gunrock_tpu_torch.models.sssp import sssp_device
 from gunrock_tpu_torch.models.topk import topk_device
 from gunrock_tpu_torch.models.wtf import wtf_device
 from gunrock_tpu_torch.ops import kernels as K
-from gunrock_tpu_torch.ops import segment as S
 from test_torch_pr import LINK_TOL
 
 # the package's models/__init__ rebinds "bfs" to the function
@@ -395,7 +394,7 @@ def test_fill_preds_in_chunks(jax64, graph64, monkeypatch, chunk):
     """The predecessor fills walk the CSC in chunks of ``HIT_CHUNK``
     edges with the running max carried across: any chunk gives the JAX
     package's predecessors."""
-    monkeypatch.setattr(S, "HIT_CHUNK", chunk)
+    monkeypatch.setattr(K, "HIT_CHUNK", chunk)
     src = int(jax64["src"])
     got = _run("bfs_do", graph64, src)["preds"]
     np.testing.assert_array_equal(got.numpy(), jax64["bfs_do_preds"])
