@@ -25,8 +25,8 @@ script exits non-zero:
    (the largest-degree vertex's neighbours, sliced from ``col_indices``
    as the single-source push slices them) and at 2^22 random ids, each
    with its device time, and the device time of the mask's packing.
-5. Timing: best of 5 traversals after a warm-up, MTEPS in ``bench.py``'s
-   accounting (out-degree sum over reached vertices / elapsed).
+   Then one DO-BFS through ``bfs_device`` on that upload without
+   predecessors, labels equal; and K1's device time at the pull levels.
 6. PageRank, power route: ``gunrock_tpu_torch.pagerank`` on the same
    graph uploaded ``with_blocked_values``, 20 iterations at threshold 0
    through kernel K4, held against the float64 numpy oracle; rank mass,
@@ -47,9 +47,6 @@ script exits non-zero:
    and K4 also the device time a call from ``torch.profiler``, K4's
    split into its tile rows (built once a call before its rounds), pass
    1 a round and the rest of a round.
-10. Timing: best of 5 PageRank (both routes) and HITS runs after a
-    warm-up: ms per iteration and MTEPS (num_edges x iterations, twice
-    that for HITS, per ms).
 
 11. SSSP, sweep route: the flagship with ``random_edge_values(seed=7)``,
     uploaded ``with_edge_values`` and ``with_blocked_values`` (which builds
@@ -82,9 +79,6 @@ script exits non-zero:
     times; for K5, K7, K8 and ``index_reduce_`` also the device time a
     call. K6's tiles reduced and active edges a sweep, by its skip
     rule, and its bound over those edges beside the full-sweep one.
-15. Timing, best of 5 (3 on the grid) after a warm-up: SSSP on the
-    flagship (sweep route, near-far, near-far fused), SSSP on the grid,
-    non-DO BFS on the grid.
 
 16. BC, kernel-C route: ``gunrock_tpu_torch.bc`` on phase 11's graph
     (undirected, ``has_pull2``) from the largest-degree vertex, through
@@ -97,7 +91,8 @@ script exits non-zero:
 18. CC on the flagship uploaded ``with_edge_src`` and
     ``with_blocked_values``: components equal scipy's (minimum-id form)
     and their count; the branch of every round and K3's launches are
-    printed. Then ``GUNROCK_CC_SWEEPS=1`` (K6), components equal.
+    printed; then the same route uninstrumented, and
+    ``GUNROCK_CC_SWEEPS=1`` (K6), components equal.
 19. K9 against its plain version at the flagship's shapes: every forward
     level in calls of 8, then every backward ring; labels and counts
     exact, sigma and delta within rtol 1e-5 of the float64-summing plain
@@ -105,9 +100,6 @@ script exits non-zero:
     K3 (``pull_reduce2`` over the gated values, the epilogue in torch).
     Each level's tiles pass 1 reduces and active edges by K9's skip rules
     (csrc/pull_kernels.cu). Median times.
-20. Timing, best of 5 after a warm-up: BC (kernel C, hybrid, fused), CC
-    (hooking, sweeps) on the flagship; ms and MTEPS in ``bench_all.py``'s
-    accounting (BC 2E, CC E, per ms).
 
 21. The rest of BFS: DO-BFS with predecessors through ``bfs_device`` on
     the flagship uploaded ``with_csc`` only (no blocked CSC), so that
@@ -116,16 +108,14 @@ script exits non-zero:
     the BFS test on those labels, checked and timed as in phase 12.
     Then the deep micro-loop: DO-BFS with
     predecessors on the grid from 0, every level a micro round (phase
-    "deep"), labels against scipy's depths, predecessors valid.
+    "deep"), labels against scipy's depths, predecessors valid. With
+    ``GUNROCK_BFS_DEEP=0``: DO-BFS on phase 4's upload (K1; the tail
+    level a push), labels equal phase 3's, and DO and non-DO BFS on the
+    grid, labels equal the deep run's.
 22. K10 against its plain version, exactly, at the shapes of every pull
     level of phase 21 and at one length that is not a multiple of 128;
     median times, the bound, and ``torch.cumsum`` over precomputed hits
     as a reference for a later redesign.
-23. Timing, best of 5 (3 on the grid) after a warm-up: DO-BFS on the
-    flagship uploaded with the blocked CSC (K1; also with
-    ``GUNROCK_BFS_DEEP=0``, where the tail level is a push) and without
-    (K10); DO and non-DO BFS on the grid with the deep micro-loop and
-    with ``GUNROCK_BFS_DEEP=0``.
 
 24. Above the shared-memory cap: R-MAT scale 21, edge factor 4, whose
     frontier masks (65,536 words) are larger than K10 holds in shared
@@ -142,9 +132,8 @@ script exits non-zero:
     limits set from the measured reading (PPR rtol 1e-5, the scores rtol
     1e-4, both with atol 0), the two runs' PPR bitwise equal and
     their node ids equal where the scores stand apart; the PPR iteration
-    count, the CoT's out-edge count, best of 5 and ms a PPR iteration.
-    ``gunrock_tpu_torch.topk`` at k = 10 and 1000, exact against numpy's
-    degrees, best of 5.
+    count and the CoT's out-edge count. ``gunrock_tpu_torch.topk`` at
+    k = 10 and 1000, exact against numpy's degrees.
 
 26. TC on the flagship through ``gunrock_tpu_torch.tc`` (the sort-join of
     ``ops/intersection.py``, PyTorch operators, no kernel of its own):
@@ -158,18 +147,13 @@ script exits non-zero:
     prints CORRECT. ``gunrock_tpu_torch.sample`` from the hub equals phase
     3's labels; ``expand_inverse`` of the hub, ``cull_filter`` of its
     lanes and ``pull_reduce`` sum/max/min on the flagship equal the same
-    functions with ``device="cpu"`` (sums rtol 1e-6). TC best of 5
-    ``process_ms`` after a warm-up, a chunk's share and wedges per
-    microsecond; the device time of the first 5 chunks by step
-    (expansion, sort, run flag and gather, scatters) and the busy share of
-    a whole run, from ``torch.profiler``.
+    functions with ``device="cpu"`` (sums rtol 1e-6).
 27. SSSP's value-carry micro-loop (``deep_carry=True``): the flagship
     with phase 12's near-far delta and the grid of phase 13 (delta 256,
     through the sweeps' bail-out), distances bitwise equal to the
     ``deep_carry=False`` runs, rounds and edge counts equal, and K5's pair
     mode launched once a carry round (``sample_sorted`` fewer times than
-    without carry); the grid with and without carry, best of 3 each, in
-    turns.
+    without carry).
 
 28. 64-bit offsets: the flagship (phase 11's weights) uploaded
     ``with_csc, with_edge_values, with_edge_src`` with ``sizet64=True``
@@ -178,10 +162,9 @@ script exits non-zero:
     PageRank's loop route (K3, its int64 instance on the sizet64 upload)
     and BC, hybrid and fused (K5, K7, K8), on both uploads: every result
     bitwise equal, or, where two runs on the int32 upload differ too
-    (atomic sums), within section 2's tolerance of ``PERF.md``. DO-BFS
-    best of 5 on both uploads, in turns; K3 sum/none through its int64
-    instance (the sizet64 upload) and its int32 one, bitwise equal, the
-    median of 20 calls 5 times in turns.
+    (atomic sums), within section 2's tolerance of ``PERF.md``. K3
+    sum/none through its int64 instance (the sizet64 upload) and its
+    int32 one, bitwise equal, the median of 20 calls 5 times in turns.
 29. A graph past 2^31 edges: the circulant C(2^16; 1..2^14) (every
     vertex joined to the 2^14 on each side on the ring: 2^31 edges,
     degree 32,768), built in numpy without a sort (its CSC is its CSR)
@@ -263,6 +246,9 @@ script exits non-zero:
     3's, K1 and K2 launched), the installed console script on R-MAT scale
     8, and the C consumer against the installed header and C shim.
 
+Phases 5, 10, 15, 20 and 23 timed the routes; those timings are the cases
+of ``gunrock_tpu_torch.tools.card_profile``, whose timers this script uses.
+
 Each phase's kernel launch counts are reset just before it and read just
 after; the ``launches`` of the JSON line come from phases 3 (K1, K2), 6
 (K4), 7-8, 17, 25 and 28 (K3), 12, 17, 27 and 28 (K5), 12, 17 and 28
@@ -292,7 +278,7 @@ K5 and ``index_reduce_`` for K8 (phase 14); the port calls none of them.
 The ``ms`` of every kernel is the CUDA-event time of a call, host path
 included where the card waits on it; K3 and K8 also carry ``device_ms``
 and ``library_device_ms``, the device time of a call of the kernel and
-of its library call (:func:`_device_ms`), K2 its ``device_ms`` at the
+of its library call (``profile_run``), K2 its ``device_ms`` at the
 main path's launch (whose shape its row gives, ``ids``) and, under
 ``random_*``, all its numbers at 2^22 random ids, with
 ``pack_device_ms``, the device time of the mask's packing; K1 and K10
@@ -301,7 +287,7 @@ call, K4 its ``device_ms`` and
 ``build_device_ms``, the device time of its tile rows a call, K5 the
 device time of a round's pair and K7 that of its min with aux and
 (``ring_device_ms``) of BC's ring sum. A device time that the profiler
-does not record fails the run (:func:`_profile`).
+does not record fails the run (``card_profile.profile_run``).
 
 The last two lines are a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -314,10 +300,13 @@ import sys
 import time
 from unittest.mock import patch
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from gunrock_tpu_torch.tools.card_profile import (  # noqa: E402
+    TIMED_LAUNCHES, brandes_source, call_ms, card_string, grid, power_split,
+    profile_run)
+
 SCALE, EDGE_FACTOR, SEED = 20, 32, 1
 RUNS = 5
-GRID_RUNS = 3   # the grid's host-bound timings, 1.6-6.6 s a run
-TIMED_LAUNCHES = 20
 BFS_KERNELS = ("pull_reached_words", "bitmask_gather")
 K10_ODD_LENGTH = 1_000_003      # a K10 length that is not a multiple of 128
 PR_ITERS, LINK_ITERS = 20, 10
@@ -392,42 +381,6 @@ def tile_activity(dg, active, live_rows=None) -> tuple[int, int, int]:
         live = int(tile_live.sum())
         on &= tile_live.repeat_interleave(PULL_TILE)[:e]
     return int(per_tile(on).sum()), live, int(on.sum())
-
-
-def _median_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up launch."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _profile(fn, reps: int = TIMED_LAUNCHES) -> dict:
-    """``torch.profiler``'s record of ``reps`` calls of ``fn`` after a
-    warm-up (the port's ``tools.profile_value.profile_run``, which takes
-    the profile again where device events were lost and raises where
-    none of its attempts is whole), so the run fails rather than carry a
-    row without its device time."""
-    import torch
-    from gunrock_tpu_torch.tools.profile_value import profile_run
-    return profile_run(fn, reps, torch.device("cuda"))
-
-
-def _device_ms(fn, reps: int = TIMED_LAUNCHES) -> float:
-    """Device time of one call of ``fn``: the summed durations of the
-    device events (kernels, copies, fills) of :func:`_profile`, over
-    ``reps``."""
-    return _profile(fn, reps)["device_ms"]
 
 
 def _max_abs_err(got, want) -> int:
@@ -524,7 +477,7 @@ def _apart(scores, rtol: float = 1e-5):
     return np.minimum(gap[:-1], gap[1:]) > rtol * np.abs(s)
 
 
-def phase_wtf_topk(gtt, g, src, dgv, card):
+def phase_wtf_topk(gtt, g, src, dgv):
     """Phase 25: WTF and TopK on the flagship at their defaults. WTF from
     the largest-degree vertex through ``gtt.wtf`` on the host graph
     (uploaded ``with_csc``) and on phase 6's ``with_blocked_values``
@@ -532,14 +485,14 @@ def phase_wtf_topk(gtt, g, src, dgv, card):
     within rtol 1e-3, atol 1e-6 of ``cpu_wtf`` (float64), as the CLI
     checks them, and within PPR rtol 1e-5 and the scores' rtol 1e-4 with
     no atol (the measured reading: a typical PPR entry is near 1/V, under
-    the CLI's atol), the two runs' PPR bitwise equal and their node ids equal at every rank whose score
-    stands apart (:func:`_apart`; the SALSA sums are atomics). TopK at
-    k = 10 and 1000, exact against numpy's degrees with the id-ascending
-    tie rule. Best of RUNS after a warm-up. Returns the K3 launches."""
+    the CLI's atol), the two runs' PPR bitwise equal and their node ids
+    equal at every rank whose score stands apart (:func:`_apart`; the
+    SALSA sums are atomics). TopK at k = 10 and 1000, exact against
+    numpy's degrees with the id-ascending tie rule. Returns the K3
+    launches."""
     import numpy as np
     import torch
-    from gunrock_tpu_torch.models.topk import top_k, topk_device
-    from gunrock_tpu_torch.models.wtf import _ppr, wtf_device
+    from gunrock_tpu_torch.models.topk import top_k
     from gunrock_tpu_torch.ops import kernels as K
     from gunrock_tpu_torch.utils.reference import cpu_wtf
 
@@ -582,14 +535,6 @@ def phase_wtf_topk(gtt, g, src, dgv, card):
     print(f"[wtf] the two runs: PPR bitwise equal, node ids equal at "
           f"{int(keep.sum())} of {keep.shape[0]} ranks whose scores stand "
           f"apart; the CoT's out-edges (the expand) {cot_edges}")
-    best, times = best_of(lambda: wtf_device(dgv, src))
-    iters = a.info["ppr_iterations"]
-    ppr_best, _ = best_of(lambda: _ppr(dgv, src, delta=0.85, max_iters=50,
-                                       threshold=1e-6))
-    print(f"[timing] wtf (blocked-values graph): best {best:.3f} ms of "
-          f"{RUNS} ({', '.join(f'{t:.3f}' for t in times)}); PPR alone "
-          f"{ppr_best:.3f} ms, {ppr_best / iters:.4f} ms a PPR iteration "
-          f"({iters}); on {card}")
 
     cent = g.out_degrees + np.bincount(g.col_indices, minlength=g.num_nodes)
     for k in (10, 1000):
@@ -598,11 +543,9 @@ def phase_wtf_topk(gtt, g, src, dgv, card):
         if not (np.array_equal(res.node_ids, order) and
                 np.array_equal(res.centralities, cent[order])):
             raise AssertionError(f"TopK k={k} differs from numpy's degrees")
-        best, times = best_of(lambda: topk_device(dgv, k))
         print(f"[topk] k={k}: ids and centralities equal numpy's (largest "
-              f"{int(cent[order[0]])}, k-th {int(cent[order[-1]])}); best "
-              f"{best:.3f} ms of {RUNS} "
-              f"({', '.join(f'{t:.3f}' for t in times)}); on {card}")
+              f"{int(cent[order[0]])}, k-th {int(cent[order[-1]])}); process "
+              f"{res.info['process_ms']:.3f} ms")
     return k3
 
 
@@ -636,10 +579,11 @@ def phase_k2_kernel(dg, src, labels, rng, dev):
             raise AssertionError(f"K2 differs from its plain version at "
                                  f"{name}")
         row = {"ids": idx.shape[0], "max_abs_err": _max_abs_err(got, want),
-               "ms": _median_ms(lambda: K.bitmask_gather(words, idx)),
-               "plain_ms": _median_ms(
+               "ms": call_ms(lambda: K.bitmask_gather(words, idx)),
+               "plain_ms": call_ms(
                    lambda: K.bitmask_gather_plain(words, idx)),
-               "device_ms": _device_ms(lambda: K.bitmask_gather(words, idx)),
+               "device_ms": profile_run(
+                   lambda: K.bitmask_gather(words, idx))["device_ms"],
                "library_ms": None,
                # the ids, the output and the mask
                **bound(8 * idx.shape[0] + dg.v_pad // 8)}
@@ -648,7 +592,7 @@ def phase_k2_kernel(dg, src, labels, rng, dev):
               f"{row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms; device "
               f"{row['device_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms")
         out[name] = row
-    pack_ms = _device_ms(lambda: K.pack_bitmask(labels == -1))
+    pack_ms = profile_run(lambda: K.pack_bitmask(labels == -1))["device_ms"]
     print(f"[kernels] pack_bitmask(labels == INVALID) before each K2 "
           f"launch: device {pack_ms:.4f} ms")
     return {**out["main path"], "pack_device_ms": pack_ms,
@@ -772,7 +716,6 @@ def phase_value_kernels(dg, dev):
     import numpy as np
     import torch
     from gunrock_tpu_torch.ops import pull2 as P
-    from gunrock_tpu_torch.tools.profile_pull import power_split
     rng = np.random.default_rng(SEED)
     vals = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
     init = torch.from_numpy(rng.random(dg.v_pad, dtype=np.float32)).to(dev)
@@ -799,9 +742,9 @@ def phase_value_kernels(dg, dev):
             raise AssertionError(f"K3 {name} differs from its plain version")
         if rel_err > 1e-5:
             raise AssertionError(f"K3 {name}: max rel err {rel_err:.3e}")
-        ms = _median_ms(lambda: P.pull_reduce2(vals, dgv, **kw))
-        plain = _median_ms(lambda: P.pull_reduce2_plain(vals, dgv, **kw),
-                           reps=5)
+        ms = call_ms(lambda: P.pull_reduce2(vals, dgv, **kw))
+        plain = call_ms(lambda: P.pull_reduce2_plain(vals, dgv, **kw),
+                        reps=5)
         print(f"[kernels] K3 pull_reduce2 {name}: bitwise equal over two "
               f"launches; max abs err {abs_err:.3e}, max rel err "
               f"{rel_err:.3e}; {ms:.4f} ms vs plain {plain:.4f} ms")
@@ -818,10 +761,11 @@ def phase_value_kernels(dg, dev):
                 dg.csc_offsets, dg.csc_indices[:e],
                 torch.ones(e, device=dev), size=(dg.v_pad, dg.v_pad))
             lib_abs, lib_rel = _errs(torch.mv(csr, vals), want)
-            k3["library_ms"] = _median_ms(lambda: torch.mv(csr, vals))
-            k3["device_ms"] = _device_ms(lambda: P.pull_reduce2(vals, dgv,
-                                                                **kw))
-            k3["library_device_ms"] = _device_ms(lambda: torch.mv(csr, vals))
+            k3["library_ms"] = call_ms(lambda: torch.mv(csr, vals))
+            k3["device_ms"] = profile_run(
+                lambda: P.pull_reduce2(vals, dgv, **kw))["device_ms"]
+            k3["library_device_ms"] = profile_run(
+                lambda: torch.mv(csr, vals))["device_ms"]
             print(f"[kernels] K3 yardstick torch.mv(sparse CSR): "
                   f"{k3['library_ms']:.4f} ms, max rel err {lib_rel:.3e} "
                   f"vs the plain version; bound {k3['bound_ms']:.4f} ms")
@@ -870,12 +814,12 @@ def phase_value_kernels(dg, dev):
         if not torch.equal(chg, want_chg):
             raise AssertionError(f"K4 {iters} rounds: change counts "
                                  f"{chg.tolist()} vs {want_chg.tolist()}")
-        ms = _median_ms(lambda: P.pull_power_iters(dg, start, iters=iters,
-                                                   **kw))
-        plain = _median_ms(lambda: P.pull_power_iters_plain(
+        ms = call_ms(lambda: P.pull_power_iters(dg, start, iters=iters,
+                                                **kw))
+        plain = call_ms(lambda: P.pull_power_iters_plain(
             dg, start, iters=iters, **kw), reps=3)
-        prof = _profile(lambda: P.pull_power_iters(dg, start, iters=iters,
-                                                   **kw))
+        prof = profile_run(lambda: P.pull_power_iters(dg, start,
+                                                      iters=iters, **kw))
         device = prof["device_ms"]
         split = power_split(prof, iters)
         print(f"[kernels] K4 pull_power_iters {iters} rounds: bitwise equal "
@@ -894,44 +838,6 @@ def phase_value_kernels(dg, dev):
               **bound(iters * pull_bytes(dg.num_edges, dg.v_pad, 4),
                       iters * (dg.num_edges + 3 * dg.v_pad))}
     return k3, k4
-
-
-def phase_value_timing(dg, card):
-    """Phase 10: best of RUNS PageRank (both routes) and HITS runs after a
-    warm-up, graph on the card, fenced with torch.cuda.synchronize()."""
-    from gunrock_tpu_torch.models.hits import hits_device
-    from gunrock_tpu_torch.models.pr import pagerank_device
-
-    for name, fn, iters, edges in (
-            ("pagerank power route",
-             lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0),
-             PR_ITERS, dg.num_edges),
-            ("pagerank loop route",
-             lambda: pagerank_device(dg, max_iters=PR_ITERS, threshold=0.0,
-                                     instrument=[]),
-             PR_ITERS, dg.num_edges),
-            ("hits", lambda: hits_device(dg, LINK_ITERS),
-             LINK_ITERS, 2 * dg.num_edges)):
-        best, times = best_of(fn)
-        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
-              f"({', '.join(f'{t:.3f}' for t in times)}); {iters} "
-              f"iterations, {best / iters:.4f} ms/iteration, "
-              f"{edges * iters / (best * 1000.0):.1f} MTEPS; on {card}")
-
-
-def best_of(fn, runs: int = RUNS):
-    """Best of ``runs`` calls of ``fn`` after a warm-up, fenced; (best,
-    all)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return min(times), times
 
 
 def dijkstra(g, src):
@@ -1012,10 +918,10 @@ def check_last_hit(dg, vals, weights, what):
                              f"(max abs err {err})")
     if not torch.equal(call().cpu(), got):
         raise AssertionError(f"K14 {what}: two launches differ")
-    ms = _median_ms(call)
-    plain = _median_ms(
+    ms = call_ms(call)
+    plain = call_ms(
         lambda: K.last_hit_rows_plain(dg, vals, weights), reps=5)
-    device = _device_ms(call)
+    device = profile_run(call)["device_ms"]
     streams = 1 if weights is None else 2
     work = bound(4 * streams * dg.num_edges
                  + dg.csc_offsets.numel() * dg.csc_offsets.element_size()
@@ -1029,7 +935,7 @@ def check_last_hit(dg, vals, weights, what):
             "library_ms": None, "device_ms": device, **work}
 
 
-def phase_sssp(gtt, g, src, dev, card):
+def phase_sssp(gtt, g, src, dev):
     """Phases 11 and 12: SSSP on the flagship, the sweep route and the
     push routes, then K14 with the SSSP test on the sweep route's
     distances against its plain version (:func:`check_last_hit`).
@@ -1126,11 +1032,9 @@ def phase_grid(gtt, g, src, dg, bfs_labels, dev):
     flagship. Returns the grid graphs."""
     import numpy as np
     import torch
-    from scipy.sparse.csgraph import shortest_path
     from gunrock_tpu_torch.models.bfs import bfs_device
     from gunrock_tpu_torch.models.sssp import sssp_device
     from gunrock_tpu_torch.ops import kernels as K
-    from gunrock_tpu_torch.tools.profile_sssp import grid
 
     t0 = time.perf_counter()
     gg = grid(GRID_SIDE)
@@ -1216,23 +1120,23 @@ def phase_sssp_kernels(dg, src, dist, dev):
             and torch.equal(one, want1)):
         raise AssertionError("K5 differs from its plain version")
     report("sample_sorted", 0.0,
-           _median_ms(lambda: K.sample_sorted2(dg.col_indices,
-                                               dg.edge_values, ex.eid))
-           + _median_ms(lambda: K.sample_sorted(half, ex.src)),
-           _median_ms(lambda: K.sample_sorted2_plain(
+           call_ms(lambda: K.sample_sorted2(dg.col_indices,
+                                            dg.edge_values, ex.eid))
+           + call_ms(lambda: K.sample_sorted(half, ex.src)),
+           call_ms(lambda: K.sample_sorted2_plain(
                dg.col_indices, dg.edge_values, ex.eid))
-           + _median_ms(lambda: K.sample_sorted_plain(half, ex.src)),
+           + call_ms(lambda: K.sample_sorted_plain(half, ex.src)),
            f"{ex.total} lanes, both modes exact (time: one round's pair)",
            # eid, two gathered values and two outputs a lane; src, one
            # output and the frontier's distances
            bound(32 * ex.total + 4 * frontier.shape[0]),
-           _median_ms(lambda: dg.col_indices.index_select(0, ex.eid))
-           + _median_ms(lambda: dg.edge_values.index_select(0, ex.eid))
-           + _median_ms(lambda: half.index_select(0, ex.src)))
+           call_ms(lambda: dg.col_indices.index_select(0, ex.eid))
+           + call_ms(lambda: dg.edge_values.index_select(0, ex.eid))
+           + call_ms(lambda: half.index_select(0, ex.src)))
 
-    out["sample_sorted"]["device_ms"] = _device_ms(
+    out["sample_sorted"]["device_ms"] = profile_run(
         lambda: (K.sample_sorted2(dg.col_indices, dg.edge_values, ex.eid),
-                 K.sample_sorted(half, ex.src)))
+                 K.sample_sorted(half, ex.src)))["device_ms"]
     print(f"[kernels] sample_sorted device time (torch.profiler): "
           f"{out['sample_sorted']['device_ms']:.4f} ms a round's pair")
 
@@ -1289,9 +1193,9 @@ def phase_sssp_kernels(dg, src, dist, dev):
     work = bound(8 * m + 4 * runs + 8 * k + 4, m)
     every_lane = bound(12 * m + 8 * k + 4, m)
     report("reduce_by_dst_sorted", rel["sum"][0],
-           _median_ms(lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min)),
-           _median_ms(lambda: K.reduce_by_dst_sorted_plain(sd, cand,
-                                                           **kw_min), reps=5),
+           call_ms(lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min)),
+           call_ms(lambda: K.reduce_by_dst_sorted_plain(sd, cand,
+                                                        **kw_min), reps=5),
            f"{m} lanes, {k} improving runs of {runs}; min exact, sum max "
            f"rel err {rel['sum'][1]:.3e}, bitwise over two launches; BC's "
            f"ring by source, {ring.total} lanes, the source's run "
@@ -1301,10 +1205,10 @@ def phase_sssp_kernels(dg, src, dist, dev):
     print(f"[kernels] reduce_by_dst_sorted bound: {work['bound_ms']:.4f} ms "
           f"for 8 m + 4 runs + 8 k + 4 bytes; {every_lane['bound_ms']:.4f} "
           f"ms for 12 m + 8 k + 4 (aux at every lane)")
-    out["reduce_by_dst_sorted"]["device_ms"] = _device_ms(
-        lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min))
-    out["reduce_by_dst_sorted"]["ring_device_ms"] = _device_ms(
-        lambda: K.reduce_by_dst_sorted(ring.src, add, **kw_ring))
+    out["reduce_by_dst_sorted"]["device_ms"] = profile_run(
+        lambda: K.reduce_by_dst_sorted(sd, cand, **kw_min))["device_ms"]
+    out["reduce_by_dst_sorted"]["ring_device_ms"] = profile_run(
+        lambda: K.reduce_by_dst_sorted(ring.src, add, **kw_ring))["device_ms"]
     print(f"[kernels] reduce_by_dst_sorted device time (torch.profiler): "
           f"{out['reduce_by_dst_sorted']['device_ms']:.4f} ms a call, min "
           f"with aux; "
@@ -1330,19 +1234,20 @@ def phase_sssp_kernels(dg, src, dist, dev):
                                              count=cnt, op="min")):
         raise AssertionError("K8 differs from index_reduce_")
     report("scatter_sorted", 0.0,
-           _median_ms(lambda: K.scatter_sorted(scratch, ids, vals, count=cnt,
-                                               op="min")),
-           _median_ms(lambda: K.scatter_sorted_plain(scratch, ids, vals,
-                                                     count=k, op="min")),
+           call_ms(lambda: K.scatter_sorted(scratch, ids, vals, count=cnt,
+                                            op="min")),
+           call_ms(lambda: K.scatter_sorted_plain(scratch, ids, vals,
+                                                  count=k, op="min")),
            f"{k} winners; min and add, float32 and int32, exact "
            f"(time: min, count read on the device)",
            bound(16 * k + 4, k),
-           _median_ms(lambda: scratch.index_reduce_(0, ids_k, vals_k,
-                                                    "amin")))
-    out["scatter_sorted"]["device_ms"] = _device_ms(
-        lambda: K.scatter_sorted(scratch, ids, vals, count=cnt, op="min"))
-    out["scatter_sorted"]["library_device_ms"] = _device_ms(
-        lambda: scratch.index_reduce_(0, ids_k, vals_k, "amin"))
+           call_ms(lambda: scratch.index_reduce_(0, ids_k, vals_k,
+                                                 "amin")))
+    out["scatter_sorted"]["device_ms"] = profile_run(
+        lambda: K.scatter_sorted(scratch, ids, vals, count=cnt,
+                                 op="min"))["device_ms"]
+    out["scatter_sorted"]["library_device_ms"] = profile_run(
+        lambda: scratch.index_reduce_(0, ids_k, vals_k, "amin"))["device_ms"]
     print(f"[kernels] scatter_sorted device time (torch.profiler): "
           f"{out['scatter_sorted']['device_ms']:.4f} ms a call vs "
           f"index_reduce_ "
@@ -1387,45 +1292,12 @@ def phase_sssp_kernels(dg, src, dist, dev):
           f"{work['bound_ms']:.4f} ms; every edge every sweep "
           f"{full['bound_ms']:.4f} ms")
     report("pull_min_sweeps", 0.0,
-           _median_ms(lambda: P.pull_min_sweeps(dg, init, sweeps=SWEEPS)),
-           _median_ms(lambda: P.pull_min_sweeps_plain(dg, init,
-                                                      sweeps=SWEEPS), reps=5),
+           call_ms(lambda: P.pull_min_sweeps(dg, init, sweeps=SWEEPS)),
+           call_ms(lambda: P.pull_min_sweeps_plain(dg, init,
+                                                   sweeps=SWEEPS), reps=5),
            f"{SWEEPS} sweeps add/val from the source (time: {SWEEPS} sweeps)",
            work)
     return out
-
-
-def phase_sssp_timing(g, src, dg, gg, dgw, card):
-    """Phase 15: best of RUNS SSSP and non-DO BFS runs after a warm-up
-    (GRID_RUNS on the grid)."""
-    import numpy as np
-    from gunrock_tpu_torch.models.bfs import bfs_device
-    from gunrock_tpu_torch.models.sssp import sssp_device
-
-    def visited(graph, reached):
-        degs = np.diff(graph.row_offsets.astype(np.int64))
-        return int(degs[reached].sum())
-
-    delta = 32.0 * float(np.mean(g.edge_values))
-    ev = visited(g, np.isfinite(
-        sssp_device(dg, src)[0][:g.num_nodes].cpu().numpy()))
-    gev = gg.num_edges
-    for name, fn, edges in (
-            ("sssp flagship sweep route", lambda: sssp_device(dg, src), ev),
-            ("sssp flagship near-far",
-             lambda: sssp_device(dg, src, mode="nearfar", delta=delta), ev),
-            ("sssp flagship near-far fused",
-             lambda: sssp_device(dg, src, mode="nearfar", delta=delta,
-                                 fused=True), ev),
-            ("sssp grid", lambda: sssp_device(dgw, 0, mode="pull",
-                                              delta=GRID_DELTA), gev),
-            ("non-DO bfs grid", lambda: bfs_device(dgw, 0), gev)):
-        runs = GRID_RUNS if "grid" in name else RUNS
-        best, times = best_of(fn, runs)
-        print(f"[timing] {name}: best {best:.3f} ms of {runs} "
-              f"({', '.join(f'{t:.3f}' for t in times)}); "
-              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
-              f"on {card}")
 
 
 def phase_bc(gtt, g, src, dg, bfs_labels):
@@ -1514,8 +1386,9 @@ def phase_bc(gtt, g, src, dg, bfs_labels):
 
 
 def phase_cc(gtt, g, dev):
-    """Phase 18: CC on the flagship, hooking and the sweeps route, against
-    scipy. Returns the graph and the launch counts of both runs."""
+    """Phase 18: CC on the flagship, hooking (instrumented, then not) and
+    the sweeps route, against scipy. Returns the graph and the launch
+    counts of the three runs."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.ops import kernels as K
@@ -1533,11 +1406,12 @@ def phase_cc(gtt, g, dev):
     print(f"[cc] scipy components {time.perf_counter() - t0:.3f} s: "
           f"{len(np.unique(ref))} components, {isolated} isolated vertices")
     launches = {}
-    for name, flags in (("hooking", {}),
-                        ("sweeps", {"GUNROCK_CC_SWEEPS": "1"})):
+    for name, flags, instrumented in (
+            ("hooking", {}, True), ("hooking, uninstrumented", {}, False),
+            ("sweeps", {"GUNROCK_CC_SWEEPS": "1"}, False)):
         K.reset_launch_counts()
         with patch.dict(os.environ, flags):
-            res = gtt.cc(dgc, instrumented=not flags)
+            res = gtt.cc(dgc, instrumented=instrumented)
         torch.cuda.synchronize()
         n = dict(K.LAUNCHES)
         print(f"[cc] {name}: route {res.info['route']}, iterations "
@@ -1548,7 +1422,7 @@ def phase_cc(gtt, g, dev):
             if res.info["route"] != "pull_sweeps" or \
                     n["pull_min_sweeps"] <= 0:
                 raise AssertionError("K6 was not launched by the sweeps route")
-        else:
+        elif instrumented:
             branches = [r["phase"] for r in res.info["per_iteration"]]
             print(f"[cc] remainder rounds: {branches}; K3 launches "
                   f"{n['pull_reduce2']} (one a full-edge round)")
@@ -1581,21 +1455,7 @@ def phase_bc_kernels(dg, src, dev):
     sig0[src] = 1.0
 
     def brandes(fwd, bwd):
-        lab, sig, d, counts = lab0, sig0, 1, []
-        while True:
-            lab, sig, chg = fwd(dg, lab, sig, d0=d, levels=BC_LEVELS)
-            counts.append(chg)
-            chg = chg.tolist()
-            if 0 in chg:
-                depth = d + chg.index(0) - 1
-                break
-            d += BC_LEVELS
-        delta = torch.zeros(dg.v_pad, device=dev)
-        for t in range(depth - 1, -1, -BC_LEVELS):
-            delta, ring = bwd(dg, lab, sig, delta, t0=t,
-                              levels=min(BC_LEVELS, t + 1))
-            counts.append(ring)
-        return lab, sig, delta, torch.cat(counts)
+        return brandes_source(dg, lab0, sig0, fwd, bwd, BC_LEVELS)
 
     levels_seen = []
 
@@ -1657,10 +1517,10 @@ def phase_bc_kernels(dg, src, dev):
     # and out once.
     reached = int(torch.where(got[0] < inf, dg.out_degrees(), 0).sum())
     work = bound(2 * (4 * reached + 16 * dg.v_pad), 2 * reached)
-    ms = _median_ms(lambda: brandes(P.brandes_fwd_levels,
-                                    P.brandes_bwd_levels))
-    plain = _median_ms(lambda: brandes(P.brandes_fwd_levels_plain,
-                                       P.brandes_bwd_levels_plain), reps=3)
+    ms = call_ms(lambda: brandes(P.brandes_fwd_levels,
+                                 P.brandes_bwd_levels))
+    plain = call_ms(lambda: brandes(P.brandes_fwd_levels_plain,
+                                    P.brandes_bwd_levels_plain), reps=3)
     print(f"[kernels] K9 brandes_levels: {levels} levels (counts "
           f"{got[3].tolist()}), labels and counts exact, bitwise over two "
           f"launches and equal to K3's composition; one source {ms:.4f} ms "
@@ -1670,35 +1530,15 @@ def phase_bc_kernels(dg, src, dev):
             "library_ms": None, **work}
 
 
-def phase_bc_timing(g, src, dg, dgc, card):
-    """Phase 20: best of RUNS BC and CC runs after a warm-up, in
-    bench_all.py's accounting (BC 2E, CC E)."""
-    from gunrock_tpu_torch.models import bc_device, cc_device
-    e = g.num_edges
-    for name, fn, edges, flags in (
-            ("bc kernel C", lambda: bc_device(dg, src), 2 * e, {}),
-            ("bc hybrid", lambda: bc_device(dg, src), 2 * e,
-             {"GUNROCK_BC_PULL2": "0"}),
-            ("bc hybrid fused", lambda: bc_device(dg, src, fused=True),
-             2 * e, {"GUNROCK_BC_PULL2": "0"}),
-            ("cc hooking", lambda: cc_device(dgc), e, {}),
-            ("cc sweeps", lambda: cc_device(dgc), e,
-             {"GUNROCK_CC_SWEEPS": "1"})):
-        with patch.dict(os.environ, flags):
-            best, times = best_of(fn)
-        print(f"[timing] {name}: best {best:.3f} ms of {RUNS} "
-              f"({', '.join(f'{t:.3f}' for t in times)}); "
-              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
-              f"on {card}")
-
-
-def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
+def phase_bfs_rest(gtt, g, src, bfs_labels, dgb, gg, dgw, dev):
     """Phase 21: DO-BFS with predecessors on the flagship uploaded
     ``with_csc`` only (pull levels through K10, the fill through K14),
     K14 with the BFS test on its labels against its plain version
     (:func:`check_last_hit`), then DO-BFS with predecessors on the grid
-    (the deep micro-loop). Returns the K10 graph, the frontier depth of
-    each pull level, K10's launches and K14's BFS fields."""
+    (the deep micro-loop), and with ``GUNROCK_BFS_DEEP=0`` DO-BFS on
+    ``dgb`` (phase 4's upload, K1) and DO and non-DO BFS on the grid.
+    Returns the K10 graph, the frontier depth of each pull level, K10's
+    launches and K14's BFS fields."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.models.bfs import bfs_device
@@ -1764,6 +1604,24 @@ def phase_bfs_rest(gtt, g, src, bfs_labels, gg, dgw, dev):
     check_labels(gg, 0, lab)
     check_preds(gg, 0, lab, preds[:gg.num_nodes].cpu().numpy())
     print("[bfs-deep] labels equal scipy's depths; preds valid")
+
+    for name, graph, s, want, do in (
+            ("DO-BFS on phase 4's upload (K1)", dgb, src, bfs_labels, True),
+            ("DO-BFS on the grid", dgw, 0, lab, True),
+            ("non-DO BFS on the grid", dgw, 0, lab, False)):
+        t0 = time.perf_counter()
+        with patch.dict(os.environ, GUNROCK_BFS_DEEP="0"):
+            labels, _, st = bfs_device(graph, s, direction_optimized=do)
+        torch.cuda.synchronize()
+        print(f"[bfs-deep] GUNROCK_BFS_DEEP=0, {name}: {st.iteration} levels, "
+              f"{st.deep_stretches} deep stretches, "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        if st.deep_stretches:
+            raise AssertionError(f"{name} ran the deep micro-loop with "
+                                 "GUNROCK_BFS_DEEP=0")
+        if not np.array_equal(labels[:want.shape[0]].cpu().numpy(), want):
+            raise AssertionError(f"{name} with GUNROCK_BFS_DEEP=0: labels "
+                                 "differ")
     return dgk, pull_depths, launches["bitmask_gather_cumsum"], k14
 
 
@@ -1787,9 +1645,9 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
         if not torch.equal(got, want):
             raise AssertionError(f"K10 differs from its plain version at the "
                                  f"pull of depth {d}")
-        ms = _median_ms(lambda: K.bitmask_gather_cumsum(words, idx))
-        plain = _median_ms(lambda: K.bitmask_gather_cumsum_plain(words, idx),
-                           reps=5)
+        ms = call_ms(lambda: K.bitmask_gather_cumsum(words, idx))
+        plain = call_ms(lambda: K.bitmask_gather_cumsum_plain(words, idx),
+                        reps=5)
         out["ms"] += ms
         out["plain_ms"] += plain
         print(f"[kernels] K10 bitmask_gather_cumsum, frontier of depth {d} "
@@ -1802,10 +1660,10 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
         raise AssertionError("K10 differs from its plain version at "
                              f"{K10_ODD_LENGTH} ids")
     fronts = [K.pack_bitmask(labels == d) for d in pull_depths]
-    out["device_ms"] = _device_ms(
-        lambda: [K.bitmask_gather_cumsum(w, idx) for w in fronts])
+    out["device_ms"] = profile_run(
+        lambda: [K.bitmask_gather_cumsum(w, idx) for w in fronts])["device_ms"]
     hits = K.bitmask_gather_plain(words, idx)
-    cum_ms = _median_ms(lambda: torch.cumsum(hits, 0, dtype=torch.int32))
+    cum_ms = call_ms(lambda: torch.cumsum(hits, 0, dtype=torch.int32))
     # A level: the ids read and the sums written, 4 bytes each an id, and
     # the frontier words.
     out.update(bound(len(pull_depths) * (8 * idx.shape[0]
@@ -1818,42 +1676,6 @@ def phase_k10_kernel(dgk, bfs_labels, pull_depths, dev):
           f"precomputed hits {cum_ms:.4f} ms a level (no PyTorch call "
           f"computes K10's function)")
     return out
-
-
-def phase_bfs_timing(src, edges_visited, dgb, dgk, gg, dgw, card):
-    """Phase 23: best of RUNS BFS runs after a warm-up: DO-BFS on the
-    flagship with the blocked CSC (K1), with and without the deep
-    micro-loop, and without the blocked CSC (K10); DO and non-DO BFS on
-    the grid with and without the deep micro-loop (GRID_RUNS each)."""
-    from gunrock_tpu_torch.models.bfs import bfs_device
-    off = {"GUNROCK_BFS_DEEP": "0"}
-    for name, fn, edges, flags in (
-            ("DO-BFS flagship, K1 graph",
-             lambda: bfs_device(dgb, src, direction_optimized=True),
-             edges_visited, {}),
-            ("DO-BFS flagship, K1 graph, GUNROCK_BFS_DEEP=0",
-             lambda: bfs_device(dgb, src, direction_optimized=True),
-             edges_visited, off),
-            ("DO-BFS flagship, K10 graph",
-             lambda: bfs_device(dgk, src, direction_optimized=True),
-             edges_visited, {}),
-            ("DO-BFS grid, deep micro-loop",
-             lambda: bfs_device(dgw, 0, direction_optimized=True),
-             gg.num_edges, {}),
-            ("DO-BFS grid, GUNROCK_BFS_DEEP=0",
-             lambda: bfs_device(dgw, 0, direction_optimized=True),
-             gg.num_edges, off),
-            ("non-DO BFS grid, deep micro-loop", lambda: bfs_device(dgw, 0),
-             gg.num_edges, {}),
-            ("non-DO BFS grid, GUNROCK_BFS_DEEP=0",
-             lambda: bfs_device(dgw, 0), gg.num_edges, off)):
-        runs = GRID_RUNS if "grid" in name else RUNS
-        with patch.dict(os.environ, flags):
-            best, times = best_of(fn, runs)
-        print(f"[timing] {name}: best {best:.3f} ms of {runs} "
-              f"({', '.join(f'{t:.3f}' for t in times)}); "
-              f"{edges / (best * 1000.0):.1f} MTEPS (edges {edges}); "
-              f"on {card}")
 
 
 def phase_above_cap(gtt, dev):
@@ -1906,7 +1728,7 @@ def phase_above_cap(gtt, dev):
             if not torch.equal(run(), want):
                 raise AssertionError(f"{kernel} differs from its plain "
                                      f"version above the cap at level {d}")
-            ms += _median_ms(run, reps=5)
+            ms += call_ms(run, reps=5)
         print(f"[cap] {kernel}: DO-BFS labels equal scipy's depths, preds "
               f"valid, {pulls} pull levels through it; at masks of "
               f"{words.shape[0]} words (through L1), equal to the plain "
@@ -1917,26 +1739,21 @@ def phase_above_cap(gtt, dev):
 TC_SCALE, TC_EDGE_FACTOR = 14, 16   # phase 26's exact check against cpu_tc
 TC_SMALL_BUDGET = 1 << 20           # and its several-chunk run
 TC_SAMPLED_EDGES = 100_000
-TC_PROFILED_CHUNKS = 5
 
 
-def phase_tc(gtt, g, src, bfs_labels, dgv, card):
+def phase_tc(gtt, g, src, bfs_labels, dgv):
     """Phase 26: TC on the flagship through ``gtt.tc`` (its chunk count,
     the count identities, 100,000 sampled oriented edges against
     ``np.intersect1d`` of their DAG rows), exact against ``cpu_tc`` on
     R-MAT scale 14 in one chunk and in several, the ``tc`` CLI, ``sample``
-    from the hub against phase 3's labels, the A4 operators on the card
-    against the same functions on the CPU, then TC's timing (best of RUNS
-    ``process_ms`` after a warm-up, wedges per microsecond), the device
-    time of its first chunks split by step and its busy share."""
+    from the hub against phase 3's labels, and the A4 operators on the
+    card against the same functions on the CPU."""
     import importlib
 
     import numpy as np
     import torch
     from gunrock_tpu_torch.ops import cull_filter, expand_inverse, pull_reduce
-    from gunrock_tpu_torch.ops import intersection as I
     from gunrock_tpu_torch.ops import kernels as K
-    from gunrock_tpu_torch.tools.profile_value import profile_run
     from gunrock_tpu_torch.utils.reference import cpu_tc
     tcm = importlib.import_module("gunrock_tpu_torch.models.tc")
     dev = dgv.device
@@ -2045,60 +1862,14 @@ def phase_tc(gtt, g, src, bfs_labels, dgv, card):
           f"({time.perf_counter() - t0:.3f} s)")
     del dc
 
-    def timed():
-        return gtt.tc(g, device="cuda").info["process_ms"]
 
-    times = [timed() for _ in range(RUNS)]
-    best = min(times)
-    print(f"[timing] tc flagship: process_ms best {best:.3f} of {RUNS} "
-          f"({', '.join(f'{t:.3f}' for t in times)}); "
-          f"{best / info['num_chunks']:.3f} ms a chunk "
-          f"({info['num_chunks']}); {prep.wedge_total / (best * 1e3):.1f} "
-          f"wedges a microsecond; {res.total} triangles; on {card}")
-
-    # The device time of the first chunks, step by step, and the busy
-    # share of a whole run (the upload and the chunk loop).
-    drow = torch.from_numpy(prep.row).to(dev)
-    dcol = torch.from_numpy(prep.col).to(dev)
-    desrc = torch.from_numpy(prep.esrc_full).to(dev)
-    n = dag.num_edges
-    steps = dict.fromkeys(("expansion", "sort", "run flag and gather",
-                           "scatters"), 0.0)
-    for a, b in zip(prep.bounds, prep.bounds[1:TC_PROFILED_CHUNKS + 1]):
-        cs, cd = desrc[a:b], dcol[a:b]
-        u, w, rank, _ = I.wedges(drow, dcol, cs, cd)
-        keys, perm = I.join(desrc, dcol[:n], u, w, prep.v_pad)
-        hit = I.hits(keys, perm, n)
-        for step, fn in (
-                ("expansion", lambda: I.wedges(drow, dcol, cs, cd)),
-                ("sort", lambda: I.join(desrc, dcol[:n], u, w, prep.v_pad)),
-                ("run flag and gather", lambda: I.hits(keys, perm, n)),
-                ("scatters", lambda: I.count(hit, w, rank, cs, cd,
-                                             prep.v_pad))):
-            steps[step] += profile_run(fn, 1, dev)["device_ms"]
-        del u, w, rank, keys, perm, hit
-    total_ms = sum(steps.values())
-    print(f"[tc] device time of the first {TC_PROFILED_CHUNKS} chunks, "
-          f"{total_ms:.3f} ms: " + ", ".join(
-              f"{k} {v:.3f} ms ({100.0 * v / total_ms:.1f}%)"
-              for k, v in steps.items()))
-    whole = profile_run(lambda: tcm._tc_run(prep, dev), 1, dev)
-    print(f"[tc] a whole run under the profiler: wall "
-          f"{whole['wall_ms']:.3f} ms, device {whole['device_ms']:.3f} ms, "
-          f"busy {100.0 * whole['device_ms'] / whole['wall_ms']:.1f}%; "
-          f"largest: " + "; ".join(f"{name[:60]} {ms:.3f} ms ({calls:.0f})"
-                                   for name, calls, ms in whole["events"][:6]))
-    del drow, dcol, desrc
-    torch.cuda.empty_cache()
-
-
-def phase_sssp_carry(g, src, dgs, dist, dgw, card):
+def phase_sssp_carry(g, src, dgs, dist, dgw):
     """Phase 27: SSSP's value-carry micro-loop (``deep_carry=True``) on
     the flagship with phase 12's near-far delta and on the grid of phase
     13 (delta 256, through the sweeps' bail-out): distances bitwise equal
     to the ``deep_carry=False`` runs, iteration and edge counts equal,
-    K5 launched on each graph. Then the grid with and without carry,
-    best of 3 each, in turns. Returns K5's launches in the carry runs."""
+    K5 launched on each graph. Returns K5's launches in the carry
+    runs."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.models.sssp import sssp_device
@@ -2139,17 +1910,6 @@ def phase_sssp_carry(g, src, dgs, dist, dgw, card):
         k5 += n1["sample_sorted"] + n1["sample_sorted2"]
     print("[carry] distances bitwise equal to the non-carry routes, rounds "
           "and edge counts equal, on both graphs")
-    times = {False: [], True: []}
-    for carry in (False, True, True, False, False, True):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sssp_device(dgw, 0, mode="pull", delta=GRID_DELTA, deep_carry=carry)
-        torch.cuda.synchronize()
-        times[carry].append((time.perf_counter() - t0) * 1e3)
-    for carry in (False, True):
-        print(f"[timing] sssp grid, deep_carry={carry}: best "
-              f"{min(times[carry]):.3f} ms of 3 "
-              f"({', '.join(f'{t:.3f}' for t in times[carry])}); on {card}")
     return k5
 
 
@@ -2188,8 +1948,9 @@ def phase_sizet64(gtt, g, src, dev, card):
     pulls), CC, PageRank's loop route (K3) and BC, hybrid and fused (K5,
     K7, K8), on both: every result bitwise equal across the two uploads,
     or, where a route sums with atomics and two runs on one upload differ
-    too, within PERF.md section 2's tolerance. Best of RUNS DO-BFS for
-    both, in turns. Returns the launch counts of the sizet64 runs."""
+    too, within PERF.md section 2's tolerance; then K3's int64 instance
+    against its int32 one. Returns the launch counts of the sizet64 runs
+    and K3's times a call on both uploads."""
     import numpy as np
     import torch
     from gunrock_tpu_torch.models.bc import bc_device
@@ -2265,24 +2026,6 @@ def phase_sizet64(gtt, g, src, dev, card):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the sizet64 "
                                  "graph")
-
-    def do_bfs(d):
-        return lambda: bfs_device(d, src, direction_optimized=True)
-
-    times = {"int32": [], "sizet64": []}
-    for d in (d32, d64):
-        do_bfs(d)()
-    torch.cuda.synchronize()
-    for _ in range(RUNS):
-        for name, d in (("int32", d32), ("sizet64", d64)):
-            t0 = time.perf_counter()
-            do_bfs(d)()
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-    for name, ts in times.items():
-        print(f"[sizet64] DO-BFS elapsed_ms best {min(ts):.3f} of {RUNS} on "
-              f"the {name} upload ({', '.join(f'{t:.3f}' for t in ts)}), "
-              f"in turns; on {card}")
     # K3 sum/none through its int64 instance (the sizet64 upload's
     # offsets as they are) and its int32 one (the int32 upload, the
     # bounds the narrowing would give): bitwise equal, then the median
@@ -2297,7 +2040,7 @@ def phase_sizet64(gtt, g, src, dev, card):
         order = (("int32", d32), ("int64", d64))
         for name, d in order if r % 2 == 0 else order[::-1]:
             k3_times[name].append(
-                _median_ms(lambda: P.pull_reduce2(vals, d)))
+                call_ms(lambda: P.pull_reduce2(vals, d)))
     for name, ts in k3_times.items():
         print(f"[sizet64] K3 sum/none, {name} offsets: median "
               f"{sorted(ts)[len(ts) // 2]:.4f} ms a call, spread "
@@ -2616,7 +2359,7 @@ def phase_ring_values(dg, dev, card):
                 a, r = _errs(got[rows], want)
                 err, rel = max(err, a), max(rel, r)
         chunk_s = time.perf_counter() - t0
-        ms = _median_ms(lambda: P.pull_reduce2(vals, dg, **kw))
+        ms = call_ms(lambda: P.pull_reduce2(vals, dg, **kw))
         streams = 2 if kw["wmode"] != "none" else 1
         # indices (+ weights) an edge, the int64 offsets, values and out
         b = bound(pull_bytes(e, dg.v_pad, 4, streams))
@@ -2903,8 +2646,8 @@ def _shard_kernels(K, P, glob, compact, words_by_level, tables, card):
             if not torch.equal(got, want):
                 raise AssertionError(f"K1 on a shard view differs from its "
                                      f"plain version at level {d}")
-            ms += _median_ms(lambda: K.pull_reached_words(words, view))
-            plain += _median_ms(
+            ms += call_ms(lambda: K.pull_reached_words(words, view))
+            plain += call_ms(
                 lambda: K.pull_reached_words_plain(words, view), reps=5)
         k1["shard_ms"] += ms
         k1["shard_plain_ms"] += plain
@@ -2939,9 +2682,9 @@ def _shard_kernels(K, P, glob, compact, words_by_level, tables, card):
             rel = max(rel, rel_err)
             k3["compact_max_abs_err"] = max(k3["compact_max_abs_err"],
                                             abs_err)
-            ms += _median_ms(lambda: P.pull_reduce2(table[i], view, op=op,
-                                                    wmode=wmode))
-            plain += _median_ms(lambda: P.pull_reduce2_plain(
+            ms += call_ms(lambda: P.pull_reduce2(table[i], view, op=op,
+                                                 wmode=wmode))
+            plain += call_ms(lambda: P.pull_reduce2_plain(
                 table[i], view, op=op, wmode=wmode), reps=5)
         k3["compact_max_rel_err"] = max(k3["compact_max_rel_err"], rel)
         # ids and weights an edge; offsets, table and output a shard
@@ -3576,7 +3319,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
     import gunrock_tpu_torch as gtt
@@ -3585,12 +3327,8 @@ def main() -> int:
     from gunrock_tpu_torch.ops import kernels as K
 
     # 1. Environment.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
+    card = card_string(dev)
     print(f"[env] nvidia-smi: {card}")
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(dev)}, "
@@ -3669,8 +3407,8 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"K1 differs from its plain version at "
                                  f"{name}")
-        ms = _median_ms(lambda: K.pull_reached_words(words, dg))
-        plain = _median_ms(
+        ms = call_ms(lambda: K.pull_reached_words(words, dg))
+        plain = call_ms(
             lambda: K.pull_reached_words_plain(words, dg))
         if name in pull_levels:
             k1_ms += ms
@@ -3690,82 +3428,56 @@ def main() -> int:
           f"{k1_plain_ms:.4f} ms; bound {k1_work['bound_ms']:.4f} ms (the "
           f"two edge streams counted before: {k1_old['bound_ms']:.4f})")
 
-    # 5. Timing, as bench.py times the flagship: bfs_device on the
-    # uploaded graph, no predecessors, best of RUNS after a warm-up.
-    def run():
-        out = bfs_device(dg, src, direction_optimized=True)
-        torch.cuda.synchronize()
-        return out
-
-    lab_t, _, _ = run()
+    # DO-BFS as bench.py runs the flagship: bfs_device on the uploaded
+    # graph, no predecessors.
+    lab_t, _, _ = bfs_device(dg, src, direction_optimized=True)
     if not torch.equal(lab_t[:g.num_nodes].cpu(),
                        torch.from_numpy(res.labels)):
-        raise AssertionError("timed traversal's labels differ")
-    times = []
-    for _ in range(RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        times.append((time.perf_counter() - t0) * 1e3)
-    best = min(times)
-    mteps = info["edges_visited"] / (best * 1000.0)
-    per_level = []
-    bfs_device(dg, src, direction_optimized=True, instrument=per_level)
-    print(f"[timing] elapsed_ms best {best:.3f} of {RUNS} "
-          f"({', '.join(f'{t:.3f}' for t in times)}); {mteps:.1f} MTEPS "
-          f"(edges_visited {info['edges_visited']}); search_depth "
-          f"{info['search_depth']}; on {card}")
-    print(f"[timing] per level: " + ", ".join(
-        f"{r['iteration']}:{r['phase']} {r['ms']:.3f} ms"
-        for r in per_level))
-    print(f"[timing] card: {card}")
-    # K1's device time, profiled after the timed traversals.
+        raise AssertionError("bfs_device's labels differ from phase 3's")
+    print("[main] bfs_device on the K1 upload, no predecessors: labels "
+          "equal phase 3's")
     pull_words = [K.pack_bitmask(masks[name]) for name in sorted(pull_levels)]
-    k1_device = _device_ms(
-        lambda: [K.pull_reached_words(w, dg) for w in pull_words])
+    k1_device = profile_run(
+        lambda: [K.pull_reached_words(w, dg) for w in pull_words])["device_ms"]
     print(f"[kernels] K1 device time summed over the main path's pull "
           f"levels: {k1_device:.4f} ms")
 
     # 6-7. PageRank; 8. HITS and SALSA; 9. K3/K4 against their plain
-    # versions; 10. timing of the value primitives.
+    # versions.
     dg, power_launches, loop_launches = phase_pagerank(gtt, g, dev)
     link_launches = phase_link_analysis(gtt, g)
     k3, k4 = phase_value_kernels(dg, dev)
-    phase_value_timing(dg, card)
     dgv = dg  # phase 25 runs WTF on it
 
     # 11-12. SSSP; 13. the grid and non-DO BFS; 14. K5-K8 against their
-    # plain versions; 15. timing.
-    dgs, dist, sssp_launches, k14_sssp = phase_sssp(gtt, g, src, dev, card)
+    # plain versions.
+    dgs, dist, sssp_launches, k14_sssp = phase_sssp(gtt, g, src, dev)
     gg, dgw = phase_grid(gtt, g, src, dgs, res.labels, dev)
     sk = phase_sssp_kernels(dgs, src, dist, dev)
-    phase_sssp_timing(g, src, dgs, gg, dgw, card)
 
-    # 16-17. BC; 18. CC; 19. K9 against its plain version; 20. timing.
+    # 16-17. BC; 18. CC; 19. K9 against its plain version.
     bc_launches = phase_bc(gtt, g, src, dgs, res.labels)
     dgc, cc_launches = phase_cc(gtt, g, dev)
     k9 = phase_bc_kernels(dgs, src, dev)
-    phase_bc_timing(g, src, dgs, dgc, card)
     del dgc
 
-    # 21. The rest of BFS: K10 and the deep micro-loop; 22. K10 against
-    # its plain version; 23. timing.
+    # 21. The rest of BFS: K10, the deep micro-loop and the loop off;
+    # 22. K10 against its plain version.
     dgk, pull_depths, k10_launches, k14 = phase_bfs_rest(
-        gtt, g, src, res.labels, gg, dgw, dev)
+        gtt, g, src, res.labels, dgb, gg, dgw, dev)
     k10 = phase_k10_kernel(dgk, res.labels, pull_depths, dev)
-    phase_bfs_timing(src, info["edges_visited"], dgb, dgk, gg, dgw, card)
     del dgk, dgb
 
     # 24. K1 and K10 above the shared-memory cap.
     phase_above_cap(gtt, dev)
 
     # 25. WTF and TopK.
-    wtf_launches = phase_wtf_topk(gtt, g, src, dgv, card)
+    wtf_launches = phase_wtf_topk(gtt, g, src, dgv)
 
     # 26. TC, sample and the rest of the operators; 27. SSSP's value-carry
     # micro-loop.
-    phase_tc(gtt, g, src, res.labels, dgv, card)
-    carry_launches = phase_sssp_carry(g, src, dgs, dist, dgw, card)
+    phase_tc(gtt, g, src, res.labels, dgv)
+    carry_launches = phase_sssp_carry(g, src, dgs, dist, dgw)
     del dgw, dgs, dgv, dg
     torch.cuda.empty_cache()
 

@@ -1,2 +1,3 @@
-"""Measurement scripts for the port, run as ``python -m
-gunrock_tpu_torch.tools.<name>``."""
+"""The port's tools, run as ``python -m gunrock_tpu_torch.tools.<name>``:
+``card_profile`` (profiles on the card), ``convert``,
+``dryrun_multichip`` and ``shard_ranks``."""

@@ -246,15 +246,47 @@ def test_last_hit_args(sizet64, dry_launch):
         assert g.csc_edge_dst.data_ptr() not in args
 
 
-def test_profile_pull_tool_runs_on_cpu(capsys):
-    """The profiling script's code path at a tiny size; on the CPU the
-    profiler records no device events, and it says so."""
-    from gunrock_tpu_torch.tools import profile_pull
-    assert profile_pull.main(["--scale=8", "--edge-factor=4",
-                              "--winners=50", "--reps=2",
-                              "--device=cpu"]) == 0
+# The profile tool's groups at a tiny size: each group's case names (the
+# pull group's are checked line by line below) and its line count, the
+# graph headers included.
+PROFILE_GROUPS = {
+    "value": (("pagerank power route", "pagerank loop route", "hits",
+               "wtf"), 5),
+    "sssp": (("sssp sweep route", "sssp near-far", "sssp near-far fused",
+              "sssp grid", "sssp grid, deep_carry", "non-DO bfs grid",
+              "DO-bfs, K10", "DO-bfs, K1", "DO-bfs grid", "bc hybrid",
+              "bc hybrid fused"), 13),
+    "pull": ((), 23),
+    "sharded": (("DO-BFS (K1)", "non-DO BFS", "SSSP near-far (K3)"), 5),
+    "tc": ((), 3),
+}
+
+
+@pytest.mark.parametrize("group", sorted(PROFILE_GROUPS))
+def test_card_profile_group_runs_on_cpu(group, capsys):
+    """One group of ``tools/card_profile.py`` at a tiny size: its cases
+    run and print, no other group's; on the CPU the profiler records no
+    device events, and the tool says so."""
+    from gunrock_tpu_torch.tools import card_profile
+    assert card_profile.main(["--scale=8", "--edge-factor=4",
+                              "--grid-side=16", "--runs=1", "--reps=2",
+                              "--winners=50", "--device=cpu", "--only",
+                              group]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 23 and "|E|=" in lines[0]
+    names, count = PROFILE_GROUPS[group]
+    assert len(lines) == count and "|E|=" in lines[0]
+    assert "device not measured" in "\n".join(lines)
+    for name in names:
+        assert any(line.startswith((f"[{name}] ", f"{name}: "))
+                   for line in lines), name
+    if group == "sharded":
+        assert sum("median" in line and "digest" in line
+                   for line in lines) == 3
+    if group == "tc":
+        assert lines[1].startswith("[tc] the first 1 of 1 chunks by step")
+        assert lines[2].startswith("[tc] a whole run: wall")
+    if group != "pull":
+        return
     for line in lines[1:]:
         assert "(host " in line and "device not measured" in line, line
     assert "K3 pull_reduce2" in lines[1] and "index_reduce_" in lines[5]

@@ -496,19 +496,6 @@ def test_cli_value_primitives_correct(capsys, tmp_path, prim):
     assert not any(K.LAUNCHES.values())
 
 
-def test_profile_value_tool_runs_on_cpu(capsys):
-    """The profiling script's code path at a tiny size; on the CPU the
-    profiler records no device events, and it says so."""
-    from gunrock_tpu_torch.tools import profile_value
-    assert profile_value.main(["--scale=8", "--edge-factor=4", "--runs=1",
-                               "--device=cpu"]) == 0
-    out = capsys.readouterr().out
-    for name in ("pagerank power route", "pagerank loop route", "hits",
-                 "wtf"):
-        assert f"[{name}]" in out
-    assert "device not measured" in out
-
-
 def _pr64_iterations(g, *, damping=0.85, threshold=1e-6, max_iters=50):
     """The PageRank loop's iteration count (normalized, its stop rule: no
     vertex moved more than ``threshold``) in float64."""

@@ -420,18 +420,3 @@ def test_cli_sssp_correct(capsys, tmp_path):
     text = capsys.readouterr().out
     assert rc == 0 and "sssp validation: CORRECT" in text
     assert not any(K.LAUNCHES.values())
-
-
-def test_profile_sssp_tool_runs_on_cpu(capsys):
-    """The SSSP profiling script's code path at a tiny size; on the CPU
-    the profiler records no device events, and it says so."""
-    from gunrock_tpu_torch.tools import profile_sssp
-    assert profile_sssp.main(["--scale=8", "--edge-factor=4",
-                              "--grid-side=16", "--runs=1",
-                              "--device=cpu"]) == 0
-    out = capsys.readouterr().out
-    for name in ("sssp sweep route", "sssp near-far", "sssp near-far fused",
-                 "sssp grid", "non-DO bfs grid", "DO-bfs, K10", "DO-bfs, K1",
-                 "DO-bfs grid", "bc hybrid", "bc hybrid fused"):
-        assert f"[{name}]" in out
-    assert "device not measured" in out
